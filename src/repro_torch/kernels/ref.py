@@ -1,0 +1,163 @@
+"""Plain PyTorch versions of the stream engine (the port's force-ref path).
+
+These are written from the math, op by op, with no custom kernel: the
+ground truth the CUDA stream-engine kernels are held to on the card, and
+what the kernel wrappers run for tensors that lie on the CPU.
+
+Padded ELL layout, as the kernels read it:
+  neigh_idx  (N, K) int32 — local source node per (dst, slot); 0 on padding
+  neigh_coef (N, K) f32   — GCN normalisation; 0 on padding (kills the lane)
+  neigh_eidx (N, K) int32 — edge index for edge-feature lookup; 0 on padding
+
+The stream versions run a Python loop over T with the batch written out as
+a leading B axis; the solo versions are the B = 1 case.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def ell_gather_msgs(neigh_idx, neigh_coef, neigh_eidx, x, edge_msg=None):
+    """(..., N, K, D) messages coef * (x[src] + edge_msg[eidx]); any
+    leading batch axes are shared by every argument."""
+    g = _take_rows(x, neigh_idx)
+    if edge_msg is not None:
+        g = g + _take_rows(edge_msg, neigh_eidx)
+    return g * neigh_coef[..., None]
+
+
+def ell_spmm(neigh_idx, neigh_coef, neigh_eidx, x, edge_msg=None):
+    """agg[v] = sum_k coef[v,k] * (x[idx[v,k]] + emsg[eidx[v,k]])."""
+    return ell_gather_msgs(neigh_idx, neigh_coef, neigh_eidx, x,
+                           edge_msg).sum(dim=-2)
+
+
+def fused_gru(x, h, wx, wh, b):
+    gx = x @ wx + b
+    gh = h @ wh
+    rx, zx, nx = gx.chunk(3, dim=-1)
+    rh, zh, nh = gh.chunk(3, dim=-1)
+    r = torch.sigmoid(rx + rh)
+    z = torch.sigmoid(zx + zh)
+    n = torch.tanh(nx + r * nh)
+    return (1.0 - z) * n + z * h
+
+
+def fused_lstm(x, h, c, wx, wh, b):
+    gates = x @ wx + h @ wh + b
+    i, f, g, o = gates.chunk(4, dim=-1)
+    c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+    h_new = torch.sigmoid(o) * torch.tanh(c_new)
+    return h_new, c_new
+
+
+def dgnn_fused_step(neigh_idx, neigh_coef, neigh_eidx, x, h, c, wx, wh, b,
+                    edge_msg=None):
+    """GCRN-M2 step: ELL-aggregate x and h, gate transform, LSTM update."""
+    agg_x = ell_spmm(neigh_idx, neigh_coef, neigh_eidx, x, edge_msg)
+    agg_h = ell_spmm(neigh_idx, neigh_coef, neigh_eidx, h, None)
+    return fused_lstm(agg_x, agg_h, c, wx, wh, b)
+
+
+def _take_rows(table, index):
+    """table (..., R, D) gathered at index (..., N, K) -> (..., N, K, D),
+    the leading axes of both shared."""
+    lead = index.shape[:-2]
+    n, k = index.shape[-2:]
+    flat = index.reshape(*lead, n * k, 1).long()
+    g = torch.gather(table, -2, flat.expand(*lead, n * k, table.shape[-1]))
+    return g.reshape(*lead, n, k, table.shape[-1])
+
+
+def _gather_rows(store, renumber, mask):
+    """(B, G, H) store rows at (B, n) renumber; -1 reads row 0, masked."""
+    safe = torch.where(renumber >= 0, renumber, 0).long()
+    rows = torch.gather(store, 1, safe[..., None].expand(*safe.shape,
+                                                          store.shape[-1]))
+    return rows * mask[..., None]
+
+
+def _scatter_rows_(store, renumber, val):
+    """In place: store[b, renumber[b, v]] = val[b, v] where renumber >= 0
+    (-1 drops the row)."""
+    bi, vi = torch.nonzero(renumber >= 0, as_tuple=True)
+    store[bi, renumber[bi, vi].long()] = val[bi, vi]
+
+
+def gcrn_stream_batched_ref(neigh_idx, neigh_coef, neigh_eidx, node_feat,
+                            renumber, node_mask, h0, c0, wx, wh, b,
+                            edge_msg=None):
+    """B independent GCRN streams: (B, T, n, ...) snapshot arrays, (B, G, H)
+    state stores. Returns (per-step h (B, T, n, H), final h, final c)."""
+    h_store, c_store = h0.clone(), c0.clone()
+    outs = []
+    for t in range(neigh_idx.shape[1]):
+        ren, mask = renumber[:, t], node_mask[:, t]
+        h = _gather_rows(h_store, ren, mask)
+        c = _gather_rows(c_store, ren, mask)
+        em = None if edge_msg is None else edge_msg[:, t]
+        h_new, c_new = dgnn_fused_step(neigh_idx[:, t], neigh_coef[:, t],
+                                       neigh_eidx[:, t], node_feat[:, t],
+                                       h, c, wx, wh, b, em)
+        m = mask[..., None]
+        h_new, c_new = h_new * m, c_new * m
+        _scatter_rows_(h_store, ren, h_new)
+        _scatter_rows_(c_store, ren, c_new)
+        outs.append(h_new)
+    return torch.stack(outs, dim=1), h_store, c_store
+
+
+def gcrn_stream_ref(neigh_idx, neigh_coef, neigh_eidx, node_feat, renumber,
+                    node_mask, h0, c0, wx, wh, b, edge_msg=None):
+    """One GCRN stream: (T, n, ...) arrays, (G, H) stores. Returns
+    (per-step h (T, n, H), final h store, final c store)."""
+    em = None if edge_msg is None else edge_msg[None]
+    outs, hT, cT = gcrn_stream_batched_ref(
+        neigh_idx[None], neigh_coef[None], neigh_eidx[None], node_feat[None],
+        renumber[None], node_mask[None], h0[None], c0[None], wx, wh, b, em)
+    return outs[0], hT[0], cT[0]
+
+
+def evolve_stream_batched_ref(neigh_idx, neigh_coef, node_feat, node_mask,
+                              live, weights0, b_gcn, gru_wx, gru_wh, gru_b,
+                              edge_aggs=None):
+    """B independent EvolveGCN streams: (B, T, n, ...) arrays, per-layer
+    (B, din_l, dout_l) evolving weights; GRU params and GCN biases shared.
+
+    Per step t the L-layer GCN consumes the current weights (agg @ W_l +
+    b_l, ReLU between layers, masked every layer; ``edge_aggs[l]`` (B, T,
+    n, din_l) is the pre-aggregated edge term), then on live steps the
+    matrix-GRU evolves every layer's weight for step t+1. Returns (per-step
+    outputs (B, T, n, out_dim), final weights tuple)."""
+    ws = list(weights0)
+    outs = []
+    for t in range(neigh_idx.shape[1]):
+        idx, coef = neigh_idx[:, t], neigh_coef[:, t]
+        m = node_mask[:, t][..., None]
+        x = node_feat[:, t]
+        for i, w in enumerate(ws):
+            agg = (_take_rows(x, idx) * coef[..., None]).sum(dim=-2)
+            if edge_aggs is not None:
+                agg = agg + edge_aggs[i][:, t]
+            h = agg @ w + b_gcn[i]
+            if i < len(ws) - 1:
+                h = torch.relu(h)
+            x = h * m
+        outs.append(x)
+        on = (live[:, t] > 0)[:, None, None]
+        ws = [torch.where(on, fused_gru(w.transpose(1, 2), w.transpose(1, 2),
+                                        wx, wh, bb).transpose(1, 2), w)
+              for w, wx, wh, bb in zip(ws, gru_wx, gru_wh, gru_b)]
+    return torch.stack(outs, dim=1), tuple(ws)
+
+
+def evolve_stream_ref(neigh_idx, neigh_coef, node_feat, node_mask, live,
+                      weights0, b_gcn, gru_wx, gru_wh, gru_b, edge_aggs=None):
+    """One EvolveGCN stream: (T, n, ...) arrays, per-layer (din_l, dout_l)
+    weights. Returns (per-step outputs (T, n, out_dim), final weights)."""
+    ea = None if edge_aggs is None else [a[None] for a in edge_aggs]
+    outs, wT = evolve_stream_batched_ref(
+        neigh_idx[None], neigh_coef[None], node_feat[None], node_mask[None],
+        live[None], [w[None] for w in weights0], b_gcn, gru_wx, gru_wh,
+        gru_b, ea)
+    return outs[0], tuple(w[0] for w in wT)

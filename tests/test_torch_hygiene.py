@@ -1,0 +1,81 @@
+"""Hygiene of the port: no JAX inside it, the card by default, no fallback.
+
+* No module of ``src/repro_torch`` and not ``chip_smoke.py`` imports
+  ``jax`` or the JAX package ``repro`` (its own ``repro_torch`` is fine).
+* Entry points asked for the default device on a host without CUDA raise
+  instead of running on the CPU.
+* The kernel wrappers run the plain version only for CPU tensors: where
+  the kernel cannot be built or launched they raise.
+"""
+import ast
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+import harness
+from repro_torch import api
+from repro_torch.configs.dgnn import GCRN_M2
+from repro_torch.kernels import engine, ops
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_port_imports_no_jax_and_no_reference(path):
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+@pytest.fixture
+def no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card: the default device runs")
+
+
+def test_entry_points_default_to_cuda_and_raise(no_cuda):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        api.BoosterSession(GCRN_M2, api.plan(GCRN_M2, level="v3"))
+    args, _, _ = harness.stream_kernel_case("gcrn", seed=0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ops.stream_steps("gcrn", *args)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ops.stream_steps_batched("gcrn", *[a[None] for a in args[:8]],
+                                 *args[8:])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        api.run_arrays(api.plan(family="gcrn"), *args)
+
+
+def test_kernel_wrappers_raise_instead_of_falling_back(no_cuda):
+    for name in engine.KERNELS:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            engine._library(name)
+    meta = torch.zeros((1, 1, 8, 2), device="meta")
+    with pytest.raises(ValueError, match="not supported"):
+        engine.gcrn_engine(*([meta] * 11))
+    with pytest.raises(ValueError, match="not supported"):
+        engine.evolve_engine(*([meta] * 10))
+    assert all(v == 0 for v in engine.LAUNCHES.values())
+
+
+def test_cpu_wrapper_runs_the_plain_version_and_counts_nothing():
+    args, oracle, _ = harness.stream_kernel_case("gcrn", seed=2)
+    engine.reset_launches()
+    outs, hT, cT = ops.stream_steps("gcrn", *args, tn=32, device="cpu")
+    want = oracle(*args)
+    np.testing.assert_allclose(outs.numpy(), np.asarray(want[0]), atol=3e-4)
+    assert engine.LAUNCHES == {name: 0 for name in engine.KERNELS}
