@@ -24,9 +24,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs.dgnn import DGNNConfig
-from repro_torch.core.dataflow import (_check_executable, build_model,
-                                       init_states_batched, run_plan,
-                                       run_plan_batched)
+from repro_torch.core.dataflow import (SERVE_ITEM, _check_executable,
+                                       build_model, init_states_batched,
+                                       run_plan, run_plan_batched)
 from repro_torch.graph.padding import stack_ragged
 from repro_torch.kernels import engine as _engine
 from repro_torch.kernels import ops as _ops
@@ -49,12 +49,11 @@ _FAMILY_OF_TYPE = {
     "static": "static_gcn",
 }
 
-# alignment of the node / state tile knobs: the CUDA kernels' register
-# micro-tile of ROW_ALIGN rows (the node axis is padded to whole tn tiles,
-# and the evolve kernel's square width to whole micro-tiles)
+# alignment the tn / td knobs are validated against: the CUDA kernels'
+# register micro-tile of ROW_ALIGN rows. The kernels take any node count and
+# pad widths to the micro-tile themselves, so tn and td do not change what
+# they compute; the plan keeps both knobs so it validates as the JAX one does
 _TILE_ALIGN = _engine.ROW_ALIGN
-
-_SERVE_ITEM = "the serve layer is ROADMAP.md queue 1 item 12"
 
 _UNSET = object()
 
@@ -76,6 +75,11 @@ class DeviceSpec:
     axis: str = "data"
 
 
+def _serve(default):
+    """A serve-policy field of :class:`StreamPlan`."""
+    return field(default=default, metadata={"serve": True})
+
+
 @dataclass(frozen=True)
 class StreamPlan:
     """A validated, immutable execution plan (see ``repro.api.StreamPlan``
@@ -91,24 +95,25 @@ class StreamPlan:
     batch: int = 1
     lengths: Optional[tuple] = None
     device: DeviceSpec = field(default_factory=DeviceSpec)
-    # serve policy (validated here; serving is not ported yet)
-    n_pad: int = 640
-    e_pad: int = 4096
-    k_max: int = 64
-    buckets: Optional[tuple] = None
-    stream_chunk: int = 8
-    queue_depth: int = 2
-    promote_buckets: Optional[float] = None
-    promotion_guard: str = "static"
-    scheduler: str = "rounds"
-    state_pool_pages: Optional[int] = None
-    prefill_chunk: Optional[int] = None
-    supervision: str = "strict"
-    max_retries: int = 0
-    retry_backoff_ms: float = 10.0
-    launch_timeout_ms: Optional[float] = None
-    degrade: bool = False
-    fault_plan: Optional[object] = None
+    # serve policy: validated here; executing a plan that sets one off its
+    # default raises (core/dataflow.py), as serving is not ported yet
+    n_pad: int = _serve(640)
+    e_pad: int = _serve(4096)
+    k_max: int = _serve(64)
+    buckets: Optional[tuple] = _serve(None)
+    stream_chunk: int = _serve(8)
+    queue_depth: int = _serve(2)
+    promote_buckets: Optional[float] = _serve(None)
+    promotion_guard: str = _serve("static")
+    scheduler: str = _serve("rounds")
+    state_pool_pages: Optional[int] = _serve(None)
+    prefill_chunk: Optional[int] = _serve(None)
+    supervision: str = _serve("strict")
+    max_retries: int = _serve(0)
+    retry_backoff_ms: float = _serve(10.0)
+    launch_timeout_ms: Optional[float] = _serve(None)
+    degrade: bool = _serve(False)
+    fault_plan: Optional[object] = _serve(None)
 
     def __post_init__(self):
         _validate(self)
@@ -266,7 +271,7 @@ def _validate(p: StreamPlan) -> None:
     if not isinstance(p.degrade, bool):
         raise ValueError(f"degrade={p.degrade!r}: need a bool")
     if p.fault_plan is not None:
-        raise NotImplementedError(f"fault_plan: {_SERVE_ITEM}")
+        raise NotImplementedError(f"fault_plan: {SERVE_ITEM}")
 
 
 def plan(cfg: Optional[DGNNConfig] = None, *, family: Optional[str] = None,
@@ -407,10 +412,10 @@ class BoosterSession:
         return states, [outs_BT[b, :lens[b]] for b in range(B)]
 
     def serve(self, snaps):
-        raise NotImplementedError(f"BoosterSession.serve: {_SERVE_ITEM}")
+        raise NotImplementedError(f"BoosterSession.serve: {SERVE_ITEM}")
 
     def serve_multi(self, streams: dict, states: Optional[dict] = None):
-        raise NotImplementedError(f"BoosterSession.serve_multi: {_SERVE_ITEM}")
+        raise NotImplementedError(f"BoosterSession.serve_multi: {SERVE_ITEM}")
 
 
 _plan_builder = plan

@@ -9,6 +9,7 @@ naming their ROADMAP item.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 from repro_torch.configs.dgnn import DGNNConfig
@@ -37,8 +38,15 @@ def build_model(cfg: DGNNConfig, n_global: int = 4096) -> Model:
     raise ValueError(cfg.dgnn_type)
 
 
+SERVE_ITEM = "the serve layer is ROADMAP.md queue 1 item 12"
+
+
 def _check_executable(plan) -> None:
     """Raise for plan fields the port cannot execute yet."""
+    for f in dataclasses.fields(plan):
+        value = getattr(plan, f.name)
+        if f.metadata.get("serve") and value != f.default:
+            raise NotImplementedError(f"{f.name}={value!r}: {SERVE_ITEM}")
     if plan.level != "v3":
         raise NotImplementedError(
             f"level={plan.level!r}: the port runs the stream engine (v3) "

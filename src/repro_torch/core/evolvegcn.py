@@ -82,19 +82,25 @@ class EvolveGCN:
                             snaps.neigh_eidx, snaps.edge_feat)
         return [agg @ p["w_edge"] for p in params["gcn"]]
 
-    def _run(self, params: dict, state: dict, snaps: PaddedSnapshot,
-             batched: bool, tn=128, td="cfg", lengths=None, force_ref=False):
-        td = self.cfg.stream_td if td == "cfg" else td
-        dev = params["gru"][0]["wx"].device
+    def stream_args(self, params: dict, state: dict,
+                    snaps: PaddedSnapshot) -> tuple:
+        """The stream engine's argument list for ``snaps`` (the order of
+        kernels/ops.stream_steps), live flags and edge terms built here."""
         # no-op (all-padding) snapshots must not evolve the weights
         live = (snaps.n_nodes > 0).to(torch.int32)
-        args = (snaps.neigh_idx, snaps.neigh_coef, snaps.node_feat,
+        return (snaps.neigh_idx, snaps.neigh_coef, snaps.node_feat,
                 snaps.node_mask, live, list(state["weights"]),
                 [p["b"] for p in params["gcn"]],
                 [g["wx"] for g in params["gru"]],
                 [g["wh"] for g in params["gru"]],
                 [g["b"] for g in params["gru"]],
                 self._edge_aggs(params, snaps))
+
+    def _run(self, params: dict, state: dict, snaps: PaddedSnapshot,
+             batched: bool, tn=128, td="cfg", lengths=None, force_ref=False):
+        td = self.cfg.stream_td if td == "cfg" else td
+        dev = params["gru"][0]["wx"].device
+        args = self.stream_args(params, state, snaps)
         if batched:
             outs, wT = kops.stream_steps_batched(
                 self.stream_family, *args, tn=tn, td=td, lengths=lengths,

@@ -55,18 +55,24 @@ class GCRN:
         return {"h": torch.zeros(shape, device=dev),
                 "c": torch.zeros(shape, device=dev)}
 
+    def stream_args(self, params: dict, state: dict,
+                    snaps: PaddedSnapshot) -> tuple:
+        """The stream engine's argument list for ``snaps`` (the order of
+        kernels/ops.stream_steps), edge messages projected here."""
+        w_edge = params.get("w_edge")
+        edge_msg = snaps.edge_feat @ w_edge if w_edge is not None else None
+        return (snaps.neigh_idx, snaps.neigh_coef, snaps.neigh_eidx,
+                snaps.node_feat, snaps.renumber, snaps.node_mask,
+                state["h"], state["c"],
+                params["lstm"]["wx"], params["lstm"]["wh"],
+                params["lstm"]["b"], edge_msg)
+
     def _stream(self, params: dict, state: dict, snaps: PaddedSnapshot,
                 batched: bool, tn=128, td="cfg", lengths=None,
                 force_ref=False):
         td = self.cfg.stream_td if td == "cfg" else td
         dev = params["lstm"]["wx"].device
-        w_edge = params.get("w_edge")
-        edge_msg = snaps.edge_feat @ w_edge if w_edge is not None else None
-        args = (snaps.neigh_idx, snaps.neigh_coef, snaps.neigh_eidx,
-                snaps.node_feat, snaps.renumber, snaps.node_mask,
-                state["h"], state["c"],
-                params["lstm"]["wx"], params["lstm"]["wh"],
-                params["lstm"]["b"], edge_msg)
+        args = self.stream_args(params, state, snaps)
         if batched:
             outs_h, h_T, c_T = kops.stream_steps_batched(
                 self.stream_family, *args, tn=tn, td=td, lengths=lengths,

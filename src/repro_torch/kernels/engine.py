@@ -34,9 +34,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 KERNELS = ("gcrn_engine", "evolve_engine")
 
 #: the kernels' register micro-tile: each thread owns this many node rows
-#: (and, in the evolve kernel, this many columns of W). The evolve kernel
-#: needs its square width D to be a multiple of it; the plan's tn / td
-#: knobs keep this alignment.
+#: (and, in the evolve kernel, this many columns of W). The kernels take
+#: any node count; the evolve kernel needs its square width D to be a
+#: multiple of it, which kernels/ops.py pads to.
 ROW_ALIGN = 8
 #: a CTA's shared memory on Hopper (227 KB)
 SMEM_LIMIT = 232448
@@ -220,6 +220,7 @@ def gcrn_engine(idx, coef, eidx, x, rowg, mask, h0, c0, wx, wh, b, emsg=None):
                                       or emsg.shape[3] != din))):
         raise ValueError(f"{name}: inconsistent shapes")
     _check_index(name, "idx", idx, n)
+    _check_index(name, "rowg", rowg, G + 1)
     if emsg is not None:
         _check_index(name, "eidx", eidx, emsg.shape[2])
     if H % 4:

@@ -2,8 +2,9 @@
 
 One pair of entry points, dispatched by family name as in the JAX
 package. This layer owns what surrounds the kernels: moving the arguments
-to the device, padding the node axis, the global-row table, the evolve
-pack/unpack, ragged ``lengths``, and the one force-ref gate. Under
+to the device, the global-row table, the evolve pack/unpack (``pack``
+builds a kernel wrapper's inputs), ragged ``lengths``, and the one
+force-ref gate. Under
 ``force_ref=True`` the family's plain oracle (kernels/ref.py) runs on the
 raw arguments and no kernel wrapper is reached; otherwise the arguments
 are packed and handed to the kernel wrapper (kernels/engine.py), which
@@ -84,21 +85,11 @@ def _pad_to(a, n2: int, axis: int, fill=0):
     return torch.cat([a, a.new_full(shape, fill)], dim=axis)
 
 
-def _pad_stream(neigh_idx, neigh_coef, neigh_eidx, node_feat, renumber,
-                node_mask, tn: int):
-    """Pad the node axis of a (B, T, n, ...) stream to a multiple of ``tn``
-    (coef 0, mask 0, renumber -1 on the new rows)."""
-    n = neigh_idx.shape[-2]
-    n2 = round_up(n, tn)
-    return (n,
-            _pad_to(neigh_idx, n2, -2), _pad_to(neigh_coef, n2, -2),
-            _pad_to(neigh_eidx, n2, -2), _pad_to(node_feat, n2, -2),
-            _pad_to(renumber, n2, -1, fill=-1), _pad_to(node_mask, n2, -1))
-
-
 def _row_index_table(renumber, n_global: int):
     """Global row of each local node, ``n_global`` (the drop sentinel) on
-    padding rows, as int32 whatever the renumber table's integer type.
+    padding rows (renumber < 0), as int32 whatever the renumber table's
+    integer type. A renumber past the store raises: the kernel would
+    read it as the drop sentinel and lose the row without a word.
 
     The JAX engine also builds a global id per ELL lane (``neigh_gidx``)
     because it aggregates straight out of the store; the CUDA kernel
@@ -106,31 +97,22 @@ def _row_index_table(renumber, n_global: int):
     row table is all it needs."""
     if n_global >= 2 ** 31:
         raise ValueError(f"n_global={n_global} does not fit int32 row ids")
+    if renumber.numel() and int(renumber.max()) >= n_global:
+        raise ValueError(f"renumber holds row {int(renumber.max())}, past "
+                         f"the store's n_global={n_global} rows")
     return torch.where(renumber >= 0, renumber,
                        torch.full_like(renumber, n_global)).to(torch.int32)
 
 
-def _gcrn_launch(batched, neigh_idx, neigh_coef, neigh_eidx, node_feat,
-                 renumber, node_mask, h0, c0, wx, wh, b, edge_msg=None, *,
-                 tn: int):
-    """Pad/pack + kernel wrapper for the integrated (GC-LSTM) family."""
-    if not batched:
-        em = None if edge_msg is None else edge_msg[None]
-        outs, hT, cT = _gcrn_launch(
-            True, neigh_idx[None], neigh_coef[None], neigh_eidx[None],
-            node_feat[None], renumber[None], node_mask[None], h0[None],
-            c0[None], wx, wh, b, em, tn=tn)
-        return outs[0], hT[0], cT[0]
-    n, idx, coef, eidx, x, ren, mask = _pad_stream(
-        neigh_idx, neigh_coef, neigh_eidx, node_feat, renumber, node_mask, tn)
-    rowg = _row_index_table(ren, h0.shape[1])
+def _gcrn_pack(neigh_idx, neigh_coef, neigh_eidx, node_feat, renumber,
+               node_mask, h0, c0, wx, wh, b, edge_msg=None):
+    """The GCRN kernel wrapper's inputs: int32 ids, the global-row table."""
     i32 = lambda a: a.to(torch.int32).contiguous()
-    outs, hT, cT = _engine.gcrn_engine(
-        i32(idx), coef.contiguous(), i32(eidx), x.contiguous(), rowg,
-        mask.contiguous(), h0.contiguous(), c0.contiguous(), wx.contiguous(),
-        wh.contiguous(), b.contiguous(),
-        None if edge_msg is None else edge_msg.contiguous())
-    return outs[:, :, :n], hT, cT
+    return (i32(neigh_idx), neigh_coef.contiguous(), i32(neigh_eidx),
+            node_feat.contiguous(), _row_index_table(renumber, h0.shape[1]),
+            node_mask.contiguous(), h0.contiguous(), c0.contiguous(),
+            wx.contiguous(), wh.contiguous(), b.contiguous(),
+            None if edge_msg is None else edge_msg.contiguous())
 
 
 def _pad_matrix_gru_params(wx, wh, b, dmax: int):
@@ -146,62 +128,72 @@ def _pad_matrix_gru_params(wx, wh, b, dmax: int):
             torch.cat([_pad_to(g, dmax, 0) for g in b.chunk(3)]))
 
 
-def _evolve_pack(neigh_idx, neigh_coef, node_feat, node_mask, weights,
-                 b_gcn, gru_wx, gru_wh, gru_b, edge_aggs, tn: int):
-    """Pad every layer width into one common square ``dmax`` (rounded up to
-    the kernel's ``ROW_ALIGN``) as the JAX pack does; batched layout."""
-    n = neigh_idx.shape[-2]
-    n2 = round_up(n, tn)
-    dims = [(w.shape[-2], w.shape[-1]) for w in weights]
-    dmax = round_up(max(max(d) for d in dims), _engine.ROW_ALIGN)
+def _evolve_pack(neigh_idx, neigh_coef, node_feat, node_mask, live, weights,
+                 b_gcn, gru_wx, gru_wh, gru_b, edge_aggs=None):
+    """The EvolveGCN kernel wrapper's inputs: every layer width padded into
+    one common square ``dmax`` (rounded up to the kernel's ``ROW_ALIGN``)
+    as the JAX pack does."""
+    dmax = round_up(max(max(w.shape[-2:]) for w in weights), _engine.ROW_ALIGN)
     pad_sq = lambda w: _pad_to(_pad_to(w, dmax, -2), dmax, -1)
-    idx = _pad_to(neigh_idx, n2, -2).to(torch.int32)
-    coef = _pad_to(neigh_coef, n2, -2)
-    x = _pad_to(_pad_to(node_feat, n2, -2), dmax, -1)
-    mask = _pad_to(node_mask, n2, -1)
-    w0 = torch.stack([pad_sq(w) for w in weights], dim=1)
-    bg = torch.stack([_pad_to(bb, dmax, 0) for bb in b_gcn])
     eagg = None
     if edge_aggs is not None:
-        eagg = torch.stack([_pad_to(_pad_to(ea, n2, -2), dmax, -1)
-                            for ea in edge_aggs], dim=-3).contiguous()
+        eagg = torch.stack([_pad_to(ea, dmax, -1) for ea in edge_aggs],
+                           dim=-3).contiguous()
     gwx, gwh, gb = zip(*[_pad_matrix_gru_params(wx, wh, bb, dmax)
                          for wx, wh, bb in zip(gru_wx, gru_wh, gru_b)])
-    return (n, dims, idx.contiguous(), coef.contiguous(), x.contiguous(),
-            mask.contiguous(), w0.contiguous(), bg.contiguous(), eagg,
+    return (neigh_idx.to(torch.int32).contiguous(), neigh_coef.contiguous(),
+            _pad_to(node_feat, dmax, -1).contiguous(), node_mask.contiguous(),
+            live.to(torch.int32).contiguous(),
+            torch.stack([pad_sq(w) for w in weights], dim=1).contiguous(),
+            torch.stack([_pad_to(bb, dmax, 0) for bb in b_gcn]).contiguous(),
             torch.stack(gwx).contiguous(), torch.stack(gwh).contiguous(),
-            torch.stack(gb).contiguous())
+            torch.stack(gb).contiguous(), eagg)
+
+
+def _gcrn_launch(batched, neigh_idx, neigh_coef, neigh_eidx, node_feat,
+                 renumber, node_mask, h0, c0, wx, wh, b, edge_msg=None):
+    """Pack + kernel wrapper for the integrated (GC-LSTM) family."""
+    if not batched:
+        em = None if edge_msg is None else edge_msg[None]
+        outs, hT, cT = _gcrn_launch(
+            True, neigh_idx[None], neigh_coef[None], neigh_eidx[None],
+            node_feat[None], renumber[None], node_mask[None], h0[None],
+            c0[None], wx, wh, b, em)
+        return outs[0], hT[0], cT[0]
+    return _engine.gcrn_engine(*_gcrn_pack(
+        neigh_idx, neigh_coef, neigh_eidx, node_feat, renumber, node_mask,
+        h0, c0, wx, wh, b, edge_msg))
 
 
 def _evolve_launch(batched, neigh_idx, neigh_coef, node_feat, node_mask,
                    live, weights, b_gcn, gru_wx, gru_wh, gru_b,
-                   edge_aggs=None, *, tn: int):
-    """Pad/pack + kernel wrapper for the weights-evolved family; returns
+                   edge_aggs=None):
+    """Pack + kernel wrapper for the weights-evolved family; returns
     outputs and per-layer weights sliced back to their true shapes."""
     if not batched:
         ea = None if edge_aggs is None else [a[None] for a in edge_aggs]
         outs, wT = _evolve_launch(
             True, neigh_idx[None], neigh_coef[None], node_feat[None],
             node_mask[None], live[None], [w[None] for w in weights], b_gcn,
-            gru_wx, gru_wh, gru_b, ea, tn=tn)
+            gru_wx, gru_wh, gru_b, ea)
         return outs[0], tuple(w[0] for w in wT)
-    n, dims, idx, coef, x, mask, w0, bg, eagg, gwx, gwh, gb = _evolve_pack(
-        neigh_idx, neigh_coef, node_feat, node_mask, weights, b_gcn,
-        gru_wx, gru_wh, gru_b, edge_aggs, tn)
-    outs, wT = _engine.evolve_engine(
-        idx, coef, x, mask, live.to(torch.int32).contiguous(), w0, bg, gwx,
-        gwh, gb, eagg)
+    outs, wT = _engine.evolve_engine(*_evolve_pack(
+        neigh_idx, neigh_coef, node_feat, node_mask, live, weights, b_gcn,
+        gru_wx, gru_wh, gru_b, edge_aggs))
+    dims = [w.shape[-2:] for w in weights]
     weights_T = tuple(wT[:, i, :di, :do] for i, (di, do) in enumerate(dims))
-    return outs[..., :n, :dims[-1][1]], weights_T
+    return outs[..., :dims[-1][1]], weights_T
 
 
-# family -> ((solo oracle, batched oracle), kernel launcher, positions of
-# the (coef, mask, renumber, live) arguments the ragged rewrite touches)
+# family -> ((solo oracle, batched oracle), kernel launcher, packer,
+# positions of the (coef, mask, renumber, live) arguments the ragged
+# rewrite touches)
 _STREAM_DISPATCH = {
     "gcrn": ((_ref.gcrn_stream_ref, _ref.gcrn_stream_batched_ref),
-             _gcrn_launch, dict(coef=1, mask=5, ren=4, live=None)),
+             _gcrn_launch, _gcrn_pack, dict(coef=1, mask=5, ren=4, live=None)),
     "evolve": ((_ref.evolve_stream_ref, _ref.evolve_stream_batched_ref),
-               _evolve_launch, dict(coef=1, mask=3, ren=None, live=4)),
+               _evolve_launch, _evolve_pack,
+               dict(coef=1, mask=3, ren=None, live=4)),
 }
 
 
@@ -210,7 +202,7 @@ def _apply_lengths(family: str, args: tuple, lengths) -> tuple:
     snapshots: steps t >= lengths[b] get coef 0 / mask 0 / renumber -1
     (and live 0 for the weights-evolved family), so the tail content is
     irrelevant and a length-0 row is a pure padding stream."""
-    axes = _STREAM_DISPATCH[family][2]
+    axes = _STREAM_DISPATCH[family][3]
     coef = args[axes["coef"]]
     lengths = torch.as_tensor(np.asarray(lengths), device=coef.device)
     t_axis = torch.arange(coef.shape[1], device=coef.device)
@@ -227,6 +219,16 @@ def _apply_lengths(family: str, args: tuple, lengths) -> tuple:
     return tuple(out)
 
 
+def pack(family: str, *args, lengths=None) -> tuple:
+    """The inputs that ``stream_steps_batched`` hands the family's kernel
+    wrapper (``engine.gcrn_engine`` / ``engine.evolve_engine``) for the
+    same batched argument list (tensors already on their device), ragged
+    ``lengths`` applied."""
+    if lengths is not None:
+        args = _apply_lengths(family, args, lengths)
+    return _STREAM_DISPATCH[family][2](*args)
+
+
 def _stream_dispatch(family: str, batched: bool, args, kwargs, *, tn, td,
                      force_ref, device, residency, depth, lengths=None):
     if family not in _TEMPORAL:
@@ -241,9 +243,10 @@ def _stream_dispatch(family: str, batched: bool, args, kwargs, *, tn, td,
             f"state_residency={residency!r}, buffer_depth={depth!r}: the "
             "port keeps every store resident; hbm_paged is ROADMAP.md "
             "queue 1 item 11")
-    # td is a TPU VMEM blocking knob: the plan validates it, and the CUDA
-    # kernels compute the same function for any td
-    del td
+    # tn and td are TPU VMEM tiling knobs: the plan validates them, and the
+    # CUDA kernels compute the same function for any value (they take any
+    # node count and pad widths to their own micro-tile)
+    del tn, td
     dev = resolve_device(device)
     args = to_device(tuple(args), dev)
     kwargs = {k: to_device(v, dev) for k, v in kwargs.items()}
@@ -253,7 +256,7 @@ def _stream_dispatch(family: str, batched: bool, args, kwargs, *, tn, td,
     if force_ref:
         # the one force-ref gate: no kernel wrapper is reachable from here
         return oracles[1 if batched else 0](*args, **kwargs)
-    return launch(batched, *args, **kwargs, tn=tn)
+    return launch(batched, *args, **kwargs)
 
 
 def stream_steps(family: str, *args, tn: int = 128, td=None,

@@ -161,6 +161,9 @@ def test_plan_validation_matches_jax(kwargs):
 @pytest.mark.parametrize("kwargs,match", [
     (dict(level="o1"), "item 3"),
     (dict(level="v3", state_residency="hbm_paged", td=8), "item 11"),
+    (dict(scheduler="continuous", level="v3"), "scheduler='continuous': .*item 12"),
+    (dict(max_retries=2, level="v3"), "max_retries=2: .*item 12"),
+    (dict(n_pad=256, level="v3"), "n_pad=256: .*item 12"),
 ])
 def test_unported_plan_fields_raise_on_execution(kwargs, match):
     case = harness.make_case("gcrn-m2", T=2, B=1)

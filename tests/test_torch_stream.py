@@ -166,11 +166,49 @@ def test_unknown_family_and_paged_residency_raise():
 
 def test_row_table_int64_renumber_and_sentinel():
     ren = torch.tensor([[5, -1, 2**31 - 2, 0]], dtype=torch.int64)
-    rowg = tops._row_index_table(ren, 7)
+    rowg = tops._row_index_table(ren, 2**31 - 1)
     assert rowg.dtype == torch.int32
-    assert rowg.tolist() == [[5, 7, 2**31 - 2, 0]]
+    assert rowg.tolist() == [[5, 2**31 - 1, 2**31 - 2, 0]]
     with pytest.raises(ValueError, match="int32"):
         tops._row_index_table(ren, 2**31)
+    with pytest.raises(ValueError, match="past the store"):
+        tops._row_index_table(ren, 7)
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_renumber_past_the_store_raises(batched):
+    """A row id >= n_global would be the kernel's drop sentinel: the state
+    row would be lost without a word, so the launch path refuses it."""
+    args, _, _ = harness.stream_kernel_case("gcrn", seed=6,
+                                            B=3 if batched else None)
+    args = list(args)
+    ren = np.array(args[4])
+    n_global = np.asarray(args[6]).shape[-2]
+    ren[..., 0, 0] = n_global
+    args[4] = ren
+    with pytest.raises(ValueError, match="past the store"):
+        _port("gcrn", args, batched)
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_pack_is_what_the_launch_hands_the_wrapper(family):
+    """``ops.pack`` + the wrapper's plain version reproduce the batched
+    launch, ragged lengths included (chip_smoke.py checks the kernels on
+    these packed inputs)."""
+    args, _, _ = harness.stream_kernel_case(family, seed=7, B=3)
+    lengths = [3, 0, 2]
+    want = _port(family, args, True, lengths)
+    targs = tops.to_device(tuple(args), "cpu")
+    packed = tops.pack(family, *targs, lengths=lengths)
+    if family == "gcrn":
+        got = engine.gcrn_plain(*packed)
+    else:
+        outs, wT = engine.evolve_plain(*packed)
+        dims = [w.shape[-2:] for w in targs[5]]
+        got = (outs[..., :dims[-1][1]],
+               [wT[:, i, :di, :do] for i, (di, do) in enumerate(dims)])
+    for g, w in zip(_flat(got), _flat(want)):
+        np.testing.assert_array_equal(g, w)
 
 
 # ---------------------------------------------- kernels on the card ----
