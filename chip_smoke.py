@@ -5,22 +5,34 @@
 
 Phases (any failure exits non-zero):
   1. environment: card name and power limit, torch / CUDA versions, TF32 off;
-  2. build both stream-engine kernels from src/repro_torch/kernels/csrc;
-  3. per kernel: hold it against its plain PyTorch version on the card at
-     narrow widths with partial node tiles (<= 1e-4), and at full width
-     (BC-Alpha, n_pad 640, G 3468): a T = 8, B = 2 ragged case
-     with edges (max abs error <= 1e-4: fp32 with TF32 off, only the order
-     of summation differs) and the main path's own shapes (all 137 steps,
-     <= 1e-3: the recurrence compounds sum-order differences); time both
-     with CUDA events beside the kernel's bound;
-  4. main path: BoosterSession.run for GCRN-M2 and EvolveGCN-O at level v3
-     on the whole BC-Alpha stream, then run_batched on four ragged windows,
-     each held against the session's force-ref run on the card (<= 1e-3),
-     with launch counts that must be > 0.
-Prints a {"kernels": [...]} line and, last, the device line.
+  2. build all six kernels from src/repro_torch/kernels/csrc (one nvcc per
+     source, all at once);
+  3. every kernel against its plain PyTorch version on the card:
+     a. narrow widths with partial node tiles, ragged, with and without
+        edge messages (<= 1e-4: fp32 with TF32 off, only the order of
+        summation differs);
+     b. the three stream engines at full width (BC-Alpha, n_pad 640,
+        G 3468): a T = 8, B = 2 ragged case (<= 1e-4) and the main path's
+        solo shapes (all 137 steps, <= 1e-3: the recurrence compounds
+        sum-order differences);
+     c. the three per-step kernels (V2 steps, ELL SpMM) on the inputs the
+        main path hands them at full width, recorded from one run of a path
+        that launches each, every step of the stream (<= 1e-4);
+     each timed with CUDA events beside its bound, and the ELL SpMM beside
+     torch.sparse.mm of the same matrix;
+  4. main path: every level of GCRN-M2, EvolveGCN-O and the stacked
+     GCN -> GRU through BoosterSession (run on the whole BC-Alpha stream,
+     run_batched over windows: ragged at v3, equal at the per-step levels),
+     and build_model(cfg, impl="pallas") with run_plan / run_plan_batched at
+     the per-step levels. The launch counts are set to 0 just before each
+     path and read just after it; each path's results are held against its
+     force-ref run on the card (<= 1e-3).
+Prints ms/snapshot per path, a {"kernels": [...]} line and, last, the
+device line.
 
 Imports nothing of the JAX package.
 """
+import contextlib
 import json
 import subprocess
 import sys
@@ -34,8 +46,10 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import api  # noqa: E402
-from repro_torch.configs.dgnn import BC_ALPHA, EVOLVEGCN, GCRN_M2  # noqa: E402
+from repro_torch.configs.dgnn import (BC_ALPHA, EVOLVEGCN, GCRN_M2,  # noqa: E402
+                                      STACKED)
 from repro_torch.core.dataflow import (build_model, init_states_batched,  # noqa: E402
+                                       run_plan, run_plan_batched,
                                        stack_time)
 from repro_torch.core.evolvegcn import layer_dims  # noqa: E402
 from repro_torch.graph import (generate_temporal_graph, max_in_degree,  # noqa: E402
@@ -51,7 +65,22 @@ TOL_KERNEL = 1e-4
 TOL_STREAM = 1e-3
 N_PAD = 640
 SEED = 0
-WINDOWS = ((0, 137), (0, 100), (40, 137), (0, 64))
+CONFIGS = (GCRN_M2, EVOLVEGCN, STACKED)
+# run_batched windows of the stream: ragged at v3 (the stream engine's
+# lengths), equal at the per-step levels (which need equal T)
+V3_WINDOWS = ((0, 137), (0, 100), (40, 137), (0, 64))
+STEP_WINDOWS = ((0, 45), (46, 91), (92, 137))
+# timed repeats of each main path's run after the checked one
+RUN_REPS = 3
+SRC = "src/repro_torch/kernels/csrc"
+REPLACES = {
+    "gcrn_engine": "src/repro/kernels/stream_fused.py:833",
+    "evolve_engine": "src/repro/kernels/stream_fused.py:1191",
+    "stacked_engine": "src/repro/kernels/stream_fused.py:1015",
+    "gcrn_step": "src/repro/kernels/dgnn_fused.py:58",
+    "stacked_step": "src/repro/kernels/dgnn_fused.py:119",
+    "ell_spmm": "src/repro/kernels/csr_spmm.py:47",
+}
 
 
 def log(*a):
@@ -84,9 +113,18 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def flat(r) -> list:
+    """Tensors of a (nested) result: tuples, lists and state dicts."""
+    if isinstance(r, dict):
+        return [x for k in sorted(r) for x in flat(r[k])]
+    if isinstance(r, (tuple, list)):
+        return [x for y in r for x in flat(y)]
+    return [r]
+
+
 def max_err(a, b) -> float:
-    a = a if isinstance(a, (tuple, list)) else (a,)
-    b = b if isinstance(b, (tuple, list)) else (b,)
+    a, b = flat(a), flat(b)
+    check(len(a) == len(b), "results of different structure")
     return max(float((x - y).abs().max()) for x, y in zip(a, b))
 
 
@@ -118,19 +156,23 @@ def batch_of(s: PaddedSnapshot, wins) -> PaddedSnapshot:
     return stack_ragged([window(s, a, b) for a, b in wins], "cuda")[0]
 
 
-# ------------------------------------------------------------ kernels ----
+# ------------------------------------------------------- bound counts ----
 
-def kernel_inputs(model, params, snaps, lengths=None):
-    """The kernel wrapper's inputs for a (B, T, ...) batch: the model's
-    stream arguments, packed by kernels/ops.py as the main path packs them."""
-    B = snaps.node_mask.shape[0]
-    state = init_states_batched(model, params, B)
-    return ops.pack(model.stream_family,
-                    *model.stream_args(params, state, snaps), lengths=lengths)
+def _live(coef):
+    """(rows with a nonzero lane, nonzero lanes) of (..., n, k) coef."""
+    live = coef != 0
+    return float(live.any(-1).sum()), float(live.sum()), live
+
+
+def _distinct(index, live, rows_per_graph: int) -> int:
+    """Distinct (graph, row) pairs the live lanes of (..., n, k) read."""
+    graph = torch.arange(index[..., 0, 0].numel(), device=index.device)
+    graph = graph.view(*index.shape[:-2], 1, 1) * rows_per_graph
+    return torch.unique((graph + index)[live]).numel()
 
 
 def gcrn_cost(inp):
-    """(flop, bytes) the GCRN kernel's function needs on these inputs: the
+    """(flop, bytes) the GCRN engine's function needs on these inputs: the
     ELL lanes, x row and row id of each real row (mask != 0), the edge
     messages its live lanes read, the weights, the stores in and out, the
     per-step h output, and the gather / scatter of each real row's h and c."""
@@ -138,16 +180,33 @@ def gcrn_cost(inp):
     B, T, n, k = idx.shape
     din, h = x.shape[-1], h0.shape[-1]
     rows = float((mask != 0).sum())
-    live = coef != 0
-    lanes = float(live.sum())
+    _, lanes, live = _live(coef)
     flops = 2 * rows * (din + h) * 4 * h + 2 * lanes * (din + h)
     byts = nbytes(mask) + rows * (k * 3 * 4 + din * 4 + 4)
     if em is not None:
-        step = torch.arange(B * T, device=idx.device).view(B, T, 1, 1)
-        edges = torch.unique((step * em.shape[2] + eidx)[live]).numel()
-        byts += edges * din * 4
+        byts += _distinct(eidx, live, em.shape[2]) * din * 4
     byts += nbytes(wx, wh, b) + 2 * nbytes(h0, c0) + B * T * n * h * 4
     byts += rows * 2 * h * 4 * 2
+    return flops, byts
+
+
+def stacked_cost(inp):
+    """(flop, bytes) the stacked engine's function needs on these inputs:
+    as ``gcrn_cost``, with the NT product and the GRU against the own row
+    in place of the gate product, one store (h) instead of two."""
+    idx, coef, eidx, x, rowg, mask, h0, wg, bg, wx, wh, b, em = inp
+    B, T, n, k = idx.shape
+    din, dmid, h = x.shape[-1], wg.shape[1], h0.shape[-1]
+    rows = float((mask != 0).sum())
+    _, lanes, live = _live(coef)
+    flops = (2 * rows * (din * dmid + dmid * 3 * h + h * 3 * h)
+             + 2 * lanes * din)
+    byts = nbytes(mask) + rows * (k * 3 * 4 + din * 4 + 4)
+    if em is not None:
+        flops += lanes * din
+        byts += _distinct(eidx, live, em.shape[2]) * din * 4
+    byts += nbytes(wg, bg, wx, wh, b) + 2 * nbytes(h0) + B * T * n * h * 4
+    byts += rows * h * 4 * 2
     return flops, byts
 
 
@@ -174,8 +233,83 @@ def evolve_cost(inp, dims):
     return flops, byts
 
 
-def check_kernel(name, kernel, plain, check_inp, main_inp, cost):
-    """Kernel vs plain version on the card; returns the JSON record."""
+def ell_cost(call):
+    """(flop, bytes) of one ELL SpMM: the lanes of rows with a live lane,
+    the x rows and edge rows the live lanes read, the whole output."""
+    idx, coef, eidx, x, em = call
+    n, k, d = idx.shape[-2], idx.shape[-1], x.shape[-1]
+    rows, lanes, live = _live(coef)
+    flops = 2 * lanes * d
+    byts = rows * k * 4 * 2 + _distinct(idx, live, x.shape[-2]) * d * 4
+    if em is not None:
+        flops += lanes * d
+        byts += rows * k * 4 + _distinct(eidx, live, em.shape[-2]) * d * 4
+    return flops, byts + n * d * 4
+
+
+def gcrn_step_cost(call):
+    """(flop, bytes) of one V2 GC-LSTM step: the gate product of rows with
+    a live lane (a row without one takes the bias as its gates), the ELL
+    lanes of those rows, the x / h / edge rows live lanes read, every c
+    row, the weights, the h and c outputs."""
+    idx, coef, eidx, x, h, c, wx, wh, b, em = call
+    n, k = idx.shape
+    din, H = x.shape[1], h.shape[1]
+    rows, lanes, live = _live(coef)
+    src = _distinct(idx, live, n)
+    flops = 2 * rows * (din + H) * 4 * H + 2 * lanes * (din + H)
+    byts = rows * k * 4 * 2 + src * (din + H) * 4 + nbytes(c, wx, wh, b)
+    if em is not None:
+        flops += lanes * din
+        byts += rows * k * 4 + _distinct(eidx, live, em.shape[0]) * din * 4
+    return flops, byts + 2 * n * H * 4
+
+
+def stacked_step_cost(call):
+    """(flop, bytes) of one V2 GCN -> GRU step: the NT product of rows with
+    a live lane (nt = bg on the others), the GRU of rows with a live lane or
+    a nonzero h (the rest share one value), the ELL lanes, the x / edge
+    rows live lanes read, every h row, the weights, the output."""
+    idx, coef, eidx, x, h, wg, bg, wx, wh, b, em = call
+    n, k = idx.shape
+    din, dmid, H = x.shape[1], wg.shape[1], h.shape[1]
+    rows, lanes, live = _live(coef)
+    gru_rows = float((live.any(-1) | (h != 0).any(-1)).sum()) + 1
+    flops = (2 * lanes * din + 2 * rows * din * dmid
+             + 2 * gru_rows * (dmid * 3 * H + H * 3 * H))
+    byts = (rows * k * 4 * 2 + _distinct(idx, live, n) * din * 4
+            + nbytes(h, wg, bg, wx, wh, b))
+    if em is not None:
+        flops += lanes * din
+        byts += rows * k * 4 + _distinct(eidx, live, em.shape[0]) * din * 4
+    return flops, byts + n * H * 4
+
+
+def bound(flops, byts):
+    t_ops, t_bytes = flops / PEAK_FP32 * 1e3, byts / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+# ------------------------------------------------------------ kernels ----
+
+def kernel_inputs(model, params, snaps, lengths=None):
+    """The kernel wrapper's inputs for a (B, T, ...) batch: the model's
+    stream arguments, packed by kernels/ops.py as the main path packs them."""
+    B = snaps.node_mask.shape[0]
+    state = init_states_batched(model, params, B)
+    return ops.pack(model.stream_family,
+                    *model.stream_args(params, state, snaps), lengths=lengths)
+
+
+def record(name: str, **kw):
+    """A stream engine's JSON record with the keys every kernel carries."""
+    return {"name": name, "route": "cuda", "source": f"{SRC}/{name}.cu",
+            "replaces": REPLACES[name], "launches": 0, "library_ms": None,
+            **kw}
+
+
+def check_engine(name, kernel, plain, check_inp, main_inp, cost):
+    """A stream engine vs its plain version on the card; its record."""
     got, want = kernel(*check_inp), plain(*check_inp)
     torch.cuda.synchronize()
     err_small = max_err(got, want)
@@ -190,23 +324,83 @@ def check_kernel(name, kernel, plain, check_inp, main_inp, cost):
     ms = cuda_ms(lambda: kernel(*main_inp), reps=5)
     plain_ms = cuda_ms(lambda: plain(*main_inp), reps=2)
     flops, byts = cost(main_inp)
-    t_ops, t_bytes = flops / PEAK_FP32 * 1e3, byts / PEAK_BYTES * 1e3
+    bound_ms, bound_by = bound(flops, byts)
     log(f"{name}: {ms:.3f} ms kernel, {plain_ms:.3f} ms plain, "
-        f"bound {max(t_ops, t_bytes):.4f} ms ({flops:.3e} flop, "
-        f"{byts:.3e} B)")
-    return {"name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": None, "err_t8_b2": err_small}
+        f"bound {bound_ms:.4f} ms ({flops:.3e} flop, {byts:.3e} B)")
+    return record(name, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                  bound_ms=bound_ms, bound_by=bound_by, err_t8_b2=err_small)
+
+
+@contextlib.contextmanager
+def recording(name: str):
+    """Record the CUDA inputs of every call of the kernel wrapper
+    ``engine.<name>`` (kernels/ops.py looks it up at each call)."""
+    calls, original = [], getattr(engine, name)
+
+    def wrapper(*args, **kwargs):
+        calls.append(tuple(a.clone() if torch.is_tensor(a) else a
+                           for a in args))
+        return original(*args, **kwargs)
+
+    setattr(engine, name, wrapper)
+    try:
+        yield calls
+    finally:
+        setattr(engine, name, original)
+
+
+def sparse_mm_inputs(call):
+    """torch.sparse.mm's operands for a no-edge ELL SpMM call: the CSR
+    matrix of its live lanes (duplicates summed) and x."""
+    idx, coef, _, x, _ = call
+    n = idx.shape[0]
+    live = coef != 0
+    rows = torch.arange(n, device=idx.device)[:, None].expand_as(idx)
+    a = torch.sparse_coo_tensor(
+        torch.stack([rows[live], idx[live].long()]), coef[live],
+        (n, x.shape[0])).coalesce().to_sparse_csr()
+    return a, x
+
+
+def check_step_kernel(name, plain, calls, timed, cost, library=None):
+    """A per-step kernel vs its plain version on every recorded main-path
+    call (<= 1e-4), then timed on the ``timed`` calls: the bare launches
+    (prepared once), the plain version, and ``library`` (a list of
+    zero-argument calls) where one PyTorch call computes the same
+    function. Times and the bound are per call."""
+    wrapper = getattr(engine, name)
+    err = 0.0
+    for c in calls:
+        err = max(err, max_err(wrapper(*c), plain(*c)))
+    torch.cuda.synchronize()
+    log(f"{name}: {len(calls)} main-path calls max_abs_err={err:.3e} "
+        f"(tol {TOL_KERNEL})")
+    check(np.isfinite(err) and err <= TOL_KERNEL, name)
+    prepared = [engine.prepare(name, *c, check_ids=False) for c in timed]
+    ms = cuda_ms(lambda: [engine.launch(p) for p in prepared], reps=5)
+    plain_ms = cuda_ms(lambda: [plain(*c) for c in timed], reps=2)
+    lib_ms = None
+    if library is not None:
+        lib_ms = cuda_ms(lambda: [f() for f in library], reps=5) / len(timed)
+    costs = [cost(c) for c in timed]
+    flops, byts = sum(f for f, _ in costs), sum(b for _, b in costs)
+    bound_ms, bound_by = bound(flops, byts)
+    n_t = len(timed)
+    log(f"{name}: per call {ms / n_t:.4f} ms kernel, {plain_ms / n_t:.4f} ms "
+        f"plain, bound {bound_ms / n_t:.5f} ms ({flops / n_t:.3e} flop, "
+        f"{byts / n_t:.3e} B)"
+        + ("" if lib_ms is None else f", torch.sparse.mm {lib_ms:.4f} ms"))
+    return record(name, max_abs_err=err, ms=ms / n_t, plain_ms=plain_ms / n_t,
+                  bound_ms=bound_ms / n_t, bound_by=bound_by,
+                  library_ms=lib_ms, timed_calls=n_t)
 
 
 def small_shapes_check():
-    """Both kernels through ops at narrow widths and a node count that
+    """Every kernel through ops at narrow widths and a node count that
     leaves a partial 32-row tile and a partial 8-row micro-tile (n = 37,
-    H = 24, D = 16), ragged, random data from the seed; each against its
-    force-ref run (<= 1e-4)."""
+    H = 24, D = 16), random data from the seed, with and without edge
+    messages, the stream engines ragged; each against its force-ref run
+    (<= 1e-4)."""
     rng = np.random.default_rng(SEED)
     B, T, n, k, din, h, G, e = 3, 3, 37, 5, 12, 24, 90, 120
     nr = rng.integers(10, n + 1, (B, T))
@@ -214,69 +408,165 @@ def small_shapes_check():
     idx = (rng.random((B, T, n, k)) * nr[..., None, None]).astype(np.int32)
     coef = (rng.random((B, T, n, k)) * (rng.random((B, T, n, k)) > 0.4)
             * rows[..., None]).astype(np.float32)
+    eidx = rng.integers(0, e, (B, T, n, k)).astype(np.int32)
     ren = np.where(rows, np.stack([[rng.permutation(G)[:n] for _ in range(T)]
                                    for _ in range(B)]), -1).astype(np.int32)
     mask = rows.astype(np.float32)
     f32 = lambda *s: (rng.normal(size=s) * 0.3).astype(np.float32)
+    x = f32(B, T, n, din) * mask[..., None]
+    em = f32(B, T, e, din)
     lengths = [3, 1, 2]
-    gcrn = (idx, coef, rng.integers(0, e, (B, T, n, k)).astype(np.int32),
-            f32(B, T, n, din) * mask[..., None], ren, mask, f32(B, G, h),
-            f32(B, G, h), f32(din, 4 * h), f32(h, 4 * h), f32(4 * h),
-            f32(B, T, e, din))
     dims = [(din, 16), (16, 8)]
-    evolve = (idx, coef, f32(B, T, n, din) * mask[..., None], mask,
-              np.ones((B, T), np.int32), [f32(B, *d) for d in dims],
-              [f32(d[1]) for d in dims], [f32(d[0], 3 * d[0]) for d in dims],
-              [f32(d[0], 3 * d[0]) for d in dims], [f32(3 * d[0]) for d in dims],
-              [f32(B, T, n, d[0]) for d in dims])
-    for family, args in (("gcrn", gcrn), ("evolve", evolve)):
-        got, want = (ops.stream_steps_batched(
-            family, *args, lengths=lengths, device="cuda", force_ref=fr)
-            for fr in (False, True))
-        flat = lambda r: [x for y in r for x in
-                          (y if isinstance(y, (tuple, list)) else (y,))]
-        err = max_err(flat(got), flat(want))
-        log(f"{family}_engine: n=37 H/D=24/16 ragged max_abs_err={err:.3e} "
-            f"(tol {TOL_KERNEL})")
-        check(np.isfinite(err) and err <= TOL_KERNEL, family)
+    cases = {
+        "gcrn": (idx, coef, eidx, x, ren, mask, f32(B, G, h), f32(B, G, h),
+                 f32(din, 4 * h), f32(h, 4 * h), f32(4 * h)),
+        "stacked": (idx, coef, eidx, x, ren, mask, f32(B, G, h),
+                    f32(din, 16), f32(16), f32(16, 3 * h), f32(h, 3 * h),
+                    f32(3 * h)),
+        "evolve": (idx, coef, x, mask, np.ones((B, T), np.int32),
+                   [f32(B, *d) for d in dims], [f32(d[1]) for d in dims],
+                   [f32(d[0], 3 * d[0]) for d in dims],
+                   [f32(d[0], 3 * d[0]) for d in dims],
+                   [f32(3 * d[0]) for d in dims]),
+    }
+    edge_args = {"gcrn": em, "stacked": em,
+                 "evolve": [f32(B, T, n, d[0]) for d in dims]}
+    for family, args in cases.items():
+        for edges in (False, True):
+            full = args + (edge_args[family],) if edges else args
+            got, want = (ops.stream_steps_batched(
+                family, *full, lengths=lengths, device="cuda", force_ref=fr)
+                for fr in (False, True))
+            err = max_err(got, want)
+            log(f"{family}_engine: n=37 H/D=24/16 ragged edges={edges} "
+                f"max_abs_err={err:.3e} (tol {TOL_KERNEL})")
+            check(np.isfinite(err) and err <= TOL_KERNEL, family)
+    cu = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()
+    g = [cu(a[0, 0]) for a in (idx, coef, eidx)]
+    xs, hs, cs = cu(x[0, 0]), cu(f32(n, h)), cu(f32(n, h))
+    # (label, op, arguments, the edge messages of its edge variant)
+    steps = (
+        ("ell_spmm d=12", ops.ell_spmm, (*g, xs), cu(em[0, 0])),
+        ("ell_spmm d=24", ops.ell_spmm, (*g, hs), cu(f32(e, h))),
+        ("ell_spmm (2, 3) graphs d=12", ops.ell_spmm,
+         tuple(cu(a[:2]) for a in (idx, coef, eidx, x)), cu(em[:2])),
+        ("gcrn_step", ops.dgnn_fused_step,
+         (*g, xs, hs, cs, cu(f32(din, 4 * h)), cu(f32(h, 4 * h)),
+          cu(f32(4 * h))), cu(em[0, 0])),
+        ("stacked_step", ops.stacked_fused_step,
+         (*g, xs, hs, cu(f32(din, 16)), cu(f32(16)), cu(f32(16, 3 * h)),
+          cu(f32(h, 3 * h)), cu(f32(3 * h))), cu(em[0, 0])),
+    )
+    for label, fn, args, edge_msg in steps:
+        for full in (args, (*args, edge_msg)):
+            got, want = fn(*full), fn(*full, force_ref=True)
+            err = max_err(got, want)
+            log(f"{label}: n=37 edges={len(full) > len(args)} "
+                f"max_abs_err={err:.3e} (tol {TOL_KERNEL})")
+            check(np.isfinite(err) and err <= TOL_KERNEL, label)
 
 
 # ---------------------------------------------------------- main path ----
 
-def drive(cfg, params, n_global, stream, streams):
-    """run + run_batched through the sessions; force-ref runs afterwards.
-    Returns the kernel-path results, their launches and timings."""
-    p = api.plan(cfg, level="v3")
-    sess = api.BoosterSession(cfg, p, n_global=n_global, params=params,
-                              device="cuda")
+def per_step_levels(cfg):
+    return [lv for lv in api.FAMILY_LEVELS[api.family_for(cfg)] if lv != "v3"]
+
+
+def main_paths():
+    """(cfg, level, impl) of every main path: every level through the
+    session, then the per-step levels with the ELL SpMM (impl "pallas")."""
+    for cfg in CONFIGS:
+        for level in api.FAMILY_LEVELS[api.family_for(cfg)]:
+            yield cfg, level, "session"
+    for cfg in CONFIGS:
+        for level in per_step_levels(cfg):
+            yield cfg, level, "pallas"
+
+
+def expected_kernels(cfg, level, impl) -> set:
+    """The kernels a main path must launch."""
+    family = api.family_for(cfg)
+    if level == "v3":
+        return {f"{family}_engine"}
+    names = set()
+    if level == "v2":
+        names.add(f"{family}_step")
+    # at v2 the fused step does the message passing of the last GCN
+    # layer; only the stacked family's earlier layers use the ELL SpMM
+    if impl == "pallas" and not (level == "v2" and (
+            family == "gcrn" or cfg.n_gnn_layers == 1)):
+        names.add("ell_spmm")
+    return names
+
+
+def drive(cfg, level, impl, params, n_global, stream, np_stream, *,
+          force_ref=False, reps=0):
+    """One main path: a run of the whole stream, then a batched run over
+    windows. Returns ((outs, state, outs_b, states_b), run ms/snapshot of
+    the first run and of ``reps`` more runs of the same stream)."""
     T = stream.node_mask.shape[0]
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    wins = V3_WINDOWS if level == "v3" else STEP_WINDOWS
+    ms = []
+
+    def timed(fn):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end) / T)
+        return out
+
+    if impl == "session":
+        sess = api.BoosterSession(cfg, api.plan(cfg, level=level),
+                                  n_global=n_global, params=params,
+                                  device="cuda", force_ref=force_ref)
+        outs = timed(lambda: sess.run(stream))
+        state = sess.state
+        states_b, outs_b = sess.run_batched([window(np_stream, a, b)
+                                             for a, b in wins])
+        for _ in range(reps):
+            timed(lambda: sess.run(stream))
+    else:
+        model = build_model(cfg, impl="pallas", n_global=n_global)
+        p = api.plan(cfg, level=level)
+        state0 = model.init_state(params, mode=level)
+        run = lambda: run_plan(model, params, state0, stream, p,
+                               force_ref=force_ref)
+        state, outs = timed(run)
+        B = len(wins)
+        states_b, outs_BT = run_plan_batched(
+            model, params, init_states_batched(model, params, B, mode=level),
+            batch_of(np_stream, wins), api.plan(cfg, level=level, batch=B),
+            force_ref=force_ref)
+        outs_b = list(outs_BT)
+        for _ in range(reps):
+            timed(run)
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    start.record()
-    outs = sess.run(stream)
-    end.record()
-    state = sess.state
-    states_b, outs_b = sess.run_batched(streams)
-    torch.cuda.synchronize()
-    ms_snap = start.elapsed_time(end) / T
-    peak = torch.cuda.max_memory_allocated()
-    return (outs, state, outs_b, states_b), ms_snap, peak
+    return (outs, state, outs_b, states_b), ms
 
 
-def force_ref(cfg, params, n_global, stream, streams):
-    p = api.plan(cfg, level="v3")
-    sess = api.BoosterSession(cfg, p, n_global=n_global, params=params,
-                              device="cuda", force_ref=True)
-    outs = sess.run(stream)
-    states_b, outs_b = sess.run_batched(streams)
-    return outs, sess.state, outs_b, states_b
-
-
-def state_err(a, b) -> float:
-    if "weights" in a:
-        return max_err(a["weights"], b["weights"])
-    return max(max_err(a["h"], b["h"]), max_err(a["c"], b["c"]))
+def check_path(label, cfg, level, res, ref, T):
+    outs, state, outs_b, states_b = res
+    wins = V3_WINDOWS if level == "v3" else STEP_WINDOWS
+    width = cfg.hidden if api.family_for(cfg) == "stacked" else cfg.out_dim
+    check(outs.shape == (T, N_PAD, width),
+          f"{label} output shape {tuple(outs.shape)}")
+    check(all(o.shape[0] == b - a for o, (a, b) in zip(outs_b, wins)),
+          f"{label} batched output lengths")
+    check(all(bool(torch.isfinite(o).all()) for o in (outs, *outs_b)),
+          f"{label} outputs finite")
+    check(float(outs.abs().max()) > 0, f"{label} outputs nonzero")
+    errs = {"run outs": max_err(outs, ref[0]),
+            "run state": max_err(state, ref[1]),
+            "batched outs": max_err(list(outs_b), list(ref[2])),
+            "batched states": max_err(states_b, ref[3])}
+    log(f"{label} vs force_ref: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f" (tol {TOL_STREAM})")
+    check(all(np.isfinite(v) and v <= TOL_STREAM for v in errs.values()),
+          f"{label} vs force_ref {errs}")
 
 
 def main() -> int:
@@ -292,6 +582,7 @@ def main() -> int:
         f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
 
+    # phase 2: build
     t0 = time.time()
     paths = engine.build()
     log(f"build: {time.time() - t0:.1f} s -> "
@@ -306,63 +597,91 @@ def main() -> int:
     stream = np_stream.to("cuda")
     T = stream.node_mask.shape[0]
     gen = torch.Generator().manual_seed(SEED)
-    g_model, e_model = build_model(GCRN_M2, n_global), build_model(EVOLVEGCN)
-    g_params = ops.to_device(g_model.init(gen), "cuda")
-    e_params = ops.to_device(e_model.init(gen), "cuda")
+    models, params = {}, {}
+    for cfg in CONFIGS:
+        models[cfg.name] = build_model(cfg, n_global=n_global)
+        params[cfg.name] = ops.to_device(models[cfg.name].init(gen), "cuda")
 
-    # phase 3: each kernel against its plain version
-    check_b = batch_of(stream, ((0, 8), (40, 48)))
-    solo = batch_of(stream, ((0, T),))
-    records = [
-        check_kernel("gcrn_engine", engine.gcrn_engine, engine.gcrn_plain,
-                     kernel_inputs(g_model, g_params, check_b, lengths=[8, 5]),
-                     kernel_inputs(g_model, g_params, solo), gcrn_cost),
-        check_kernel("evolve_engine", engine.evolve_engine,
-                     engine.evolve_plain,
-                     kernel_inputs(e_model, e_params, check_b, lengths=[8, 5]),
-                     kernel_inputs(e_model, e_params, solo),
-                     lambda inp: evolve_cost(inp, layer_dims(EVOLVEGCN))),
-    ]
+    # phase 3a: narrow widths
+    t0 = time.time()
     small_shapes_check()
-    records[0]["replaces"] = "src/repro/kernels/stream_fused.py:833"
-    records[1]["replaces"] = "src/repro/kernels/stream_fused.py:1191"
 
-    # phase 4: the main path through the sessions
-    streams = [window(np_stream, a, b) for a, b in WINDOWS]
-    engine.reset_launches()
-    g_res, g_ms, g_peak = drive(GCRN_M2, g_params, n_global, stream, streams)
-    e_res, e_ms, e_peak = drive(EVOLVEGCN, e_params, n_global, stream,
-                                streams)
-    launches = dict(engine.LAUNCHES)
-    log(f"main path launches: {launches}")
-    for name, ms, peak in (("gcrn-m2", g_ms, g_peak),
-                           ("evolvegcn", e_ms, e_peak)):
-        log(f"{name}: run {ms:.4f} ms/snapshot (T={T}), peak device memory "
-            f"{peak / 2**20:.1f} MiB")
-    for cfg, res, params in ((GCRN_M2, g_res, g_params),
-                             (EVOLVEGCN, e_res, e_params)):
-        outs, state, outs_b, states_b = res
-        ref = force_ref(cfg, params, n_global, stream, streams)
-        check(outs.shape == (T, N_PAD, cfg.out_dim),
-              f"{cfg.name} output shape {tuple(outs.shape)}")
-        check(all(o.shape[0] == b - a for o, (a, b) in zip(outs_b, WINDOWS)),
-              f"{cfg.name} batched output lengths")
-        check(all(bool(torch.isfinite(o).all()) for o in (outs, *outs_b)),
-              f"{cfg.name} outputs finite")
-        check(float(outs.abs().max()) > 0, f"{cfg.name} outputs nonzero")
-        errs = {"run outs": max_err(outs, ref[0]),
-                "run state": state_err(state, ref[1]),
-                "batched outs": max(max_err(o, r)
-                                    for o, r in zip(outs_b, ref[2])),
-                "batched states": state_err(states_b, ref[3])}
-        log(f"{cfg.name} vs force_ref: "
-            + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
-            + f" (tol {TOL_STREAM})")
-        check(all(np.isfinite(v) and v <= TOL_STREAM for v in errs.values()),
-              f"{cfg.name} vs force_ref {errs}")
+    # phase 3b: the stream engines at full width
+    check_b = batch_of(np_stream, ((0, 8), (40, 48)))
+    solo = batch_of(np_stream, ((0, T),))
+    records = []
+    for cfg, name, plain, cost in (
+            (GCRN_M2, "gcrn_engine", engine.gcrn_plain, gcrn_cost),
+            (EVOLVEGCN, "evolve_engine", engine.evolve_plain,
+             lambda inp: evolve_cost(inp, layer_dims(EVOLVEGCN))),
+            (STACKED, "stacked_engine", engine.stacked_plain, stacked_cost)):
+        m, p = models[cfg.name], params[cfg.name]
+        records.append(check_engine(
+            name, getattr(engine, name), plain,
+            kernel_inputs(m, p, check_b, lengths=[8, 5]),
+            kernel_inputs(m, p, solo), cost))
+
+    # phase 3c: the per-step kernels on recorded main-path inputs
+    with recording("gcrn_step") as g_calls:
+        drive(GCRN_M2, "v2", "session", params[GCRN_M2.name], n_global,
+              stream, np_stream)
+    with recording("stacked_step") as s_calls:
+        drive(STACKED, "v2", "session", params[STACKED.name], n_global,
+              stream, np_stream)
+    with recording("ell_spmm") as e_calls:
+        drive(GCRN_M2, "baseline", "pallas", params[GCRN_M2.name], n_global,
+              stream, np_stream)
+    g_calls, s_calls = g_calls[:T], s_calls[:T]  # the solo run's steps
+    e_calls = e_calls[:2 * T]
+    no_edge = [c for c in e_calls if c[4] is None]
+    check(len(no_edge) == T and len(e_calls) == 2 * T,
+          f"ell_spmm recorded {len(e_calls)} calls, {len(no_edge)} no-edge")
+    lib = [sparse_mm_inputs(c) for c in no_edge]
+    lib_err = max(max_err(torch.sparse.mm(a, x), engine.ell_spmm_plain(*c))
+                  for (a, x), c in zip(lib, no_edge))
+    log(f"torch.sparse.mm vs plain ELL SpMM: max_abs_err={lib_err:.3e}")
+    records += [
+        check_step_kernel("gcrn_step", engine.gcrn_step_plain, g_calls,
+                          g_calls, gcrn_step_cost),
+        check_step_kernel("stacked_step", engine.stacked_step_plain, s_calls,
+                          s_calls, stacked_step_cost),
+        check_step_kernel("ell_spmm", engine.ell_spmm_plain, e_calls,
+                          no_edge, ell_cost,
+                          library=[lambda a=a, x=x: torch.sparse.mm(a, x)
+                                   for a, x in lib]),
+    ]
+    log(f"phase 3 (kernel checks and timings): {time.time() - t0:.1f} s")
+
+    # phase 4: the main paths, counts read around each
+    t0 = time.time()
+    launches = {name: 0 for name in engine.KERNELS}
+    for cfg, level, impl in main_paths():
+        label = f"{cfg.name} {level} {impl}"
+        p = params[cfg.name]
+        engine.reset_launches()
+        res, ms = drive(cfg, level, impl, p, n_global, stream, np_stream,
+                        reps=RUN_REPS)
+        counts = {k: v for k, v in engine.LAUNCHES.items() if v}
+        log(f"path {label}: run {float(np.median(ms[1:])):.4f} ms/snapshot "
+            f"median of {RUN_REPS} (first {ms[0]:.4f}, all "
+            f"{', '.join(f'{m:.4f}' for m in ms)}; T={T}), "
+            f"launches {counts}")
+        for name in expected_kernels(cfg, level, impl):
+            check(counts.get(name, 0) > 0, f"{label} launched {name}")
+        for name, v in counts.items():
+            launches[name] += v
+        engine.reset_launches()
+        ref, _ = drive(cfg, level, impl, p, n_global, stream, np_stream,
+                       force_ref=True)
+        check(not any(engine.LAUNCHES.values()),
+              f"{label} force_ref reached a kernel")
+        check_path(label, cfg, level, res, ref, T)
+    log(f"phase 4 (main paths): {time.time() - t0:.1f} s")
     for rec in records:
         rec["launches"] = launches[rec["name"]]
         check(rec["launches"] > 0, f"{rec['name']} launched on the main path")
+    check({r["name"] for r in records} == set(engine.KERNELS),
+          "a record for every kernel")
 
     log(json.dumps({"kernels": records}))
     log(json.dumps({"ok": True, "device": {

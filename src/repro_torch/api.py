@@ -5,10 +5,11 @@ frozen, validated :class:`StreamPlan` with :func:`plan` and hand it to a
 :class:`BoosterSession` (``run`` one stream, ``run_batched`` B ragged
 streams in one launch) or to :func:`run_arrays` (pre-padded ELL arrays).
 ``plan()`` accepts and validates every field the JAX one does, with the
-same messages. What the port cannot execute yet raises
-``NotImplementedError`` naming its ROADMAP item when it is executed: the
-per-step levels, ``hbm_paged`` residency, a sharded ``DeviceSpec``, the
-serve layer, and the families other than gcrn and evolve.
+same messages. Every level of ``FAMILY_LEVELS`` runs for the families gcrn,
+evolve and stacked. What the port cannot execute yet raises
+``NotImplementedError`` naming its ROADMAP item when it is executed:
+``hbm_paged`` residency, a sharded ``DeviceSpec``, the serve layer, and the
+families tgn and static_gcn.
 
 The torch device is an argument of the session (and of ``run_arrays``),
 not a plan field. It defaults to "cuda" and raises when there is no card;
@@ -323,8 +324,9 @@ def plan(cfg: Optional[DGNNConfig] = None, *, family: Optional[str] = None,
 def run_arrays(p: StreamPlan, *args, force_ref: bool = False,
                device="cuda"):
     """Pre-padded ELL stream arrays straight through the stream engine
-    (the argument lists of ``kernels/ops.stream_steps``). A plan with
-    ``batch > 1`` or ragged ``lengths`` takes the batched entry."""
+    (the argument lists of ``kernels/ops.stream_steps``), whatever the
+    plan's level, as in the JAX package. A plan with ``batch > 1`` or
+    ragged ``lengths`` takes the batched entry."""
     _check_executable(p)
     if p.batch > 1 or p.lengths is not None:
         return _ops.stream_steps_batched(

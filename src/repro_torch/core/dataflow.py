@@ -1,36 +1,55 @@
-"""Plan executors of the port: level v3, families gcrn and evolve.
+"""Plan executors of the port: every dataflow level of the paper's ladder
+for the three dense-snapshot families (gcrn, evolve, stacked).
 
-``run_plan`` runs one (T, ...) stream and ``run_plan_batched`` B
-independent (B, T, ...) streams, ragged over T through the plan's
-``lengths``, each in one launch of the family's stream-engine kernel. The
-per-step levels of the paper's ablation ladder (baseline, o1, v1, v2) and
-the other families are not ported yet and raise ``NotImplementedError``
-naming their ROADMAP item.
+  baseline   strict GNN/RNN chain per time step, staged RNN gates.
+  o1         Pipeline-O1: fused RNN gate pipeline.
+  v1         module overlap of GNN and RNN in adjacent steps: EvolveGCN
+             through its primed carry (core/evolvegcn.py), the stacked
+             family as a software pipeline with a one-step register
+             (``_run_stacked_v1``).
+  v2         intra-step fusion: one fused kernel per step (GCRN, stacked).
+  v3         time fusion: the whole (T, ...) stream in one launch of the
+             family's stream-engine kernel, ragged over T through the
+             plan's ``lengths``.
+
+The per-step levels run a Python loop over T (the JAX package's
+``lax.scan``) and, batched, a loop over B (its ``vmap``), equal T only.
+Every level computes the same function. The families tgn and static_gcn
+raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any
 
+import torch
+
 from repro_torch.configs.dgnn import DGNNConfig
 from repro_torch.core.evolvegcn import EvolveGCN
 from repro_torch.core.gcrn import GCRN
-from repro_torch.graph.padding import stack_streams
+from repro_torch.core.stacked import StackedDGNN
+from repro_torch.graph.padding import PaddedSnapshot, stack_streams
+from repro_torch.kernels import ops as kops
 
-Model = Any  # EvolveGCN | GCRN
+Model = Any  # EvolveGCN | GCRN | StackedDGNN
 
 _NOT_PORTED_TYPES = {
-    "stacked": "ROADMAP.md queue 1 item 7",
     "event_memory": "ROADMAP.md queue 1 item 9",
     "static": "ROADMAP.md queue 1 item 10",
 }
 
 
-def build_model(cfg: DGNNConfig, n_global: int = 4096) -> Model:
+def build_model(cfg: DGNNConfig, impl: str = "xla",
+                n_global: int = 4096) -> Model:
+    """The config's model; ``impl`` picks the message-passing path of the
+    per-step levels ("xla": edge-parallel PyTorch, "pallas": the ELL SpMM
+    kernel)."""
     if cfg.dgnn_type == "weights_evolved":
-        return EvolveGCN(cfg)
+        return EvolveGCN(cfg, impl=impl)
     if cfg.dgnn_type == "integrated":
-        return GCRN(cfg, n_global=n_global)
+        return GCRN(cfg, impl=impl, n_global=n_global)
+    if cfg.dgnn_type == "stacked":
+        return StackedDGNN(cfg, impl=impl, n_global=n_global)
     if cfg.dgnn_type in _NOT_PORTED_TYPES:
         raise NotImplementedError(
             f"dgnn_type {cfg.dgnn_type!r} is not ported to repro_torch yet: "
@@ -47,16 +66,50 @@ def _check_executable(plan) -> None:
         value = getattr(plan, f.name)
         if f.metadata.get("serve") and value != f.default:
             raise NotImplementedError(f"{f.name}={value!r}: {SERVE_ITEM}")
-    if plan.level != "v3":
-        raise NotImplementedError(
-            f"level={plan.level!r}: the port runs the stream engine (v3) "
-            "only; the per-step levels are ROADMAP.md queue 1 item 3")
     if plan.state_residency != "vmem":
         raise NotImplementedError(
             "state_residency='hbm_paged' is ROADMAP.md queue 1 item 11")
     if plan.device.n_devices > 1:
         raise NotImplementedError(
             "DeviceSpec sharding is ROADMAP.md queue 1 item 13")
+
+
+def _at(snaps: PaddedSnapshot, i: int) -> PaddedSnapshot:
+    """Entry ``i`` of the leading axis of every leaf."""
+    return PaddedSnapshot(**{f.name: getattr(snaps, f.name)[i]
+                             for f in dataclasses.fields(PaddedSnapshot)})
+
+
+def _scan_steps(model: Model, params, state0, snaps_T, mode: str,
+                force_ref: bool):
+    state, outs = state0, []
+    for t in range(snaps_T.node_mask.shape[0]):
+        state, out = model.step(params, state, _at(snaps_T, t), mode=mode,
+                                force_ref=force_ref)
+        outs.append(out)
+    return state, torch.stack(outs)
+
+
+def _run_stacked_v1(model: StackedDGNN, params, state0, snaps_T,
+                    force_ref: bool):
+    """Software-pipelined stacked DGNN: GCN(G^t) beside GRU(X^{t-1}).
+
+    Pipeline register: (X^{t-1}, snap^{t-1}). The prologue computes X^0;
+    step t >= 1 computes X^t (GNN) and consumes X^{t-1} (RNN), two
+    independent pieces of work; the epilogue drains the last X. The outputs
+    equal the sequential schedule's."""
+    prev = _at(snaps_T, 0)
+    x_prev = model.gnn(params, prev, force_ref=force_ref)  # prologue
+    state, outs = state0, []
+    for t in range(1, snaps_T.node_mask.shape[0]):
+        snap = _at(snaps_T, t)
+        x_t = model.gnn(params, snap, force_ref=force_ref)
+        state, h = model.rnn(params, state, prev, x_prev, fused=True)
+        outs.append(h)
+        x_prev, prev = x_t, snap
+    state, h = model.rnn(params, state, prev, x_prev, fused=True)  # epilogue
+    outs.append(h)
+    return state, torch.stack(outs)
 
 
 def run_plan(model: Model, params, state0, snaps_T, plan, *,
@@ -67,14 +120,35 @@ def run_plan(model: Model, params, state0, snaps_T, plan, *,
         raise ValueError("plan carries ragged lengths — a batched-launch "
                          "capability; use run_plan_batched")
     _check_executable(plan)
-    return model.step_stream(params, state0, snaps_T, tn=plan.tn, td=plan.td,
-                             force_ref=force_ref)
+    if plan.level == "v3":
+        return model.step_stream(params, state0, snaps_T, tn=plan.tn,
+                                 td=plan.td, force_ref=force_ref)
+    n_global = getattr(model, "n_global", None)
+    if n_global is not None:  # a store: its rows are checked once a stream
+        kops.check_renumber(snaps_T.renumber, n_global)
+    if plan.level == "v1" and isinstance(model, StackedDGNN):
+        return _run_stacked_v1(model, params, state0, snaps_T, force_ref)
+    return _scan_steps(model, params, state0, snaps_T, plan.level, force_ref)
+
+
+def _state_at(states, b: int) -> dict:
+    return {k: [w[b] for w in v] if isinstance(v, list) else v[b]
+            for k, v in states.items()}
+
+
+def _stack_states(states: list) -> dict:
+    return {k: ([torch.stack([s[k][i] for s in states])
+                 for i in range(len(v))] if isinstance(v, list)
+                else torch.stack([s[k] for s in states]))
+            for k, v in states[0].items()}
 
 
 def run_plan_batched(model: Model, params, states0, snaps_BT, plan,
                      lengths=None, *, force_ref: bool = False):
     """Execute a StreamPlan on B independent streams: snapshot leaves
-    (B, T, ...), state leaves (B, ...), params shared."""
+    (B, T, ...), state leaves (B, ...), params shared. Level v3 runs the
+    batch in one launch, ragged over T through ``lengths``; the per-step
+    levels run the streams one after another, equal T only."""
     leaves = states0["weights"] if "weights" in states0 else [states0["h"]]
     B = leaves[0].shape[0]
     if B != plan.batch:
@@ -82,14 +156,22 @@ def run_plan_batched(model: Model, params, states0, snaps_BT, plan,
                          f"is {B}")
     _check_executable(plan)
     lengths = plan.lengths if lengths is None else lengths
-    lens = None if lengths is None else [int(t) for t in lengths]
-    return model.step_stream_batched(params, states0, snaps_BT, tn=plan.tn,
-                                     td=plan.td, lengths=lens,
-                                     force_ref=force_ref)
+    if plan.level == "v3":
+        lens = None if lengths is None else [int(t) for t in lengths]
+        return model.step_stream_batched(params, states0, snaps_BT,
+                                         tn=plan.tn, td=plan.td,
+                                         lengths=lens, force_ref=force_ref)
+    if lengths is not None:
+        raise ValueError("ragged lengths need the stream engine "
+                         f"(level='v3'); level={plan.level!r}")
+    runs = [run_plan(model, params, _state_at(states0, b), _at(snaps_BT, b),
+                     plan, force_ref=force_ref) for b in range(B)]
+    return (_stack_states([s for s, _ in runs]),
+            torch.stack([o for _, o in runs]))
 
 
 def init_states_batched(model: Model, params, n_streams: int,
-                        mode: str = "v3"):
+                        mode: str = "baseline"):
     """``n_streams`` fresh recurrent states stacked on a leading B axis."""
     s0 = model.init_state(params, mode=mode)
     return {k: ([w[None].expand(n_streams, *w.shape).clone() for w in v]
@@ -101,4 +183,3 @@ def init_states_batched(model: Model, params, n_streams: int,
 def stack_time(padded_snaps: list):
     """Stack per-step PaddedSnapshots (same bucket) along a leading T axis."""
     return stack_streams(padded_snaps)
-

@@ -4,20 +4,29 @@ Per GCN layer l, a matrix-GRU evolves the layer weight:
     W_l^t = GRU(W_l^{t-1})            (temporal encoding)
     H^t   = GCN(W^t, G^t)             (spatial encoding)
 
-The port runs level v3: a whole snapshot stream goes through one launch of
-the EvolveGCN stream-engine kernel, which keeps W_l on the chip and evolves
-it between snapshots. The state carries already-evolved weights (the
-primed-carry convention of the JAX package's v1/v3): ``init_state`` primes
-once, the kernel consumes the incoming weights at its first snapshot and
-evolves at the end of every live step.
+Dataflow levels:
+  baseline   strict chain inside one step: evolve, then the GCN.
+  o1         + fused-gate GRU.
+  v1         + module overlap (DGNN-Booster V1): the state carries already
+             evolved weights W^t, so GCN(W^t, G^t) and GRU(W^t) -> W^{t+1}
+             are independent inside a step. Outputs equal baseline's (the
+             state is primed by one evolution in ``init_state``).
+  v3         time fusion: a whole snapshot stream goes through one launch of
+             the EvolveGCN stream-engine kernel (csrc/evolve_engine.cu),
+             which keeps W_l on the chip and evolves it between snapshots,
+             with v1's primed carry: the kernel consumes the incoming
+             weights at its first snapshot and evolves at the end of every
+             live step.
+
+An empty snapshot (n_nodes 0) is a no-op at every level: the weights do
+not evolve.
 """
 from __future__ import annotations
-
-import math
 
 import torch
 
 from repro_torch.configs.dgnn import DGNNConfig
+from repro_torch.core import gcn as G
 from repro_torch.core import rnn as R
 from repro_torch.graph.padding import PaddedSnapshot
 from repro_torch.kernels import ops as kops
@@ -34,41 +43,54 @@ def layer_dims(cfg: DGNNConfig) -> list[tuple[int, int]]:
     return dims
 
 
-def init_gcn_layer(gen: torch.Generator, din: int, dout: int,
-                   edge_dim: int) -> dict:
-    scale = 1.0 / math.sqrt(din)
-    p = {"w": (torch.rand(din, dout, generator=gen) * 2 - 1) * scale,
-         "b": torch.zeros(dout)}
-    if edge_dim:
-        escale = 1.0 / math.sqrt(edge_dim)
-        p["w_edge"] = (torch.rand(edge_dim, din, generator=gen) * 2 - 1) * escale
-    return p
-
-
 class EvolveGCN:
     stream_family = "evolve"
 
-    def __init__(self, cfg: DGNNConfig):
+    def __init__(self, cfg: DGNNConfig, impl: str = "xla"):
         assert cfg.dgnn_type == "weights_evolved"
         self.cfg = cfg
+        self.impl = impl
 
     def init(self, gen: torch.Generator) -> dict:
         """Random parameters from ``gen``, on the CPU."""
         layers, grus = [], []
         for din, dout in layer_dims(self.cfg):
-            layers.append(init_gcn_layer(gen, din, dout, self.cfg.edge_dim))
+            layers.append(G.init_gcn_layer(gen, din, dout,
+                                           self.cfg.edge_dim))
             grus.append(R.init_gru(gen, din, din))
         return {"gcn": layers, "gru": grus}
 
-    def init_state(self, params: dict, mode: str = "v3") -> dict:
+    def init_state(self, params: dict, mode: str = "baseline") -> dict:
         """The evolving weights. v1 and v3 prime them by one evolution;
-        the stream kernel then evolves at the end of every live step, so
-        priming here and nowhere else keeps one evolution per step."""
+        they then evolve at the end of every live step, so priming here
+        and nowhere else keeps one evolution per step."""
         weights = [p["w"] for p in params["gcn"]]
         if mode in ("v1", "v3"):
             weights = [R.matrix_gru(g, w, fused=True)
                        for g, w in zip(params["gru"], weights)]
         return {"weights": weights}
+
+    def step(self, params: dict, state: dict, snap: PaddedSnapshot, *,
+             mode: str = "baseline", force_ref: bool = False):
+        """One snapshot at a per-step level (baseline / o1 / v1). Returns
+        (new state, outputs (n_pad, out_dim))."""
+        live = snap.n_nodes > 0
+        if mode in ("v1", "v3"):
+            # the GCN and the GRU are independent given the primed carry
+            w_now = state["weights"]
+            out = G.gcn_forward_weights(params["gcn"], w_now, snap,
+                                        snap.node_feat, impl=self.impl,
+                                        force_ref=force_ref)
+            w_next = [torch.where(live, R.matrix_gru(g, w, fused=True), w)
+                      for g, w in zip(params["gru"], w_now)]
+            return {"weights": w_next}, out
+        # baseline / o1: evolve, then apply: the sequential critical path
+        w_now = [torch.where(live, R.matrix_gru(g, w, fused=mode == "o1"), w)
+                 for g, w in zip(params["gru"], state["weights"])]
+        out = G.gcn_forward_weights(params["gcn"], w_now, snap,
+                                    snap.node_feat, impl=self.impl,
+                                    force_ref=force_ref)
+        return {"weights": w_now}, out
 
     def _edge_aggs(self, params: dict, snaps: PaddedSnapshot):
         """Per-layer pre-aggregated edge term sum_k coef[v,k] *

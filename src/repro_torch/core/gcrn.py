@@ -9,8 +9,17 @@ convolution, GNN1 on the input features and GNN2 on the hidden state:
 
 Per-node recurrent state lives in a global store (n_global, H); the
 renumber table gathers the active rows before a step and scatters the new
-rows back. The port runs level v3: a whole snapshot stream goes through
-one launch of the GCRN stream-engine kernel (kernels/ops.stream_steps).
+rows back.
+
+Dataflow levels:
+  baseline   staged gates (one convolution matmul per gate and input).
+  o1         fused gates (one concatenated matmul per input).
+  v2         + intra-step GNN/RNN fusion: aggregation, gate transform and
+             the LSTM update of a node tile run in one kernel
+             (kernels/ops.dgnn_fused_step, csrc/gcrn_step.cu).
+  v3         + time fusion (``step_stream``): a whole snapshot stream goes
+             through one launch of the GCRN stream-engine kernel
+             (kernels/ops.stream_steps, csrc/gcrn_engine.cu).
 """
 from __future__ import annotations
 
@@ -19,17 +28,37 @@ import math
 import torch
 
 from repro_torch.configs.dgnn import DGNNConfig
+from repro_torch.core import gcn as G
 from repro_torch.core import rnn as R
 from repro_torch.graph.padding import PaddedSnapshot
 from repro_torch.kernels import ops as kops
 
 
+def gather_rows(store: torch.Tensor, snap: PaddedSnapshot) -> torch.Tensor:
+    """The step's rows of a (G, H) store, masked (padding reads row 0)."""
+    safe = torch.where(snap.renumber >= 0, snap.renumber, 0).long()
+    return store[safe] * snap.node_mask[:, None]
+
+
+def scatter_rows(store: torch.Tensor, snap: PaddedSnapshot,
+                 val: torch.Tensor) -> torch.Tensor:
+    """A new store with the step's rows replaced by ``val``; padding rows
+    (renumber -1) drop. The renumber rows lie inside the store (the
+    executors check it once per stream, ``kops.check_renumber``)."""
+    G_rows = store.shape[0]
+    idx = torch.where(snap.renumber >= 0, snap.renumber, G_rows).long()
+    out = torch.cat([store, store.new_zeros(1, store.shape[1])])
+    return out.index_copy_(0, idx, val)[:G_rows]
+
+
 class GCRN:
     stream_family = "gcrn"
 
-    def __init__(self, cfg: DGNNConfig, n_global: int = 4096):
+    def __init__(self, cfg: DGNNConfig, impl: str = "xla",
+                 n_global: int = 4096):
         assert cfg.dgnn_type == "integrated"
         self.cfg = cfg
+        self.impl = impl
         self.n_global = n_global
 
     def init(self, gen: torch.Generator) -> dict:
@@ -49,11 +78,43 @@ class GCRN:
                            * 2 - 1) * escale
         return p
 
-    def init_state(self, params: dict, mode: str = "v3") -> dict:
+    def init_state(self, params: dict, mode: str = "baseline") -> dict:
         dev = params["lstm"]["wx"].device
         shape = (self.n_global, self.cfg.hidden)
         return {"h": torch.zeros(shape, device=dev),
                 "c": torch.zeros(shape, device=dev)}
+
+    def step(self, params: dict, state: dict, snap: PaddedSnapshot, *,
+             mode: str = "baseline", force_ref: bool = False):
+        """One snapshot at a per-step level (baseline / o1 / v2). Returns
+        (new state, masked head outputs (n_pad, out_dim))."""
+        h = gather_rows(state["h"], snap)
+        c = gather_rows(state["c"], snap)
+        x = snap.node_feat
+        w_edge = params.get("w_edge")
+        if mode == "v2":
+            edge_msg = snap.edge_feat @ w_edge if w_edge is not None else None
+            h_new, c_new = kops.dgnn_fused_step(
+                snap.neigh_idx, snap.neigh_coef, snap.neigh_eidx, x, h, c,
+                params["lstm"]["wx"], params["lstm"]["wh"],
+                params["lstm"]["b"], edge_msg, force_ref=force_ref)
+        else:
+            # GNN1 aggregates the input features, GNN2 the hidden state
+            if self.impl == "pallas":
+                agg_x = G.propagate_ell(snap, x, w_edge, force_ref=force_ref)
+                agg_h = G.propagate_ell(snap, h, None, force_ref=force_ref)
+            else:
+                agg_x = G.propagate_segment(snap, x, w_edge)
+                agg_h = G.propagate_segment(snap, h, None)
+            gates = R.lstm_gates(params["lstm"], agg_x, agg_h,
+                                 fused=mode == "o1")
+            h_new, c_new = R.lstm_apply_gates(gates, c)
+        m = snap.node_mask[:, None]
+        h_new, c_new = h_new * m, c_new * m
+        out = h_new @ params["head"]["w"] + params["head"]["b"]
+        new_state = {"h": scatter_rows(state["h"], snap, h_new),
+                     "c": scatter_rows(state["c"], snap, c_new)}
+        return new_state, out * m
 
     def stream_args(self, params: dict, state: dict,
                     snaps: PaddedSnapshot) -> tuple:

@@ -114,67 +114,11 @@ __global__ void __launch_bounds__(kThreads) gcrn_engine_kernel(GcrnArgs a) {
       load_ell_tile(idx, coef, eidx, r0, n, k, s_idx, s_coef,
                     emsg != nullptr ? s_eidx : nullptr);
       __syncthreads();
-      for (int p = threadIdx.x; p < kTileRows * K; p += kThreads) {
-        const int r = p / K, c = p - r * K;
-        const int* li = s_idx + r * k;
-        const float* lc = s_coef + r * k;
-        float acc = 0.0f;
-        // coef-0 lanes (ELL padding) add exact zeros: skipped
-        if (c < din) {
-          const int* le = s_eidx + r * k;
-          for (int s = 0; s < k; ++s) {
-            if (lc[s] == 0.0f) continue;
-            float v = x[(size_t)li[s] * din + c];
-            if (emsg != nullptr) v += emsg[(size_t)le[s] * din + c];
-            acc += lc[s] * v;
-          }
-        } else {
-          const int j = c - din;
-          for (int s = 0; s < k; ++s)
-            if (lc[s] != 0.0f) acc += lc[s] * h_rows[(size_t)li[s] * H + j];
-        }
-        tile[c * kTileStride + r] = acc;
-      }
+      aggregate_tile(x, emsg, din, s_idx, s_coef, s_eidx, k, tile, 0);
+      aggregate_tile(h_rows, nullptr, H, s_idx, s_coef, s_eidx, k, tile, din);
       __syncthreads();
-
-      for (int p = threadIdx.x; p < kRowGroups * H; p += kThreads) {
-        const int rg = p / H, j = p - rg * H;
-        float acc[4][kRowsPerThread];
-#pragma unroll
-        for (int g = 0; g < 4; ++g) {
-          const float bg = a.bias[g * H + j];
-#pragma unroll
-          for (int r = 0; r < kRowsPerThread; ++r) acc[g][r] = bg;
-        }
-        for (int kk = 0; kk < K; ++kk) {
-          float av[kRowsPerThread];
-          load_rows(tile + kk * kTileStride + rg * kRowsPerThread, av);
-          const float* w = kk < din ? a.wx + (size_t)kk * 4 * H
-                                    : a.wh + (size_t)(kk - din) * 4 * H;
-          const float w0 = __ldg(w + j), w1 = __ldg(w + H + j);
-          const float w2 = __ldg(w + 2 * H + j), w3 = __ldg(w + 3 * H + j);
-#pragma unroll
-          for (int r = 0; r < kRowsPerThread; ++r) {
-            acc[0][r] = fmaf(av[r], w0, acc[0][r]);
-            acc[1][r] = fmaf(av[r], w1, acc[1][r]);
-            acc[2][r] = fmaf(av[r], w2, acc[2][r]);
-            acc[3][r] = fmaf(av[r], w3, acc[3][r]);
-          }
-        }
-#pragma unroll
-        for (int r = 0; r < kRowsPerThread; ++r) {
-          const int v = r0 + rg * kRowsPerThread + r;
-          if (v < n) {
-            const float m = mask[v];
-            const size_t o = (size_t)v * H + j;
-            const float c_new = (sigmoidf(acc[1][r]) * c_rows[o] +
-                                 sigmoidf(acc[0][r]) * tanhf(acc[2][r])) * m;
-            const float h_new = sigmoidf(acc[3][r]) * tanhf(c_new) * m;
-            out[o] = h_new;
-            c_rows[o] = c_new;
-          }
-        }
-      }
+      lstm_tile(tile, din, H, true, a.wx, a.wh, a.bias, c_rows, mask, r0, n,
+                out, c_rows);
       __syncthreads();
     }
 

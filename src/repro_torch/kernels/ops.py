@@ -1,15 +1,18 @@
-"""Public stream-engine entry points: ``stream_steps`` / ``stream_steps_batched``.
+"""Public kernel entry points of the port.
 
-One pair of entry points, dispatched by family name as in the JAX
-package. This layer owns what surrounds the kernels: moving the arguments
-to the device, the global-row table, the evolve pack/unpack (``pack``
-builds a kernel wrapper's inputs), ragged ``lengths``, and the one
-force-ref gate. Under
-``force_ref=True`` the family's plain oracle (kernels/ref.py) runs on the
-raw arguments and no kernel wrapper is reached; otherwise the arguments
-are packed and handed to the kernel wrapper (kernels/engine.py), which
-launches the CUDA kernel for CUDA tensors and runs its plain version for
-CPU tensors.
+Per-step ops (levels baseline / o1 / v1 / v2): ``ell_spmm`` (the
+message-passing stage of ``impl="pallas"``), ``dgnn_fused_step`` (GCRN V2)
+and ``stacked_fused_step`` (stacked V2), each with the JAX package's
+signature. Stream engine (level v3): one pair of entry points,
+``stream_steps`` / ``stream_steps_batched``, dispatched by family name as
+in the JAX package. This layer owns what surrounds the kernels: moving the
+arguments to the device, the global-row table, the evolve pack/unpack
+(``pack`` builds a stream kernel wrapper's inputs), ragged ``lengths``, and
+the force-ref gate. Under ``force_ref=True`` the plain oracle
+(kernels/ref.py) runs on the raw arguments and no kernel wrapper is
+reached; otherwise the arguments are packed and handed to the kernel
+wrapper (kernels/engine.py), which launches the CUDA kernel for CUDA
+tensors and runs its plain version for CPU tensors.
 
 Families of the JAX registry that the port has not reached yet raise
 ``NotImplementedError`` naming their ROADMAP queue item.
@@ -29,7 +32,6 @@ _TEMPORAL = {"gcrn": "dense", "stacked": "dense", "evolve": "dense",
 
 # families registered in the JAX engine and not yet ported
 _NOT_PORTED = {
-    "stacked": "ROADMAP.md queue 1 item 7 (stacked family)",
     "tgn": "ROADMAP.md queue 1 item 9 (tgn family)",
     "static_gcn": "ROADMAP.md queue 1 item 10 (static_gcn family)",
 }
@@ -85,6 +87,18 @@ def _pad_to(a, n2: int, axis: int, fill=0):
     return torch.cat([a, a.new_full(shape, fill)], dim=axis)
 
 
+def check_renumber(renumber, n_global: int) -> None:
+    """Raise where a renumber table names a row past the store's
+    ``n_global`` rows: a scatter would drop it (the JAX package's
+    ``mode="drop"``) or, in a kernel, take it for the drop sentinel, and
+    the row would be lost without a word."""
+    if n_global >= 2 ** 31:
+        raise ValueError(f"n_global={n_global} does not fit int32 row ids")
+    if renumber.numel() and int(renumber.max()) >= n_global:
+        raise ValueError(f"renumber holds row {int(renumber.max())}, past "
+                         f"the store's n_global={n_global} rows")
+
+
 def _row_index_table(renumber, n_global: int):
     """Global row of each local node, ``n_global`` (the drop sentinel) on
     padding rows (renumber < 0), as int32 whatever the renumber table's
@@ -95,24 +109,86 @@ def _row_index_table(renumber, n_global: int):
     because it aggregates straight out of the store; the CUDA kernel
     gathers each step's rows first and aggregates over local ids, so the
     row table is all it needs."""
-    if n_global >= 2 ** 31:
-        raise ValueError(f"n_global={n_global} does not fit int32 row ids")
-    if renumber.numel() and int(renumber.max()) >= n_global:
-        raise ValueError(f"renumber holds row {int(renumber.max())}, past "
-                         f"the store's n_global={n_global} rows")
+    check_renumber(renumber, n_global)
     return torch.where(renumber >= 0, renumber,
                        torch.full_like(renumber, n_global)).to(torch.int32)
 
 
+def _i32(a):
+    return a.to(torch.int32).contiguous()
+
+
+def _contig(a):
+    return None if a is None else a.contiguous()
+
+
+# ----------------------------------------------------------- per-step ----
+# ``tn`` is the TPU kernels' node tile: accepted for the JAX signature; the
+# CUDA kernels take any node count and compute the same function for any tn.
+
+def ell_spmm(neigh_idx, neigh_coef, neigh_eidx, x, edge_msg=None, *,
+             tn: int = 128, force_ref: bool = False):
+    """agg[v] = sum_k coef[v,k] * (x[idx[v,k]] + edge_msg[eidx[v,k]]); any
+    leading axes are shared by every argument (one launch for all)."""
+    del tn
+    if force_ref:
+        return _ref.ell_spmm(neigh_idx, neigh_coef, neigh_eidx, x, edge_msg)
+    return _engine.ell_spmm(_i32(neigh_idx), neigh_coef.contiguous(),
+                            _i32(neigh_eidx), x.contiguous(),
+                            _contig(edge_msg))
+
+
+def dgnn_fused_step(neigh_idx, neigh_coef, neigh_eidx, x, h, c, wx, wh, b,
+                    edge_msg=None, *, tn: int = 128, force_ref: bool = False):
+    """GCRN-M2 V2 step: ELL-aggregate x and h, gate transform, LSTM update.
+    Returns (h', c'), unmasked."""
+    del tn
+    if force_ref:
+        return _ref.dgnn_fused_step(neigh_idx, neigh_coef, neigh_eidx, x, h,
+                                    c, wx, wh, b, edge_msg)
+    return _engine.gcrn_step(
+        _i32(neigh_idx), neigh_coef.contiguous(), _i32(neigh_eidx),
+        x.contiguous(), h.contiguous(), c.contiguous(), wx.contiguous(),
+        wh.contiguous(), b.contiguous(), _contig(edge_msg))
+
+
+def stacked_fused_step(neigh_idx, neigh_coef, neigh_eidx, x, h, w_gcn, b_gcn,
+                       wx, wh, b, edge_msg=None, *, tn: int = 128,
+                       force_ref: bool = False):
+    """Stacked-DGNN V2 step: ELL-aggregate, linear node transform, GRU
+    against each node's own h. Returns h', unmasked."""
+    del tn
+    if force_ref:
+        return _ref.stacked_fused_step(neigh_idx, neigh_coef, neigh_eidx, x,
+                                       h, w_gcn, b_gcn, wx, wh, b, edge_msg)
+    return _engine.stacked_step(
+        _i32(neigh_idx), neigh_coef.contiguous(), _i32(neigh_eidx),
+        x.contiguous(), h.contiguous(), w_gcn.contiguous(),
+        b_gcn.contiguous(), wx.contiguous(), wh.contiguous(), b.contiguous(),
+        _contig(edge_msg))
+
+
+# ------------------------------------------------------------- stream ----
+
 def _gcrn_pack(neigh_idx, neigh_coef, neigh_eidx, node_feat, renumber,
                node_mask, h0, c0, wx, wh, b, edge_msg=None):
     """The GCRN kernel wrapper's inputs: int32 ids, the global-row table."""
-    i32 = lambda a: a.to(torch.int32).contiguous()
-    return (i32(neigh_idx), neigh_coef.contiguous(), i32(neigh_eidx),
+    return (_i32(neigh_idx), neigh_coef.contiguous(), _i32(neigh_eidx),
             node_feat.contiguous(), _row_index_table(renumber, h0.shape[1]),
             node_mask.contiguous(), h0.contiguous(), c0.contiguous(),
             wx.contiguous(), wh.contiguous(), b.contiguous(),
-            None if edge_msg is None else edge_msg.contiguous())
+            _contig(edge_msg))
+
+
+def _stacked_pack(neigh_idx, neigh_coef, neigh_eidx, node_feat, renumber,
+                  node_mask, h0, w_gcn, b_gcn, wx, wh, b, edge_msg=None):
+    """The stacked kernel wrapper's inputs: int32 ids, the global-row
+    table."""
+    return (_i32(neigh_idx), neigh_coef.contiguous(), _i32(neigh_eidx),
+            node_feat.contiguous(), _row_index_table(renumber, h0.shape[1]),
+            node_mask.contiguous(), h0.contiguous(), w_gcn.contiguous(),
+            b_gcn.contiguous(), wx.contiguous(), wh.contiguous(),
+            b.contiguous(), _contig(edge_msg))
 
 
 def _pad_matrix_gru_params(wx, wh, b, dmax: int):
@@ -165,6 +241,22 @@ def _gcrn_launch(batched, neigh_idx, neigh_coef, neigh_eidx, node_feat,
         h0, c0, wx, wh, b, edge_msg))
 
 
+def _stacked_launch(batched, neigh_idx, neigh_coef, neigh_eidx, node_feat,
+                    renumber, node_mask, h0, w_gcn, b_gcn, wx, wh, b,
+                    edge_msg=None):
+    """Pack + kernel wrapper for the stacked (GCN -> GRU) family."""
+    if not batched:
+        em = None if edge_msg is None else edge_msg[None]
+        outs, hT = _stacked_launch(
+            True, neigh_idx[None], neigh_coef[None], neigh_eidx[None],
+            node_feat[None], renumber[None], node_mask[None], h0[None],
+            w_gcn, b_gcn, wx, wh, b, em)
+        return outs[0], hT[0]
+    return _engine.stacked_engine(*_stacked_pack(
+        neigh_idx, neigh_coef, neigh_eidx, node_feat, renumber, node_mask,
+        h0, w_gcn, b_gcn, wx, wh, b, edge_msg))
+
+
 def _evolve_launch(batched, neigh_idx, neigh_coef, node_feat, node_mask,
                    live, weights, b_gcn, gru_wx, gru_wh, gru_b,
                    edge_aggs=None):
@@ -191,6 +283,9 @@ def _evolve_launch(batched, neigh_idx, neigh_coef, node_feat, node_mask,
 _STREAM_DISPATCH = {
     "gcrn": ((_ref.gcrn_stream_ref, _ref.gcrn_stream_batched_ref),
              _gcrn_launch, _gcrn_pack, dict(coef=1, mask=5, ren=4, live=None)),
+    "stacked": ((_ref.stacked_stream_ref, _ref.stacked_stream_batched_ref),
+                _stacked_launch, _stacked_pack,
+                dict(coef=1, mask=5, ren=4, live=None)),
     "evolve": ((_ref.evolve_stream_ref, _ref.evolve_stream_batched_ref),
                _evolve_launch, _evolve_pack,
                dict(coef=1, mask=3, ren=None, live=4)),
@@ -221,7 +316,7 @@ def _apply_lengths(family: str, args: tuple, lengths) -> tuple:
 
 def pack(family: str, *args, lengths=None) -> tuple:
     """The inputs that ``stream_steps_batched`` hands the family's kernel
-    wrapper (``engine.gcrn_engine`` / ``engine.evolve_engine``) for the
+    wrapper (``engine.<family>_engine``) for the
     same batched argument list (tensors already on their device), ragged
     ``lengths`` applied."""
     if lengths is not None:
@@ -268,6 +363,8 @@ def stream_steps(family: str, *args, tn: int = 128, td=None,
     Family argument lists (the kernels/ref.py oracles' order):
       gcrn    (idx, coef, eidx, x, renumber, mask, h0, c0, wx, wh, b,
                edge_msg=None) -> (outs, hT, cT)
+      stacked (idx, coef, eidx, x, renumber, mask, h0, w_gcn, b_gcn, wx,
+               wh, b, edge_msg=None) -> (outs, hT)
       evolve  (idx, coef, x, mask, live, weights, b_gcn, gru_wx, gru_wh,
                gru_b, edge_aggs=None) -> (outs, weights_T)
     """

@@ -59,6 +59,14 @@ def dgnn_fused_step(neigh_idx, neigh_coef, neigh_eidx, x, h, c, wx, wh, b,
     return fused_lstm(agg_x, agg_h, c, wx, wh, b)
 
 
+def stacked_fused_step(neigh_idx, neigh_coef, neigh_eidx, x, h, w_gcn, b_gcn,
+                       wx, wh, b, edge_msg=None):
+    """Stacked-DGNN step: ELL-aggregate, linear node transform, GRU
+    against each node's own h."""
+    agg = ell_spmm(neigh_idx, neigh_coef, neigh_eidx, x, edge_msg)
+    return fused_gru(agg @ w_gcn + b_gcn, h, wx, wh, b)
+
+
 def _take_rows(table, index):
     """table (..., R, D) gathered at index (..., N, K) -> (..., N, K, D),
     the leading axes of both shared."""
@@ -116,6 +124,40 @@ def gcrn_stream_ref(neigh_idx, neigh_coef, neigh_eidx, node_feat, renumber,
         neigh_idx[None], neigh_coef[None], neigh_eidx[None], node_feat[None],
         renumber[None], node_mask[None], h0[None], c0[None], wx, wh, b, em)
     return outs[0], hT[0], cT[0]
+
+
+def stacked_stream_batched_ref(neigh_idx, neigh_coef, neigh_eidx, node_feat,
+                               renumber, node_mask, h0, w_gcn, b_gcn, wx, wh,
+                               b, edge_msg=None):
+    """B independent stacked streams: the last GCN layer and the GRU per
+    step over (B, G, H) h stores. Returns (per-step h (B, T, n, H), final
+    h)."""
+    h_store = h0.clone()
+    outs = []
+    for t in range(neigh_idx.shape[1]):
+        ren, mask = renumber[:, t], node_mask[:, t]
+        h = _gather_rows(h_store, ren, mask)
+        em = None if edge_msg is None else edge_msg[:, t]
+        h_new = stacked_fused_step(neigh_idx[:, t], neigh_coef[:, t],
+                                   neigh_eidx[:, t], node_feat[:, t], h,
+                                   w_gcn, b_gcn, wx, wh, b, em)
+        h_new = h_new * mask[..., None]
+        _scatter_rows_(h_store, ren, h_new)
+        outs.append(h_new)
+    return torch.stack(outs, dim=1), h_store
+
+
+def stacked_stream_ref(neigh_idx, neigh_coef, neigh_eidx, node_feat,
+                       renumber, node_mask, h0, w_gcn, b_gcn, wx, wh, b,
+                       edge_msg=None):
+    """One stacked stream: (T, n, ...) arrays, (G, H) store. Returns
+    (per-step h (T, n, H), final h store)."""
+    em = None if edge_msg is None else edge_msg[None]
+    outs, hT = stacked_stream_batched_ref(
+        neigh_idx[None], neigh_coef[None], neigh_eidx[None], node_feat[None],
+        renumber[None], node_mask[None], h0[None], w_gcn, b_gcn, wx, wh, b,
+        em)
+    return outs[0], hT[0]
 
 
 def evolve_stream_batched_ref(neigh_idx, neigh_coef, node_feat, node_mask,

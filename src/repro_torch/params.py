@@ -43,11 +43,18 @@ def params_from_jax(cfg: DGNNConfig, params_np) -> dict:
                     "")
 
 
+_STATE_KEYS = {"integrated": {"h", "c"}, "stacked": {"h"},
+               "weights_evolved": {"weights"}}
+
+
 def state_from_jax(cfg: DGNNConfig, state_np) -> dict:
     """A JAX recurrent state (numpy leaves, any leading batch axis) as the
-    port's tensors on the CPU: {"h", "c"} stores for GCRN, {"weights"}
-    for EvolveGCN."""
-    keys = {"weights"} if cfg.dgnn_type == "weights_evolved" else {"h", "c"}
+    port's tensors on the CPU: {"h", "c"} stores for GCRN, {"h"} for the
+    stacked DGNN, {"weights"} for EvolveGCN."""
+    keys = _STATE_KEYS.get(cfg.dgnn_type)
+    if keys is None:
+        raise ValueError(f"no recurrent state layout for dgnn_type "
+                         f"{cfg.dgnn_type!r}")
     if set(state_np) != keys:
         raise ValueError(f"state: expected keys {sorted(keys)}, got "
                          f"{sorted(state_np)}")

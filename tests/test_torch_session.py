@@ -1,7 +1,8 @@
 """Session-level parity of the port with the JAX package, and the plan API.
 
 ``repro_torch.api.BoosterSession(cfg, plan(cfg, level="v3"),
-device="cpu")`` runs GCRN-M2 and EvolveGCN-O on the harness's random
+device="cpu")`` runs GCRN-M2, EvolveGCN-O and the stacked GCN -> GRU on
+the harness's random
 ragged streams (``harness.make_case``, T = 5, B = 3) with the JAX model's
 parameters carried across (``params_from_jax``). Its outputs and final
 states (h / c stores; evolved weights) must match the JAX session's, solo
@@ -28,7 +29,7 @@ from repro_torch.graph.padding import PaddedSnapshot
 from repro_torch.params import params_from_jax, state_from_jax
 
 ATOL = 3e-4
-MODELS = ("gcrn-m2", "evolvegcn")
+MODELS = ("gcrn-m2", "evolvegcn", "stacked-gcn-gru")
 LENS = (5, 3, 4)
 
 
@@ -65,11 +66,12 @@ def _sessions(case):
 
 def _assert_state_close(port, ref, label):
     ref = jax.tree.map(np.asarray, ref)
+    assert set(port) == set(ref), label
     if "weights" in ref:
         assert len(port["weights"]) == len(ref["weights"])
         pairs = list(zip(port["weights"], ref["weights"]))
     else:
-        pairs = [(port["h"], ref["h"]), (port["c"], ref["c"])]
+        pairs = [(port[k], ref[k]) for k in sorted(ref)]
     for i, (a, b) in enumerate(pairs):
         np.testing.assert_allclose(a.numpy(), b, atol=ATOL,
                                    err_msg=f"{label} state[{i}]")
@@ -159,7 +161,7 @@ def test_plan_validation_matches_jax(kwargs):
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(level="o1"), "item 3"),
+    (dict(level="o1", stream_chunk=4), "stream_chunk=4: .*item 12"),
     (dict(level="v3", state_residency="hbm_paged", td=8), "item 11"),
     (dict(scheduler="continuous", level="v3"), "scheduler='continuous': .*item 12"),
     (dict(max_retries=2, level="v3"), "max_retries=2: .*item 12"),

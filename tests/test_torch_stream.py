@@ -1,6 +1,7 @@
 """The port's stream engine computes the JAX package's function.
 
-For the two ported families (gcrn, evolve), ``repro_torch.kernels.ops``
+For the three ported families (gcrn, stacked, evolve),
+``repro_torch.kernels.ops``
 ``stream_steps[_batched]`` on the CPU — the kernel path (pack, the kernel
 wrapper's plain version, unpack) and the force-ref path — must match the
 JAX package's stream oracle on the same numpy inputs
@@ -25,7 +26,7 @@ from repro_torch.kernels import engine
 from repro_torch.kernels import ops as tops
 
 ATOL = 3e-4
-FAMILIES = ("gcrn", "evolve")
+FAMILIES = ("gcrn", "stacked", "evolve")
 
 
 def _flat(res):
@@ -79,7 +80,7 @@ def test_ragged_lengths_with_empty_row_match_jax(family):
         _assert_close(got, want, f"{family} ragged ref={force_ref}")
     # the length-0 row leaves its state exactly as it came in
     got = _flat(_port(family, args, True, lengths))
-    state0 = args[6] if family == "gcrn" else args[5][0]
+    state0 = args[5][0] if family == "evolve" else args[6]
     np.testing.assert_array_equal(got[1][1], np.asarray(state0)[1])
 
 
@@ -149,7 +150,7 @@ def test_cells_and_step_ops_match_jax(fused):
             np.testing.assert_allclose(g, wv, atol=1e-5, err_msg=str(i))
 
 
-@pytest.mark.parametrize("family", ["stacked", "tgn", "static_gcn"])
+@pytest.mark.parametrize("family", ["tgn", "static_gcn"])
 def test_unported_families_name_their_roadmap_item(family):
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
         tops.stream_steps(family, device="cpu")
@@ -200,8 +201,8 @@ def test_pack_is_what_the_launch_hands_the_wrapper(family):
     want = _port(family, args, True, lengths)
     targs = tops.to_device(tuple(args), "cpu")
     packed = tops.pack(family, *targs, lengths=lengths)
-    if family == "gcrn":
-        got = engine.gcrn_plain(*packed)
+    if family != "evolve":
+        got = getattr(engine, f"{family}_plain")(*packed)
     else:
         outs, wT = engine.evolve_plain(*packed)
         dims = [w.shape[-2:] for w in targs[5]]
