@@ -27,6 +27,10 @@ Phases (any failure exits non-zero):
      the per-step levels. The launch counts are set to 0 just before each
      path and read just after it; each path's results are held against its
      force-ref run on the card (<= 1e-3).
+  5. the device's busy share of one run at baseline, v2 and v3 (kernel
+     time over wall time, torch.profiler).
+  6. a probe of where a live node tile's time goes: gcrn_step on
+     synthetic full-width inputs that vary live rows, lanes and widths.
 Prints ms/snapshot per path, a {"kernels": [...]} line and, last, the
 device line.
 
@@ -37,6 +41,7 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -356,9 +361,11 @@ def sparse_mm_inputs(call):
     n = idx.shape[0]
     live = coef != 0
     rows = torch.arange(n, device=idx.device)[:, None].expand_as(idx)
-    a = torch.sparse_coo_tensor(
-        torch.stack([rows[live], idx[live].long()]), coef[live],
-        (n, x.shape[0])).coalesce().to_sparse_csr()
+    with warnings.catch_warnings():  # sparse CSR is "beta" in torch
+        warnings.simplefilter("ignore", UserWarning)
+        a = torch.sparse_coo_tensor(
+            torch.stack([rows[live], idx[live].long()]), coef[live],
+            (n, x.shape[0]), check_invariants=True).coalesce().to_sparse_csr()
     return a, x
 
 
@@ -376,7 +383,7 @@ def check_step_kernel(name, plain, calls, timed, cost, library=None):
     log(f"{name}: {len(calls)} main-path calls max_abs_err={err:.3e} "
         f"(tol {TOL_KERNEL})")
     check(np.isfinite(err) and err <= TOL_KERNEL, name)
-    prepared = [engine.prepare(name, *c, check_ids=False) for c in timed]
+    prepared = [engine.prepare(name, *c) for c in timed]
     ms = cuda_ms(lambda: [engine.launch(p) for p in prepared], reps=5)
     plain_ms = cuda_ms(lambda: [plain(*c) for c in timed], reps=2)
     lib_ms = None
@@ -569,6 +576,64 @@ def check_path(label, cfg, level, res, ref, T):
           f"{label} vs force_ref {errs}")
 
 
+def tile_probe():
+    """Where a live node tile's time goes: gcrn_step at full width (n 640,
+    din 64, H 128, k 27) on synthetic inputs that vary the live rows, the
+    live lanes a row and the widths, timed as bare launches (us a call).
+    With 5 live lanes a row and 128 live rows it matches the main path's
+    shape (~107 real rows, ~5 live lanes)."""
+    def inputs(live_rows=128, live_lanes=5, k=27, din=64, H=128):
+        g = torch.Generator().manual_seed(SEED)
+        n = N_PAD
+        live_rows = min(live_rows, n)
+        idx = torch.randint(0, max(live_rows, 1), (n, k), generator=g,
+                            dtype=torch.int32)
+        coef = torch.zeros(n, k)
+        coef[:live_rows, :live_lanes] = torch.rand(live_rows, live_lanes,
+                                                   generator=g) + 0.1
+        dense = [torch.randn(*shape, generator=g) * 0.3 for shape in
+                 ((n, din), (n, H), (n, H), (din, 4 * H), (H, 4 * H))]
+        return [t.cuda() for t in (idx, coef, torch.zeros_like(idx), *dense,
+                                   torch.zeros(4 * H))]
+
+    cases = (("128 live rows, 5 of 27 lanes", {}),
+             ("128 live rows, 1 of 27 lanes", dict(live_lanes=1)),
+             ("128 live rows, k = 1", dict(live_lanes=1, k=1)),
+             ("128 live rows, 27 of 27 lanes", dict(live_lanes=27)),
+             ("32 live rows (one tile), 5 lanes", dict(live_rows=32)),
+             ("640 live rows, 5 lanes", dict(live_rows=640)),
+             ("no live row (bias only)", dict(live_rows=0)),
+             ("128 live rows, din 32, H 64", dict(din=32, H=64)))
+    for label, kw in cases:
+        p = engine.prepare("gcrn_step", *inputs(**kw))
+        us = cuda_ms(lambda: [engine.launch(p) for _ in range(100)],
+                     reps=3) * 10
+        log(f"tile probe gcrn_step: {label}: {us:.1f} us a call")
+
+
+def busy_share(cfg, level, params, n_global, stream):
+    """(wall ms, device ms) of one session ``run`` of the whole stream under
+    torch.profiler: the device time is the kernels' summed self time. The
+    profiler's own host cost lengthens the wall time, so 1 - device / wall
+    overstates the idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sess = api.BoosterSession(cfg, api.plan(cfg, level=level),
+                              n_global=n_global, params=params,
+                              device="cuda")
+    sess.run(stream)  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sess.run(stream)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    device = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    return wall, device
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -677,6 +742,19 @@ def main() -> int:
               f"{label} force_ref reached a kernel")
         check_path(label, cfg, level, res, ref, T)
     log(f"phase 4 (main paths): {time.time() - t0:.1f} s")
+
+    # phase 5: the device's busy share of a run, per kind of level
+    for cfg, level in ((GCRN_M2, "baseline"), (GCRN_M2, "v2"),
+                       (GCRN_M2, "v3"), (STACKED, "v3")):
+        wall, device = busy_share(cfg, level, params[cfg.name], n_global,
+                                  stream)
+        share = (f"{device / wall:.3f}" if device > 0
+                 else "not measured (the profiler saw no device time)")
+        log(f"busy {cfg.name} {level}: run {wall:.2f} ms wall under the "
+            f"profiler, {device:.2f} ms of kernels, busy share {share}")
+
+    # phase 6: where a live node tile's time goes
+    tile_probe()
     for rec in records:
         rec["launches"] = launches[rec["name"]]
         check(rec["launches"] > 0, f"{rec['name']} launched on the main path")

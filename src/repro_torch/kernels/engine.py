@@ -18,9 +18,7 @@ Each wrapper takes packed tensors (kernels/ops.py packs them):
   a build or launch error raises, and nothing falls back to the plain path;
 * any other device raises.
 
-Index tensors are range-checked before a launch (one device sync); a
-caller that has checked the same index tensors already passes
-``check_ids=False``.
+Index tensors are range-checked before a launch (one device sync).
 """
 from __future__ import annotations
 
@@ -394,10 +392,10 @@ def stacked_engine(idx, coef, eidx, x, rowg, mask, h0, wg, bg, wx, wh, b,
 
 # ----------------------------------------- per-step kernels: V2, SpMM ----
 # The per-step kernels take microseconds, so their wrappers split in two:
-# ``prepare`` checks the tensors, allocates the outputs and marshals the C
-# arguments; ``launch`` launches what was prepared (again, if called
-# again: it overwrites the same outputs). chip_smoke.py times ``launch``
-# alone.
+# ``prepare`` checks the tensors (index ranges included), allocates the
+# outputs and marshals the C arguments; ``launch`` launches what was
+# prepared (again, if called again: it overwrites the same outputs).
+# chip_smoke.py times ``launch`` alone.
 
 @dataclass(frozen=True)
 class Prepared:
@@ -430,8 +428,7 @@ def gcrn_step_plain(idx, coef, eidx, x, h, c, wx, wh, b, emsg=None):
     return _ref.dgnn_fused_step(idx, coef, eidx, x, h, c, wx, wh, b, emsg)
 
 
-def gcrn_step(idx, coef, eidx, x, h, c, wx, wh, b, emsg=None, *,
-              check_ids: bool = True):
+def gcrn_step(idx, coef, eidx, x, h, c, wx, wh, b, emsg=None):
     """One GC-LSTM step of one snapshot, aggregation to LSTM update.
 
     idx/eidx (n, k) int32, coef (n, k), x (n, din), h/c (n, H),
@@ -440,11 +437,10 @@ def gcrn_step(idx, coef, eidx, x, h, c, wx, wh, b, emsg=None, *,
     if _device_kind("gcrn_step", x) == "cpu":
         return gcrn_step_plain(idx, coef, eidx, x, h, c, wx, wh, b, emsg)
     return launch(_prepare_gcrn_step(idx, coef, eidx, x, h, c, wx, wh, b,
-                                     emsg, check_ids=check_ids))
+                                     emsg))
 
 
-def _prepare_gcrn_step(idx, coef, eidx, x, h, c, wx, wh, b, emsg=None, *,
-                       check_ids: bool = True) -> Prepared:
+def _prepare_gcrn_step(idx, coef, eidx, x, h, c, wx, wh, b, emsg=None) -> Prepared:
     name = "gcrn_step"
     n, k = idx.shape
     din, H = x.shape[-1], h.shape[-1]
@@ -459,10 +455,9 @@ def _prepare_gcrn_step(idx, coef, eidx, x, h, c, wx, wh, b, emsg=None, *,
             or (emsg is not None and (emsg.dim() != 2
                                       or emsg.shape[1] != din))):
         raise ValueError(f"{name}: inconsistent shapes")
-    if check_ids:
-        _check_index(name, "idx", idx, n)
-        if emsg is not None:
-            _check_index(name, "eidx", eidx, emsg.shape[0])
+    _check_index(name, "idx", idx, n)
+    if emsg is not None:
+        _check_index(name, "eidx", eidx, emsg.shape[0])
     lib = _library(name)
     _check_smem(name, lib.gcrn_step_smem_bytes(k, din, H),
                 f"k={k}, din={din}, H={H}")
@@ -482,8 +477,7 @@ def stacked_step_plain(idx, coef, eidx, x, h, wg, bg, wx, wh, b, emsg=None):
                                    emsg)
 
 
-def stacked_step(idx, coef, eidx, x, h, wg, bg, wx, wh, b, emsg=None, *,
-                 check_ids: bool = True):
+def stacked_step(idx, coef, eidx, x, h, wg, bg, wx, wh, b, emsg=None):
     """One GCN -> GRU step of one snapshot: aggregation, linear node
     transform, GRU against each node's own h.
 
@@ -495,11 +489,11 @@ def stacked_step(idx, coef, eidx, x, h, wg, bg, wx, wh, b, emsg=None, *,
         return stacked_step_plain(idx, coef, eidx, x, h, wg, bg, wx, wh, b,
                                   emsg)
     return launch(_prepare_stacked_step(idx, coef, eidx, x, h, wg, bg, wx,
-                                        wh, b, emsg, check_ids=check_ids))
+                                        wh, b, emsg))
 
 
 def _prepare_stacked_step(idx, coef, eidx, x, h, wg, bg, wx, wh, b,
-                          emsg=None, *, check_ids: bool = True) -> Prepared:
+                          emsg=None) -> Prepared:
     name = "stacked_step"
     n, k = idx.shape
     din, dmid, H = x.shape[-1], wg.shape[-1], h.shape[-1]
@@ -515,10 +509,9 @@ def _prepare_stacked_step(idx, coef, eidx, x, h, wg, bg, wx, wh, b,
             or (emsg is not None and (emsg.dim() != 2
                                       or emsg.shape[1] != din))):
         raise ValueError(f"{name}: inconsistent shapes")
-    if check_ids:
-        _check_index(name, "idx", idx, n)
-        if emsg is not None:
-            _check_index(name, "eidx", eidx, emsg.shape[0])
+    _check_index(name, "idx", idx, n)
+    if emsg is not None:
+        _check_index(name, "eidx", eidx, emsg.shape[0])
     lib = _library(name)
     _check_smem(name, lib.stacked_step_smem_bytes(k, din, dmid, H),
                 f"k={k}, din={din}, dmid={dmid}, H={H}")
@@ -536,7 +529,7 @@ def ell_spmm_plain(idx, coef, eidx, x, emsg=None):
     return _ref.ell_spmm(idx, coef, eidx, x, emsg)
 
 
-def ell_spmm(idx, coef, eidx, x, emsg=None, *, check_ids: bool = True):
+def ell_spmm(idx, coef, eidx, x, emsg=None):
     """out[..., v, :] = sum_s coef[..., v, s] * (x[..., idx[..., v, s], :]
     + emsg[..., eidx[..., v, s], :]) over L independent graphs.
 
@@ -545,12 +538,10 @@ def ell_spmm(idx, coef, eidx, x, emsg=None, *, check_ids: bool = True):
     graphs); float tensors float32. Returns (..., n, d)."""
     if _device_kind("ell_spmm", x) == "cpu":
         return ell_spmm_plain(idx, coef, eidx, x, emsg)
-    return launch(_prepare_ell_spmm(idx, coef, eidx, x, emsg,
-                                    check_ids=check_ids))
+    return launch(_prepare_ell_spmm(idx, coef, eidx, x, emsg))
 
 
-def _prepare_ell_spmm(idx, coef, eidx, x, emsg=None, *,
-                      check_ids: bool = True) -> Prepared:
+def _prepare_ell_spmm(idx, coef, eidx, x, emsg=None) -> Prepared:
     name = "ell_spmm"
     lead, (n, k) = idx.shape[:-2], idx.shape[-2:]
     nx, d = x.shape[-2:]
@@ -565,10 +556,9 @@ def _prepare_ell_spmm(idx, coef, eidx, x, emsg=None, *,
     L = math.prod(lead)
     if L > 65535:
         raise ValueError(f"{name}: {L} graphs in one launch, over 65535")
-    if check_ids:
-        _check_index(name, "idx", idx, nx)
-        if emsg is not None:
-            _check_index(name, "eidx", eidx, emsg.shape[-2])
+    _check_index(name, "idx", idx, nx)
+    if emsg is not None:
+        _check_index(name, "eidx", eidx, emsg.shape[-2])
     lib = _library(name)
     e = 0 if emsg is None else emsg.shape[-2]
     out = torch.empty((*lead, n, d), dtype=f32, device=x.device)

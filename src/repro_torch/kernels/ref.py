@@ -1,8 +1,9 @@
-"""Plain PyTorch versions of the stream engine (the port's force-ref path).
+"""Plain PyTorch versions of the kernels (the port's force-ref path).
 
 These are written from the math, op by op, with no custom kernel: the
-ground truth the CUDA stream-engine kernels are held to on the card, and
-what the kernel wrappers run for tensors that lie on the CPU.
+ground truth the CUDA kernels (the ELL SpMM, the V2 fused steps, the
+stream engines) are held to on the card, and what the kernel wrappers run
+for tensors that lie on the CPU.
 
 Padded ELL layout, as the kernels read it:
   neigh_idx  (N, K) int32 — local source node per (dst, slot); 0 on padding
