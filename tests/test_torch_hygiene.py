@@ -79,3 +79,21 @@ def test_cpu_wrapper_runs_the_plain_version_and_counts_nothing():
     want = oracle(*args)
     np.testing.assert_allclose(outs.numpy(), np.asarray(want[0]), atol=3e-4)
     assert engine.LAUNCHES == {name: 0 for name in engine.KERNELS}
+
+
+@pytest.mark.parametrize("name", ["gcrn_step", "stacked_step", "ell_spmm"])
+def test_prepare_raises_without_a_card(no_cuda, name):
+    """A prepared launch exists only on the card: ``engine.prepare`` checks
+    the tensors, then needs the kernel library, and raises without it."""
+    z = lambda *s: torch.zeros(s)
+    i = lambda *s: torch.zeros(s, dtype=torch.int32)
+    n, k, d, h = 8, 2, 4, 8
+    args = {"ell_spmm": (i(n, k), z(n, k), i(n, k), z(n, d)),
+            "gcrn_step": (i(n, k), z(n, k), i(n, k), z(n, d), z(n, h),
+                          z(n, h), z(d, 4 * h), z(h, 4 * h), z(4 * h)),
+            "stacked_step": (i(n, k), z(n, k), i(n, k), z(n, d), z(n, h),
+                             z(d, h), z(h), z(h, 3 * h), z(h, 3 * h),
+                             z(3 * h))}[name]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        engine.prepare(name, *args)
+    assert all(v == 0 for v in engine.LAUNCHES.values())
