@@ -5,28 +5,31 @@
 
 Phases (any failure exits non-zero):
   1. environment: card name and power limit, torch / CUDA versions, TF32 off;
-  2. build all six kernels from src/repro_torch/kernels/csrc (one nvcc per
+  2. build all eight kernels from src/repro_torch/kernels/csrc (one nvcc per
      source, all at once);
   3. every kernel against its plain PyTorch version on the card:
-     a. narrow widths with partial node tiles, ragged, with and without
-        edge messages (<= 1e-4: fp32 with TF32 off, only the order of
-        summation differs);
-     b. the three stream engines at full width (BC-Alpha, n_pad 640,
+     a. narrow odd widths with partial node tiles, ragged with a length-0
+        row, with and without edge messages / the static edge term
+        (<= 1e-4: fp32 with TF32 off, only the order of summation differs);
+     b. the five stream engines at full width (BC-Alpha, n_pad 640,
         G 3468): a T = 8, B = 2 ragged case (<= 1e-4) and the main path's
-        solo shapes (all 137 steps, <= 1e-3: the recurrence compounds
-        sum-order differences);
+        own shapes (all 137 steps, 176 TGN event batches or 137 static
+        slots; <= 1e-3 for the recurrences, which compound sum-order
+        differences, <= 1e-4 for the static GCN);
      c. the three per-step kernels (V2 steps, ELL SpMM) on the inputs the
         main path hands them at full width, recorded from one run of a path
         that launches each, every step of the stream (<= 1e-4);
      each timed with CUDA events beside its bound, and the ELL SpMM beside
      torch.sparse.mm of the same matrix;
-  4. main path: every level of GCRN-M2, EvolveGCN-O and the stacked
-     GCN -> GRU through BoosterSession (run on the whole BC-Alpha stream,
-     run_batched over windows: ragged at v3, equal at the per-step levels),
-     and build_model(cfg, impl="pallas") with run_plan / run_plan_batched at
-     the per-step levels. The launch counts are set to 0 just before each
-     path and read just after it; each path's results are held against its
-     force-ref run on the card (<= 1e-3).
+  4. main path: every level of GCRN-M2, EvolveGCN-O, the stacked
+     GCN -> GRU, TGN and the static GCN through BoosterSession (run on the
+     whole BC-Alpha stream, run_batched over windows: ragged at v3, equal at
+     the per-step levels), and build_model(cfg, impl="pallas") with
+     run_plan / run_plan_batched at the per-step levels. TGN runs on the
+     BC-Alpha events (sorted by time, batches of 200: 176 event batches),
+     the others on the 137 snapshots. The launch counts are set to 0 just
+     before each path and read just after it; each path's results are held
+     against its force-ref run on the card (<= 1e-3).
   5. the device's busy share of one run at baseline, v2 and v3 (kernel
      time over wall time, torch.profiler).
   6. a probe of where a live node tile's time goes: gcrn_step on
@@ -52,14 +55,14 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import api  # noqa: E402
 from repro_torch.configs.dgnn import (BC_ALPHA, EVOLVEGCN, GCRN_M2,  # noqa: E402
-                                      STACKED)
+                                      STACKED, STATIC_GCN, TGN)
 from repro_torch.core.dataflow import (build_model, init_states_batched,  # noqa: E402
                                        run_plan, run_plan_batched,
                                        stack_time)
 from repro_torch.core.evolvegcn import layer_dims  # noqa: E402
 from repro_torch.graph import (generate_temporal_graph, max_in_degree,  # noqa: E402
-                               pad_snapshot, renumber_and_normalize,
-                               slice_snapshots)
+                               pad_event_block, pad_snapshot,
+                               renumber_and_normalize, slice_snapshots)
 from repro_torch.graph.padding import PaddedSnapshot, stack_ragged  # noqa: E402
 from repro_torch.kernels import engine, ops  # noqa: E402
 
@@ -70,18 +73,31 @@ TOL_KERNEL = 1e-4
 TOL_STREAM = 1e-3
 N_PAD = 640
 SEED = 0
-CONFIGS = (GCRN_M2, EVOLVEGCN, STACKED)
+CONFIGS = (GCRN_M2, EVOLVEGCN, STACKED, TGN, STATIC_GCN)
+# TGN's event batches: the TGN paper's batch size
+EVENT_BATCH = 200
 # run_batched windows of the stream: ragged at v3 (the stream engine's
 # lengths), equal at the per-step levels (which need equal T)
 V3_WINDOWS = ((0, 137), (0, 100), (40, 137), (0, 64))
 STEP_WINDOWS = ((0, 45), (46, 91), (92, 137))
+# the same over TGN's 176 event batches
+EVENT_V3_WINDOWS = ((0, 176), (0, 120), (50, 176), (0, 64))
+EVENT_STEP_WINDOWS = ((0, 58), (59, 117), (118, 176))
+# the T = 8, B = 2 ragged engine check at full width (lengths 8 and 5)
+CHECK_WINDOWS = ((0, 8), (40, 48))
 # timed repeats of each main path's run after the checked one
 RUN_REPS = 3
 SRC = "src/repro_torch/kernels/csrc"
+# the stream-engine kernel of each family
+ENGINE = {"gcrn": "gcrn_engine", "evolve": "evolve_engine",
+          "stacked": "stacked_engine", "tgn": "tgn_engine",
+          "static_gcn": "static_engine"}
 REPLACES = {
     "gcrn_engine": "src/repro/kernels/stream_fused.py:833",
     "evolve_engine": "src/repro/kernels/stream_fused.py:1191",
     "stacked_engine": "src/repro/kernels/stream_fused.py:1015",
+    "tgn_engine": "src/repro/kernels/stream_fused.py:1381",
+    "static_engine": "src/repro/kernels/stream_fused.py:1562",
     "gcrn_step": "src/repro/kernels/dgnn_fused.py:58",
     "stacked_step": "src/repro/kernels/dgnn_fused.py:119",
     "ell_spmm": "src/repro/kernels/csr_spmm.py:47",
@@ -128,9 +144,12 @@ def flat(r) -> list:
 
 
 def max_err(a, b) -> float:
+    """Largest absolute difference of two results (0 for two empty
+    states)."""
     a, b = flat(a), flat(b)
     check(len(a) == len(b), "results of different structure")
-    return max(float((x - y).abs().max()) for x, y in zip(a, b))
+    return max((float((x - y).abs().max()) for x, y in zip(a, b)),
+               default=0.0)
 
 
 def nbytes(*ts) -> int:
@@ -152,8 +171,31 @@ def bc_alpha():
     return stream, tg.n_global_nodes
 
 
-def window(s: PaddedSnapshot, a: int, b: int) -> PaddedSnapshot:
-    return PaddedSnapshot(**{k: v[a:b] for k, v in vars(s).items()})
+def bc_alpha_events():
+    """The BC-Alpha interactions as TGN event batches (numpy): sorted by
+    time (stable), batches of ``EVENT_BATCH``, n_pad 640, k_max the most
+    events a node has in one batch."""
+    tg, feat = generate_temporal_graph(BC_ALPHA, feat_dim=TGN.in_dim)
+    order = np.argsort(tg.time, kind="stable")
+    src, dst, ts = tg.src[order], tg.dst[order], tg.time[order]
+    cuts = range(0, src.size, EVENT_BATCH)
+    k_max = max(int(np.unique(np.concatenate(
+        [src[a:a + EVENT_BATCH], dst[a:a + EVENT_BATCH]]),
+        return_counts=True)[1].max()) for a in cuts)
+    blocks = [pad_event_block(src[a:a + EVENT_BATCH], dst[a:a + EVENT_BATCH],
+                              ts[a:a + EVENT_BATCH], feat, N_PAD, k_max)
+              for a in cuts]
+    touched = [int(b.n_nodes) for b in blocks]
+    log(f"bc-alpha events: {src.size} events, T={len(blocks)} batches of "
+        f"{EVENT_BATCH}, n_global={tg.n_global_nodes} n_pad={N_PAD} "
+        f"k_max={k_max} touched nodes {min(touched)}-{max(touched)} "
+        f"(mean {np.mean(touched):.1f}), ts {ts.min()}-{ts.max()}")
+    return stack_time(blocks)
+
+
+def window(s, a: int, b: int):
+    """Entries [a, b) of a padded snapshot or event-block stream."""
+    return type(s)(**{k: v[a:b] for k, v in vars(s).items()})
 
 
 def batch_of(s: PaddedSnapshot, wins) -> PaddedSnapshot:
@@ -238,6 +280,48 @@ def evolve_cost(inp, dims):
     return flops, byts
 
 
+def tgn_cost(inp):
+    """(flop, bytes) the TGN engine's function needs on these inputs: per
+    touched row (mask != 0) its lanes' ids, coefs and times, its x row and
+    row id, the input projection and the GRU; per live lane and column the
+    two aggregations, ts * freq and one cos (counted as one operation); the
+    weights, the store in and out, the per-batch outputs, and the gather /
+    scatter of each touched row's memory (partners are touched rows of the
+    same batch, so their reads are those gathers)."""
+    gidx, coef, ts, x, rowg, mask, mem0, freq, w_in, wx, wh, b = inp
+    B, T, n, k = gidx.shape
+    din, h = x.shape[-1], mem0.shape[-1]
+    rows = float((mask != 0).sum())
+    lanes = float((coef != 0).sum())
+    flops = (2 * rows * (din * h + 2 * h * 3 * h)
+             + lanes * h * (2 * 2 + 1 + 1))
+    byts = nbytes(mask) + rows * (k * 3 * 4 + din * 4 + 4)
+    byts += nbytes(freq, w_in, wx, wh, b) + 2 * nbytes(mem0)
+    byts += B * T * n * h * 4 + rows * h * 4 * 2
+    return flops, byts
+
+
+def static_cost(inp, dims):
+    """(flop, bytes) the static GCN kernel's function needs on these
+    inputs, at each layer's true widths ``dims``: per real row (mask != 0)
+    its lanes, its x row, its edge term at layer 0's input width and each
+    layer's product; per live lane each layer's aggregation; the shared
+    weights once; the output at its true width."""
+    idx, coef, x, mask, w, bg, eagg = inp
+    B, T, n, k = idx.shape
+    rows = float((mask != 0).sum())
+    lanes = float((coef != 0).sum())
+    flops = sum(2 * lanes * din + 2 * rows * din * dout
+                for din, dout in dims)
+    byts = nbytes(mask) + rows * (k * 2 * 4 + dims[0][0] * 4)
+    if eagg is not None:
+        flops += rows * dims[0][0]
+        byts += rows * dims[0][0] * 4
+    byts += 4 * sum(din * dout + dout for din, dout in dims)
+    byts += B * T * n * dims[-1][1] * 4
+    return flops, byts
+
+
 def ell_cost(call):
     """(flop, bytes) of one ELL SpMM: the lanes of rows with a live lane,
     the x rows and edge rows the live lanes read, the whole output."""
@@ -299,7 +383,11 @@ def bound(flops, byts):
 
 def kernel_inputs(model, params, snaps, lengths=None):
     """The kernel wrapper's inputs for a (B, T, ...) batch: the model's
-    stream arguments, packed by kernels/ops.py as the main path packs them."""
+    stream arguments, packed by kernels/ops.py as the main path packs them
+    (the static GCN's (B, T) snapshots folded onto (B * T, 1) slots, its
+    lengths turned into per-slot liveness, as StaticGCN does)."""
+    if model.stream_family == "static_gcn":
+        snaps, lengths = model.fold_slots(snaps, lengths)
     B = snaps.node_mask.shape[0]
     state = init_states_batched(model, params, B)
     return ops.pack(model.stream_family,
@@ -313,8 +401,9 @@ def record(name: str, **kw):
             **kw}
 
 
-def check_engine(name, kernel, plain, check_inp, main_inp, cost):
-    """A stream engine vs its plain version on the card; its record."""
+def check_engine(name, kernel, plain, check_inp, main_inp, cost, tol_main):
+    """A stream engine vs its plain version on the card (the main path's
+    inputs within ``tol_main``); its record."""
     got, want = kernel(*check_inp), plain(*check_inp)
     torch.cuda.synchronize()
     err_small = max_err(got, want)
@@ -324,8 +413,8 @@ def check_engine(name, kernel, plain, check_inp, main_inp, cost):
     got, want = kernel(*main_inp), plain(*main_inp)
     torch.cuda.synchronize()
     err = max_err(got, want)
-    log(f"{name}: main-path shapes max_abs_err={err:.3e} (tol {TOL_STREAM})")
-    check(np.isfinite(err) and err <= TOL_STREAM, name)
+    log(f"{name}: main-path shapes max_abs_err={err:.3e} (tol {tol_main})")
+    check(np.isfinite(err) and err <= tol_main, name)
     ms = cuda_ms(lambda: kernel(*main_inp), reps=5)
     plain_ms = cuda_ms(lambda: plain(*main_inp), reps=2)
     flops, byts = cost(main_inp)
@@ -334,6 +423,33 @@ def check_engine(name, kernel, plain, check_inp, main_inp, cost):
         f"bound {bound_ms:.4f} ms ({flops:.3e} flop, {byts:.3e} B)")
     return record(name, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                   bound_ms=bound_ms, bound_by=bound_by, err_t8_b2=err_small)
+
+
+def static_wave_probe(inp):
+    """What spreading the static GCN's slots over the SMs costs:
+    static_engine on the main path's slots, timed on the first 132 (one an
+    SM), on all of them, on those past 132, and on the slot with the most
+    real rows alone (ms a launch, the wrapper included)."""
+    idx, coef, x, mask, w, bg, eagg = inp
+    B = idx.shape[0]
+    rows = (mask != 0).sum(dim=(1, 2))
+    big = int(rows.argmax())
+
+    def pick(sel):
+        take = lambda t: None if t is None else t[sel].contiguous()
+        return (take(idx), take(coef), take(x), take(mask), w, bg, take(eagg))
+
+    for label, sel in ((f"first {min(B, 132)} slots", slice(0, 132)),
+                       (f"all {B} slots", slice(0, B)),
+                       (f"the {max(B - 132, 0)} slots past 132",
+                        slice(132, B)),
+                       (f"the largest slot alone ({int(rows[big])} real "
+                        "rows)", slice(big, big + 1))):
+        args = pick(sel)
+        if args[0].shape[0] == 0:
+            continue
+        log(f"static wave probe: {label}: "
+            f"{cuda_ms(lambda: engine.static_engine(*args), reps=20):.4f} ms")
 
 
 @contextlib.contextmanager
@@ -448,6 +564,29 @@ def small_shapes_check():
             log(f"{family}_engine: n=37 H/D=24/16 ragged edges={edges} "
                 f"max_abs_err={err:.3e} (tol {TOL_KERNEL})")
             check(np.isfinite(err) and err <= TOL_KERNEL, family)
+    # TGN and the static GCN: odd feature widths, a length-0 ragged row
+    # (a dead slot for the static GCN), event times up to BC-Alpha's
+    din_o, dims_o = 13, [(13, 11), (11, 7)]
+    x_o = f32(B, T, n, din_o) * mask[..., None]
+    ts = (rng.uniform(0.0, 137.0, (B, T, n, k)) * (coef != 0)).astype(
+        np.float32)
+    freq = (1.0 / 10.0 ** np.linspace(0.0, 4.0, h)).astype(np.float32)
+    static = (idx[:, :1], coef[:, :1], x_o[:, :1], mask[:, :1],
+              [f32(*d) for d in dims_o], [f32(d[1]) for d in dims_o])
+    for family, full, lens, label in (
+            ("tgn", (idx, coef, ts, x_o, ren, mask, f32(B, G, h), freq,
+                     f32(din_o, h), f32(h, 3 * h), f32(h, 3 * h),
+                     f32(3 * h)), [3, 0, 2], "no edge variant"),
+            ("static_gcn", static, [1, 0, 1], "edge term=False"),
+            ("static_gcn", static + ([f32(B, 1, n, d[0]) for d in dims_o],),
+             [1, 0, 1], "edge term=True")):
+        got, want = (ops.stream_steps_batched(
+            family, *full, lengths=lens, device="cuda", force_ref=fr)
+            for fr in (False, True))
+        err = max_err(got, want)
+        log(f"{ENGINE[family]}: n=37 k=5 din=13 H/D=24/13,11,7 ragged "
+            f"{lens} {label} max_abs_err={err:.3e} (tol {TOL_KERNEL})")
+        check(np.isfinite(err) and err <= TOL_KERNEL, family)
     cu = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()
     g = [cu(a[0, 0]) for a in (idx, coef, eidx)]
     xs, hs, cs = cu(x[0, 0]), cu(f32(n, h)), cu(f32(n, h))
@@ -481,20 +620,25 @@ def per_step_levels(cfg):
 
 def main_paths():
     """(cfg, level, impl) of every main path: every level through the
-    session, then the per-step levels with the ELL SpMM (impl "pallas")."""
+    session, then the per-step levels with the ELL SpMM (impl "pallas";
+    TGN has no GCN, so none of its levels reaches it)."""
     for cfg in CONFIGS:
         for level in api.FAMILY_LEVELS[api.family_for(cfg)]:
             yield cfg, level, "session"
     for cfg in CONFIGS:
+        if cfg is TGN:
+            continue
         for level in per_step_levels(cfg):
             yield cfg, level, "pallas"
 
 
+
 def expected_kernels(cfg, level, impl) -> set:
-    """The kernels a main path must launch."""
+    """The kernels a main path must launch (TGN and the static GCN launch
+    none at baseline through the session: plain PyTorch steps)."""
     family = api.family_for(cfg)
     if level == "v3":
-        return {f"{family}_engine"}
+        return {ENGINE[family]}
     names = set()
     if level == "v2":
         names.add(f"{family}_step")
@@ -506,13 +650,28 @@ def expected_kernels(cfg, level, impl) -> set:
     return names
 
 
+def windows_for(cfg, level):
+    """run_batched windows of a path's stream."""
+    if cfg is TGN:
+        return EVENT_V3_WINDOWS if level == "v3" else EVENT_STEP_WINDOWS
+    return V3_WINDOWS if level == "v3" else STEP_WINDOWS
+
+
+def out_width(cfg) -> int:
+    """Width of a path's outputs: TGN's are its memory and the stacked
+    family's its GRU state (cfg.hidden); the others end in a head or a last
+    GCN layer of cfg.out_dim."""
+    return (cfg.hidden if api.family_for(cfg) in ("stacked", "tgn")
+            else cfg.out_dim)
+
+
 def drive(cfg, level, impl, params, n_global, stream, np_stream, *,
           force_ref=False, reps=0):
     """One main path: a run of the whole stream, then a batched run over
     windows. Returns ((outs, state, outs_b, states_b), run ms/snapshot of
     the first run and of ``reps`` more runs of the same stream)."""
     T = stream.node_mask.shape[0]
-    wins = V3_WINDOWS if level == "v3" else STEP_WINDOWS
+    wins = windows_for(cfg, level)
     ms = []
 
     def timed(fn):
@@ -556,8 +715,8 @@ def drive(cfg, level, impl, params, n_global, stream, np_stream, *,
 
 def check_path(label, cfg, level, res, ref, T):
     outs, state, outs_b, states_b = res
-    wins = V3_WINDOWS if level == "v3" else STEP_WINDOWS
-    width = cfg.hidden if api.family_for(cfg) == "stacked" else cfg.out_dim
+    wins = windows_for(cfg, level)
+    width = out_width(cfg)
     check(outs.shape == (T, N_PAD, width),
           f"{label} output shape {tuple(outs.shape)}")
     check(all(o.shape[0] == b - a for o, (a, b) in zip(outs_b, wins)),
@@ -661,6 +820,12 @@ def main() -> int:
     np_stream, n_global = bc_alpha()
     stream = np_stream.to("cuda")
     T = stream.node_mask.shape[0]
+    np_events = bc_alpha_events()
+    events = np_events.to("cuda")
+    T_ev = events.node_mask.shape[0]
+    # each path's stream: TGN's event batches, the others' snapshots
+    streams = {cfg.name: (events, np_events) if cfg is TGN
+               else (stream, np_stream) for cfg in CONFIGS}
     gen = torch.Generator().manual_seed(SEED)
     models, params = {}, {}
     for cfg in CONFIGS:
@@ -672,19 +837,34 @@ def main() -> int:
     small_shapes_check()
 
     # phase 3b: the stream engines at full width
-    check_b = batch_of(np_stream, ((0, 8), (40, 48)))
+    check_b = batch_of(np_stream, CHECK_WINDOWS)
     solo = batch_of(np_stream, ((0, T),))
+    check_ev = batch_of(np_events, CHECK_WINDOWS)
+    solo_ev = batch_of(np_events, ((0, T_ev),))
+    static_dims = [(STATIC_GCN.in_dim, STATIC_GCN.hidden),
+                   (STATIC_GCN.hidden, STATIC_GCN.out_dim)]
     records = []
-    for cfg, name, plain, cost in (
-            (GCRN_M2, "gcrn_engine", engine.gcrn_plain, gcrn_cost),
+    for cfg, name, plain, cost, (b_in, s_in), tol in (
+            (GCRN_M2, "gcrn_engine", engine.gcrn_plain, gcrn_cost,
+             (check_b, solo), TOL_STREAM),
             (EVOLVEGCN, "evolve_engine", engine.evolve_plain,
-             lambda inp: evolve_cost(inp, layer_dims(EVOLVEGCN))),
-            (STACKED, "stacked_engine", engine.stacked_plain, stacked_cost)):
+             lambda inp: evolve_cost(inp, layer_dims(EVOLVEGCN)),
+             (check_b, solo), TOL_STREAM),
+            (STACKED, "stacked_engine", engine.stacked_plain, stacked_cost,
+             (check_b, solo), TOL_STREAM),
+            (TGN, "tgn_engine", engine.tgn_plain, tgn_cost,
+             (check_ev, solo_ev), TOL_STREAM),
+            (STATIC_GCN, "static_engine", engine.static_plain,
+             lambda inp: static_cost(inp, static_dims), (check_b, solo),
+             TOL_KERNEL)):
         m, p = models[cfg.name], params[cfg.name]
         records.append(check_engine(
             name, getattr(engine, name), plain,
-            kernel_inputs(m, p, check_b, lengths=[8, 5]),
-            kernel_inputs(m, p, solo), cost))
+            kernel_inputs(m, p, b_in, lengths=[8, 5]),
+            kernel_inputs(m, p, s_in), cost, tol))
+
+    static_wave_probe(kernel_inputs(models[STATIC_GCN.name],
+                                    params[STATIC_GCN.name], solo))
 
     # phase 3c: the per-step kernels on recorded main-path inputs
     with recording("gcrn_step") as g_calls:
@@ -723,31 +903,34 @@ def main() -> int:
     for cfg, level, impl in main_paths():
         label = f"{cfg.name} {level} {impl}"
         p = params[cfg.name]
+        path_stream, path_np = streams[cfg.name]
+        T_path = path_stream.node_mask.shape[0]
         engine.reset_launches()
-        res, ms = drive(cfg, level, impl, p, n_global, stream, np_stream,
+        res, ms = drive(cfg, level, impl, p, n_global, path_stream, path_np,
                         reps=RUN_REPS)
         counts = {k: v for k, v in engine.LAUNCHES.items() if v}
         log(f"path {label}: run {float(np.median(ms[1:])):.4f} ms/snapshot "
             f"median of {RUN_REPS} (first {ms[0]:.4f}, all "
-            f"{', '.join(f'{m:.4f}' for m in ms)}; T={T}), "
+            f"{', '.join(f'{m:.4f}' for m in ms)}; T={T_path}), "
             f"launches {counts}")
         for name in expected_kernels(cfg, level, impl):
             check(counts.get(name, 0) > 0, f"{label} launched {name}")
         for name, v in counts.items():
             launches[name] += v
         engine.reset_launches()
-        ref, _ = drive(cfg, level, impl, p, n_global, stream, np_stream,
+        ref, _ = drive(cfg, level, impl, p, n_global, path_stream, path_np,
                        force_ref=True)
         check(not any(engine.LAUNCHES.values()),
               f"{label} force_ref reached a kernel")
-        check_path(label, cfg, level, res, ref, T)
+        check_path(label, cfg, level, res, ref, T_path)
     log(f"phase 4 (main paths): {time.time() - t0:.1f} s")
 
     # phase 5: the device's busy share of a run, per kind of level
     for cfg, level in ((GCRN_M2, "baseline"), (GCRN_M2, "v2"),
-                       (GCRN_M2, "v3"), (STACKED, "v3")):
+                       (GCRN_M2, "v3"), (STACKED, "v3"), (TGN, "v3"),
+                       (STATIC_GCN, "v3")):
         wall, device = busy_share(cfg, level, params[cfg.name], n_global,
-                                  stream)
+                                  streams[cfg.name][0])
         share = (f"{device / wall:.3f}" if device > 0
                  else "not measured (the profiler saw no device time)")
         log(f"busy {cfg.name} {level}: run {wall:.2f} ms wall under the "

@@ -5,11 +5,12 @@ frozen, validated :class:`StreamPlan` with :func:`plan` and hand it to a
 :class:`BoosterSession` (``run`` one stream, ``run_batched`` B ragged
 streams in one launch) or to :func:`run_arrays` (pre-padded ELL arrays).
 ``plan()`` accepts and validates every field the JAX one does, with the
-same messages. Every level of ``FAMILY_LEVELS`` runs for the families gcrn,
-evolve and stacked. What the port cannot execute yet raises
-``NotImplementedError`` naming its ROADMAP item when it is executed:
-``hbm_paged`` residency, a sharded ``DeviceSpec``, the serve layer, and the
-families tgn and static_gcn.
+same messages. Every level of ``FAMILY_LEVELS`` runs for every family:
+gcrn, evolve and stacked on padded snapshot streams, tgn on padded event
+batches (graph/events.py), static_gcn on independent snapshots. What the
+port cannot execute yet raises ``NotImplementedError`` naming its ROADMAP
+item when it is executed: ``hbm_paged`` residency, a sharded
+``DeviceSpec`` and the serve layer.
 
 The torch device is an argument of the session (and of ``run_arrays``),
 not a plan field. It defaults to "cuda" and raises when there is no card;
@@ -381,8 +382,9 @@ class BoosterSession:
                                "gen=, or call session.init(gen)")
 
     def run(self, snaps_T):
-        """One padded (T, ...) snapshot stream through the plan's engine,
-        advancing the session state. Returns (T, n_pad, out) outputs."""
+        """One padded (T, ...) snapshot stream (event-batch stream for tgn)
+        through the plan's engine, advancing the session state. Returns
+        (T, n_pad, out) outputs."""
         self._need_params()
         self.state, outs = run_plan(self.model, self.params, self.state,
                                     snaps_T.to(self.device), self.plan,
@@ -390,8 +392,8 @@ class BoosterSession:
         return outs
 
     def run_batched(self, streams: list, states=None):
-        """B independent padded (T_b, ...) streams, ragged T welcome, in
-        one launch. Shorter streams are stacked to the longest (the tail
+        """B independent padded (T_b, ...) streams (snapshots, or event
+        batches for tgn), ragged T welcome, in one launch. Shorter streams are stacked to the longest (the tail
         repeats the last snapshot and is masked out in the launch).
         Returns ``(final_states, [outs_b (T_b, n, out)])``."""
         self._need_params()

@@ -1,5 +1,6 @@
 """Plan executors of the port: every dataflow level of the paper's ladder
-for the three dense-snapshot families (gcrn, evolve, stacked).
+for the three dense-snapshot families (gcrn, evolve, stacked), and levels
+baseline and v3 of the event-driven tgn and the static static_gcn.
 
   baseline   strict GNN/RNN chain per time step, staged RNN gates.
   o1         Pipeline-O1: fused RNN gate pipeline.
@@ -14,8 +15,9 @@ for the three dense-snapshot families (gcrn, evolve, stacked).
 
 The per-step levels run a Python loop over T (the JAX package's
 ``lax.scan``) and, batched, a loop over B (its ``vmap``), equal T only.
-Every level computes the same function. The families tgn and static_gcn
-raise ``NotImplementedError`` naming their ROADMAP item.
+Every level computes the same function. For tgn, T counts event batches
+(graph/events.PaddedEventBlock); static_gcn has no state and folds its
+snapshots onto the batch axis at v3.
 """
 from __future__ import annotations
 
@@ -26,17 +28,14 @@ import torch
 
 from repro_torch.configs.dgnn import DGNNConfig
 from repro_torch.core.evolvegcn import EvolveGCN
+from repro_torch.core.gcn import StaticGCN
 from repro_torch.core.gcrn import GCRN
 from repro_torch.core.stacked import StackedDGNN
-from repro_torch.graph.padding import PaddedSnapshot, stack_streams
+from repro_torch.core.tgn import TGNModel
+from repro_torch.graph.padding import stack_streams
 from repro_torch.kernels import ops as kops
 
-Model = Any  # EvolveGCN | GCRN | StackedDGNN
-
-_NOT_PORTED_TYPES = {
-    "event_memory": "ROADMAP.md queue 1 item 9",
-    "static": "ROADMAP.md queue 1 item 10",
-}
+Model = Any  # EvolveGCN | GCRN | StackedDGNN | StaticGCN | TGNModel
 
 
 def build_model(cfg: DGNNConfig, impl: str = "xla",
@@ -50,10 +49,10 @@ def build_model(cfg: DGNNConfig, impl: str = "xla",
         return GCRN(cfg, impl=impl, n_global=n_global)
     if cfg.dgnn_type == "stacked":
         return StackedDGNN(cfg, impl=impl, n_global=n_global)
-    if cfg.dgnn_type in _NOT_PORTED_TYPES:
-        raise NotImplementedError(
-            f"dgnn_type {cfg.dgnn_type!r} is not ported to repro_torch yet: "
-            f"{_NOT_PORTED_TYPES[cfg.dgnn_type]}")
+    if cfg.dgnn_type == "static":
+        return StaticGCN(cfg, impl=impl, n_global=n_global)
+    if cfg.dgnn_type == "event_memory":
+        return TGNModel(cfg, impl=impl, n_global=n_global)
     raise ValueError(cfg.dgnn_type)
 
 
@@ -74,10 +73,23 @@ def _check_executable(plan) -> None:
             "DeviceSpec sharding is ROADMAP.md queue 1 item 13")
 
 
-def _at(snaps: PaddedSnapshot, i: int) -> PaddedSnapshot:
-    """Entry ``i`` of the leading axis of every leaf."""
-    return PaddedSnapshot(**{f.name: getattr(snaps, f.name)[i]
-                             for f in dataclasses.fields(PaddedSnapshot)})
+def _at(snaps, i: int):
+    """Entry ``i`` of the leading axis of every leaf of a padded snapshot
+    or event block."""
+    return type(snaps)(**{f.name: getattr(snaps, f.name)[i]
+                          for f in dataclasses.fields(snaps)})
+
+
+def _leaves(tree) -> list:
+    """Tensors of a state dict (sorted keys, lists in order) or of a padded
+    snapshot / event block (field order)."""
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _leaves(v)]
+    if dataclasses.is_dataclass(tree):
+        return [getattr(tree, f.name) for f in dataclasses.fields(tree)]
+    return [tree]
 
 
 def _scan_steps(model: Model, params, state0, snaps_T, mode: str,
@@ -149,8 +161,8 @@ def run_plan_batched(model: Model, params, states0, snaps_BT, plan,
     (B, T, ...), state leaves (B, ...), params shared. Level v3 runs the
     batch in one launch, ragged over T through ``lengths``; the per-step
     levels run the streams one after another, equal T only."""
-    leaves = states0["weights"] if "weights" in states0 else [states0["h"]]
-    B = leaves[0].shape[0]
+    # a static family's state is empty: the snapshots give the batch size
+    B = (_leaves(states0) or _leaves(snaps_BT))[0].shape[0]
     if B != plan.batch:
         raise ValueError(f"plan.batch={plan.batch} but the state batch "
                          f"is {B}")
@@ -181,5 +193,6 @@ def init_states_batched(model: Model, params, n_streams: int,
 
 
 def stack_time(padded_snaps: list):
-    """Stack per-step PaddedSnapshots (same bucket) along a leading T axis."""
+    """Stack per-step padded snapshots or event blocks (same bucket) along
+    a leading T axis."""
     return stack_streams(padded_snaps)

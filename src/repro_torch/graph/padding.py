@@ -124,23 +124,24 @@ def empty_padded(n_pad: int, e_pad: int, k_max: int, din: int,
     )
 
 
-def stack_streams(snaps: list[PaddedSnapshot]) -> PaddedSnapshot:
-    """Stack snapshots (same bucket) along a new leading axis: T steps of
-    one stream, or B streams."""
+def stack_streams(snaps: list):
+    """Stack padded snapshots or event blocks (same bucket, one type) along
+    a new leading axis: T steps of one stream, or B streams."""
     def stack(xs):
         if torch.is_tensor(xs[0]):
             return torch.stack(list(xs), dim=0)
         return np.stack([np.asarray(x) for x in xs], axis=0)
 
-    return PaddedSnapshot(**{
-        f.name: stack([getattr(s, f.name) for s in snaps])
-        for f in dataclasses.fields(PaddedSnapshot)})
+    kind = type(snaps[0])
+    return kind(**{f.name: stack([getattr(s, f.name) for s in snaps])
+                   for f in dataclasses.fields(kind)})
 
 
-def stack_ragged(streams: list[PaddedSnapshot], device):
-    """B streams of unequal T stacked to the longest as (B, T_max, ...)
-    tensors on ``device``; a shorter stream's tail repeats its last
-    snapshot (a ragged launch masks it out). Returns (stacked, lengths)."""
+def stack_ragged(streams: list, device):
+    """B streams of unequal T — padded snapshots or event blocks, one type —
+    stacked to the longest as (B, T_max, ...) tensors on ``device``; a
+    shorter stream's tail repeats its last entry (a ragged launch masks it
+    out). Returns (stacked, lengths)."""
     lens = [int(s.node_mask.shape[0]) for s in streams]
     t_max = max(lens)
 
@@ -148,8 +149,9 @@ def stack_ragged(streams: list[PaddedSnapshot], device):
         return a if t == t_max else torch.cat(
             [a, a[-1:].expand(t_max - t, *a.shape[1:])])
 
+    kind = type(streams[0])
     on_dev = [s.to(device) for s in streams]
-    return (PaddedSnapshot(**{
+    return (kind(**{
         f.name: torch.stack([fill(getattr(s, f.name), t)
                              for s, t in zip(on_dev, lens)])
-        for f in dataclasses.fields(PaddedSnapshot)}), lens)
+        for f in dataclasses.fields(kind)}), lens)

@@ -1,5 +1,6 @@
 // Shared pieces of the node-tile kernels (gcrn_engine.cu, evolve_engine.cu,
-// stacked_engine.cu, gcrn_step.cu, stacked_step.cu): block shape, the
+// stacked_engine.cu, tgn_engine.cu, static_engine.cu, gcrn_step.cu,
+// stacked_step.cu): block shape, the
 // k-major activation tile, the ELL aggregation into it, and the register
 // micro-tile products that the gate / GCN / GRU stages run on.
 //
@@ -110,13 +111,14 @@ __device__ __forceinline__ void load_tile(const float* src, int width, int r0,
 }
 
 // out = A @ W + bias as a k-major (N, kTileStride) tile, A the first K
-// columns of a k-major tile, W (K, N) row-major. K = 0 gives the bias.
+// columns of a k-major tile, W (K, N) row-major, bias null for none. K = 0
+// gives the bias.
 __device__ __forceinline__ void linear_tile(const float* a, int K,
                                             const float* w, const float* bias,
                                             int N, float* out) {
   for (int p = threadIdx.x; p < kRowGroups * N; p += kThreads) {
     const int rg = p / N, col = p - rg * N;
-    const float bc = bias[col];
+    const float bc = bias != nullptr ? bias[col] : 0.0f;
     float acc[kRowsPerThread];
 #pragma unroll
     for (int r = 0; r < kRowsPerThread; ++r) acc[r] = bc;

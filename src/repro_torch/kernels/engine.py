@@ -1,10 +1,11 @@
 """Build, bind and launch the hand-written CUDA kernels.
 
-Six kernels, one source each under ``csrc/``: the stream engines of the
+Eight kernels, one source each under ``csrc/``: the stream engines of the
 three dense-snapshot families (``gcrn_engine.cu``, ``evolve_engine.cu``,
-``stacked_engine.cu``, level v3), the V2 fused steps (``gcrn_step.cu``,
-``stacked_step.cu``) and the ELL SpMM of the message-passing stage
-(``ell_spmm.cu``, ``impl="pallas"``). Each source is compiled by ``nvcc``
+``stacked_engine.cu``), of the event-driven TGN (``tgn_engine.cu``) and of
+the static GCN (``static_engine.cu``), all level v3; the V2 fused steps
+(``gcrn_step.cu``, ``stacked_step.cu``); and the ELL SpMM of the
+message-passing stage (``ell_spmm.cu``, ``impl="pallas"``). Each source is compiled by ``nvcc``
 at first use into a shared library with a plain C interface, keyed by a
 hash of the sources and flags, under ``build/repro_torch/`` at the
 checkout root (``REPRO_TORCH_BUILD_DIR`` overrides it), and loaded with
@@ -39,8 +40,8 @@ from repro_torch.kernels import ref as _ref
 CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNELS = ("gcrn_engine", "evolve_engine", "stacked_engine", "gcrn_step",
-           "stacked_step", "ell_spmm")
+KERNELS = ("gcrn_engine", "evolve_engine", "stacked_engine", "tgn_engine",
+           "static_engine", "gcrn_step", "stacked_step", "ell_spmm")
 
 #: the kernels' register micro-tile: each thread owns this many node rows
 #: (and, in the evolve kernel, this many columns of W). The kernels take
@@ -131,6 +132,8 @@ _SIGNATURES = {
     "gcrn_engine": (15, 8, 3),
     "evolve_engine": (13, 6, 2),
     "stacked_engine": (15, 9, 4),
+    "tgn_engine": (13, 7, 3),
+    "static_engine": (9, 5, 2),
     "gcrn_step": (12, 4, 3),
     "stacked_step": (12, 5, 4),
     "ell_spmm": (6, 6, 0),
@@ -388,6 +391,129 @@ def stacked_engine(idx, coef, eidx, x, rowg, mask, h0, wg, bg, wx, wh, b,
                 _ptr(wh), _ptr(b), _ptr(emsg), _ptr(outs), _ptr(hT),
                 _ptr(h_rows), B, T, n, k, din, dmid, H, G, e, _stream_ptr())
     return outs, hT
+
+
+# -------------------------------------------------------------- tgn ----
+
+def tgn_plain(gidx, coef, ts, x, rowg, mask, mem0, freq, w_in, wx, wh, b):
+    """The TGN kernel's function in plain PyTorch, on the same packed
+    inputs: partners read straight from the store by their global row
+    ``gidx``, each node's own row by ``rowg`` (``G`` on padding rows,
+    which read zeros and drop their write). Under the event contract
+    (every live lane names a touched row of its batch) this is
+    kernels/ref.py tgn_stream_batched_ref."""
+    G = mem0.shape[1]
+    store = mem0.clone()
+    outs = []
+    for t in range(gidx.shape[1]):
+        ren = torch.where(rowg[:, t] < G, rowg[:, t], -1)
+        c = coef[:, t][..., None]
+        own = _ref._gather_rows(store, ren, mask[:, t])
+        agg_m = (_ref._take_rows(store, gidx[:, t]) * c).sum(dim=-2)
+        agg_e = (torch.cos(ts[:, t][..., None] * freq) * c).sum(dim=-2)
+        inp = x[:, t] @ w_in + agg_m + agg_e
+        m_new = _ref.fused_gru(inp, own, wx, wh, b) * mask[:, t][..., None]
+        _ref._scatter_rows_(store, ren, m_new)
+        outs.append(m_new)
+    return torch.stack(outs, dim=1), store
+
+
+def tgn_engine(gidx, coef, ts, x, rowg, mask, mem0, freq, w_in, wx, wh, b):
+    """TGN node memory over B streams of T event batches in one launch.
+
+    gidx (B, T, n, k) int32 global row of each event lane's partner,
+    coef/ts (B, T, n, k) (lane weight, event time), x (B, T, n, din),
+    rowg (B, T, n) int32 (G drops), mask (B, T, n), mem0 (B, G, H),
+    freq (H,), w_in (din, H), wx/wh (H, 3H), b (3H,); all float tensors
+    float32, H a multiple of 4. Returns (outs (B, T, n, H), memT (B, G, H))."""
+    name = "tgn_engine"
+    if _device_kind(name, x) == "cpu":
+        return tgn_plain(gidx, coef, ts, x, rowg, mask, mem0, freq, w_in, wx,
+                         wh, b)
+    B, T, n, k = gidx.shape
+    din, (G, H) = x.shape[-1], mem0.shape[1:]
+    f32, i32 = torch.float32, torch.int32
+    _check(name, x.device, gidx=(gidx, i32), coef=(coef, f32), ts=(ts, f32),
+           x=(x, f32), rowg=(rowg, i32), mask=(mask, f32), mem0=(mem0, f32),
+           freq=(freq, f32), w_in=(w_in, f32), wx=(wx, f32), wh=(wh, f32),
+           b=(b, f32))
+    if (coef.shape != gidx.shape or ts.shape != gidx.shape
+            or x.shape[:3] != (B, T, n) or rowg.shape != (B, T, n)
+            or mask.shape != (B, T, n) or mem0.shape != (B, G, H)
+            or freq.shape != (H,) or w_in.shape != (din, H)
+            or wx.shape != (H, 3 * H) or wh.shape != (H, 3 * H)
+            or b.shape != (3 * H,)):
+        raise ValueError(f"{name}: inconsistent shapes")
+    _check_index(name, "gidx", gidx, G)
+    _check_index(name, "rowg", rowg, G + 1)
+    if H % 4:
+        raise ValueError(f"{name}: H={H} must be a multiple of 4 (the "
+                         "store rows move as float4)")
+    lib = _library(name)
+    _check_smem(name, lib.tgn_engine_smem_bytes(k, din, H),
+                f"k={k}, din={din}, H={H}")
+    outs = torch.empty((B, T, n, H), dtype=f32, device=x.device)
+    memT = mem0.clone()
+    with torch.cuda.device(x.device):
+        _launch(name, lib, _ptr(gidx), _ptr(coef), _ptr(ts), _ptr(x),
+                _ptr(rowg), _ptr(mask), _ptr(freq), _ptr(w_in), _ptr(wx),
+                _ptr(wh), _ptr(b), _ptr(outs), _ptr(memT), B, T, n, k, din,
+                H, G, _stream_ptr())
+    return outs, memT
+
+
+# ----------------------------------------------------------- static ----
+
+def _check_static_t(idx) -> None:
+    T = idx.shape[1]
+    if T != 1:
+        raise ValueError(
+            f"static family runs with T == 1, got T={T}: a static-GCN "
+            "'stream' has no recurrence — fold independent snapshots onto "
+            "the batch axis instead (core.gcn.StaticGCN.step_stream does)")
+
+
+def static_plain(idx, coef, x, mask, w, bg, eagg=None):
+    """The static-GCN kernel's function in plain PyTorch, on the same
+    packed inputs (every layer one square width D)."""
+    ea = None if eagg is None else [eagg[:, :, l] for l in range(w.shape[0])]
+    (outs,) = _ref.static_gcn_stream_batched_ref(idx, coef, x, mask, list(w),
+                                                 list(bg), ea)
+    return outs
+
+
+def static_engine(idx, coef, x, mask, w, bg, eagg=None):
+    """L-layer GCN over B independent snapshot slots (T = 1) in one launch,
+    one CTA a slot.
+
+    idx (B, 1, n, k) int32, coef (B, 1, n, k), x (B, 1, n, D),
+    mask (B, 1, n), w (L, D, D) and bg (L, D) shared by the slots,
+    eagg (B, 1, L, n, D) or None; float tensors float32. Returns
+    outs (B, 1, n, D)."""
+    name = "static_engine"
+    _check_static_t(idx)
+    if _device_kind(name, x) == "cpu":
+        return static_plain(idx, coef, x, mask, w, bg, eagg)
+    B, T, n, k = idx.shape
+    L, D = w.shape[0], w.shape[-1]
+    f32, i32 = torch.float32, torch.int32
+    _check(name, x.device, idx=(idx, i32), coef=(coef, f32), x=(x, f32),
+           mask=(mask, f32), w=(w, f32), bg=(bg, f32), eagg=(eagg, f32))
+    if (coef.shape != idx.shape or x.shape != (B, T, n, D)
+            or mask.shape != (B, T, n) or w.shape != (L, D, D)
+            or bg.shape != (L, D)
+            or (eagg is not None and eagg.shape != (B, T, L, n, D))):
+        raise ValueError(f"{name}: inconsistent shapes")
+    _check_index(name, "idx", idx, n)
+    lib = _library(name)
+    _check_smem(name, lib.static_engine_smem_bytes(k, D), f"k={k}, D={D}")
+    outs = torch.empty((B, T, n, D), dtype=f32, device=x.device)
+    act = torch.empty((B, 2, n, D), dtype=f32, device=x.device)
+    with torch.cuda.device(x.device):
+        _launch(name, lib, _ptr(idx), _ptr(coef), _ptr(x), _ptr(mask),
+                _ptr(w), _ptr(bg), _ptr(eagg), _ptr(outs), _ptr(act), B, n,
+                k, L, D, _stream_ptr())
+    return outs
 
 
 # ----------------------------------------- per-step kernels: V2, SpMM ----

@@ -14,8 +14,9 @@ reached; otherwise the arguments are packed and handed to the kernel
 wrapper (kernels/engine.py), which launches the CUDA kernel for CUDA
 tensors and runs its plain version for CPU tensors.
 
-Families of the JAX registry that the port has not reached yet raise
-``NotImplementedError`` naming their ROADMAP queue item.
+Every family of the JAX registry is ported: the dense-snapshot families
+(gcrn, stacked, evolve), the event-driven tgn (T counts event batches) and
+the static static_gcn (T = 1, snapshots folded onto the batch axis).
 """
 from __future__ import annotations
 
@@ -29,12 +30,6 @@ from repro_torch.kernels import ref as _ref
 # time semantics of every family of the JAX stream-engine registry
 _TEMPORAL = {"gcrn": "dense", "stacked": "dense", "evolve": "dense",
              "tgn": "event", "static_gcn": "static"}
-
-# families registered in the JAX engine and not yet ported
-_NOT_PORTED = {
-    "tgn": "ROADMAP.md queue 1 item 9 (tgn family)",
-    "static_gcn": "ROADMAP.md queue 1 item 10 (static_gcn family)",
-}
 
 RESIDENCY_MODES = ("vmem", "hbm_paged")
 BUFFER_DEPTHS = (1, 2, 4)
@@ -204,26 +199,37 @@ def _pad_matrix_gru_params(wx, wh, b, dmax: int):
             torch.cat([_pad_to(g, dmax, 0) for g in b.chunk(3)]))
 
 
-def _evolve_pack(neigh_idx, neigh_coef, node_feat, node_mask, live, weights,
-                 b_gcn, gru_wx, gru_wh, gru_b, edge_aggs=None):
-    """The EvolveGCN kernel wrapper's inputs: every layer width padded into
-    one common square ``dmax`` (rounded up to the kernel's ``ROW_ALIGN``)
-    as the JAX pack does."""
+def _square_layers(weights, b_gcn, node_feat, edge_aggs, stack_dim: int):
+    """Every GCN layer width padded into one common square ``dmax``
+    (rounded up to the kernels' ``ROW_ALIGN``), as the JAX packs do: dmax,
+    the weights stacked on ``stack_dim`` (dmax, dmax) each, the biases
+    (L, dmax), the features (..., dmax) and the edge terms
+    (..., L, n, dmax) or None."""
     dmax = round_up(max(max(w.shape[-2:]) for w in weights), _engine.ROW_ALIGN)
-    pad_sq = lambda w: _pad_to(_pad_to(w, dmax, -2), dmax, -1)
     eagg = None
     if edge_aggs is not None:
         eagg = torch.stack([_pad_to(ea, dmax, -1) for ea in edge_aggs],
                            dim=-3).contiguous()
+    return (dmax,
+            torch.stack([_pad_to(_pad_to(w, dmax, -2), dmax, -1)
+                         for w in weights], dim=stack_dim).contiguous(),
+            torch.stack([_pad_to(bb, dmax, 0) for bb in b_gcn]).contiguous(),
+            _pad_to(node_feat, dmax, -1).contiguous(), eagg)
+
+
+def _evolve_pack(neigh_idx, neigh_coef, node_feat, node_mask, live, weights,
+                 b_gcn, gru_wx, gru_wh, gru_b, edge_aggs=None):
+    """The EvolveGCN kernel wrapper's inputs: the common square layout of
+    ``_square_layers`` with per-stream weights (B, L, dmax, dmax) and the
+    matrix-GRU params padded per gate block."""
+    dmax, w0, bg, x, eagg = _square_layers(weights, b_gcn, node_feat,
+                                           edge_aggs, stack_dim=1)
     gwx, gwh, gb = zip(*[_pad_matrix_gru_params(wx, wh, bb, dmax)
                          for wx, wh, bb in zip(gru_wx, gru_wh, gru_b)])
     return (neigh_idx.to(torch.int32).contiguous(), neigh_coef.contiguous(),
-            _pad_to(node_feat, dmax, -1).contiguous(), node_mask.contiguous(),
-            live.to(torch.int32).contiguous(),
-            torch.stack([pad_sq(w) for w in weights], dim=1).contiguous(),
-            torch.stack([_pad_to(bb, dmax, 0) for bb in b_gcn]).contiguous(),
-            torch.stack(gwx).contiguous(), torch.stack(gwh).contiguous(),
-            torch.stack(gb).contiguous(), eagg)
+            x, node_mask.contiguous(), live.to(torch.int32).contiguous(),
+            w0, bg, torch.stack(gwx).contiguous(),
+            torch.stack(gwh).contiguous(), torch.stack(gb).contiguous(), eagg)
 
 
 def _gcrn_launch(batched, neigh_idx, neigh_coef, neigh_eidx, node_feat,
@@ -277,6 +283,94 @@ def _evolve_launch(batched, neigh_idx, neigh_coef, node_feat, node_mask,
     return outs[..., :dims[-1][1]], weights_T
 
 
+def _check_local_ids(neigh_idx, n: int) -> None:
+    """Local ELL ids index the batch's own rows; the tgn pack looks each
+    up in the renumber table, so an id outside [0, n) is refused first."""
+    if neigh_idx.numel():
+        lo, hi = torch.aminmax(neigh_idx)
+        if int(lo) < 0 or int(hi) >= n:
+            raise ValueError(f"neigh_idx ids span [{int(lo)}, {int(hi)}], "
+                             f"outside [0, {n})")
+
+
+def _partner_rows(renumber, neigh_idx):
+    """Global row of each ELL lane's partner (row 0 where the partner is a
+    padding row; such a lane carries coef 0), int32: the JAX package's
+    ``neigh_gidx`` (``_stream_index_tables``)."""
+    _check_local_ids(neigh_idx, neigh_idx.shape[-2])
+    ren_safe = torch.where(renumber >= 0, renumber,
+                           torch.zeros_like(renumber))
+    flat = neigh_idx.reshape(*neigh_idx.shape[:-2], -1).long()
+    return torch.gather(ren_safe, -1, flat).reshape(
+        neigh_idx.shape).to(torch.int32).contiguous()
+
+
+def _tgn_pack(neigh_idx, neigh_coef, neigh_ts, node_feat, renumber,
+              node_mask, mem0, freq, w_in, wx, wh, b):
+    """The TGN kernel wrapper's inputs: each lane's partner as a global row
+    (the kernel reads partners straight from the memory store, as the
+    Pallas cell does), the own-row table, float32 timestamps."""
+    return (_partner_rows(renumber, neigh_idx), neigh_coef.contiguous(),
+            neigh_ts.to(torch.float32).contiguous(), node_feat.contiguous(),
+            _row_index_table(renumber, mem0.shape[1]),
+            node_mask.contiguous(), mem0.contiguous(), freq.contiguous(),
+            w_in.contiguous(), wx.contiguous(), wh.contiguous(),
+            b.contiguous())
+
+
+def _tgn_launch(batched, neigh_idx, neigh_coef, neigh_ts, node_feat,
+                renumber, node_mask, mem0, freq, w_in, wx, wh, b):
+    """Pack + kernel wrapper for the event-stream (TGN) family. The T axis
+    sequences event batches (graph/events.pad_event_block); ``neigh_ts``
+    carries each lane's timestamp in the slot the dense families use for
+    edge ids, zero on dead lanes (coef 0, so they add exactly zero)."""
+    if neigh_ts.shape != neigh_idx.shape:
+        raise ValueError(
+            f"tgn event timestamps must match the ELL lane shape: "
+            f"ts {tuple(neigh_ts.shape)} vs idx {tuple(neigh_idx.shape)}")
+    if not neigh_ts.is_floating_point():
+        raise ValueError(
+            f"tgn event timestamps must be floating, got "
+            f"{str(neigh_ts.dtype).removeprefix('torch.')}")
+    if not batched:
+        outs, memT = _tgn_launch(
+            True, neigh_idx[None], neigh_coef[None], neigh_ts[None],
+            node_feat[None], renumber[None], node_mask[None], mem0[None],
+            freq, w_in, wx, wh, b)
+        return outs[0], memT[0]
+    return _engine.tgn_engine(*_tgn_pack(
+        neigh_idx, neigh_coef, neigh_ts, node_feat, renumber, node_mask,
+        mem0, freq, w_in, wx, wh, b))
+
+
+def _static_pack(neigh_idx, neigh_coef, node_feat, node_mask, weights,
+                 b_gcn, edge_aggs=None):
+    """The static-GCN kernel wrapper's inputs: the common square layout of
+    ``_square_layers`` with the weights shared (params, not state),
+    stacked (L, dmax, dmax)."""
+    _, w, bg, x, eagg = _square_layers(weights, b_gcn, node_feat, edge_aggs,
+                                       stack_dim=0)
+    return (_i32(neigh_idx), neigh_coef.contiguous(), x,
+            node_mask.contiguous(), w, bg, eagg)
+
+
+def _static_launch(batched, neigh_idx, neigh_coef, node_feat, node_mask,
+                   weights, b_gcn, edge_aggs=None):
+    """Pack + kernel wrapper for the static (no-recurrence) family. T must
+    be 1 (the wrapper raises otherwise): independent snapshots fold onto
+    the batch axis. Returns the 1-tuple ``(outs,)`` — no final state."""
+    if not batched:
+        ea = None if edge_aggs is None else [a[None] for a in edge_aggs]
+        (outs,) = _static_launch(True, neigh_idx[None], neigh_coef[None],
+                                 node_feat[None], node_mask[None], weights,
+                                 b_gcn, ea)
+        return (outs[0],)
+    outs = _engine.static_engine(*_static_pack(
+        neigh_idx, neigh_coef, node_feat, node_mask, weights, b_gcn,
+        edge_aggs))
+    return (outs[..., :weights[-1].shape[-1]],)
+
+
 # family -> ((solo oracle, batched oracle), kernel launcher, packer,
 # positions of the (coef, mask, renumber, live) arguments the ragged
 # rewrite touches)
@@ -289,6 +383,12 @@ _STREAM_DISPATCH = {
     "evolve": ((_ref.evolve_stream_ref, _ref.evolve_stream_batched_ref),
                _evolve_launch, _evolve_pack,
                dict(coef=1, mask=3, ren=None, live=4)),
+    "tgn": ((_ref.tgn_stream_ref, _ref.tgn_stream_batched_ref),
+            _tgn_launch, _tgn_pack, dict(coef=1, mask=5, ren=4, live=None)),
+    "static_gcn": ((_ref.static_gcn_stream_ref,
+                    _ref.static_gcn_stream_batched_ref),
+                   _static_launch, _static_pack,
+                   dict(coef=1, mask=3, ren=None, live=None)),
 }
 
 
@@ -299,7 +399,9 @@ def _apply_lengths(family: str, args: tuple, lengths) -> tuple:
     irrelevant and a length-0 row is a pure padding stream."""
     axes = _STREAM_DISPATCH[family][3]
     coef = args[axes["coef"]]
-    lengths = torch.as_tensor(np.asarray(lengths), device=coef.device)
+    if not torch.is_tensor(lengths):
+        lengths = torch.as_tensor(np.asarray(lengths))
+    lengths = lengths.to(coef.device)
     t_axis = torch.arange(coef.shape[1], device=coef.device)
     live = t_axis[None, :] < lengths[:, None]                  # (B, T)
     out = list(args)
@@ -329,10 +431,10 @@ def _stream_dispatch(family: str, batched: bool, args, kwargs, *, tn, td,
     if family not in _TEMPORAL:
         raise KeyError(f"unknown stream-engine family {family!r}; "
                        f"registered: {stream_families()}")
-    if family in _NOT_PORTED:
-        raise NotImplementedError(
-            f"family {family!r} is not ported to repro_torch yet: "
-            f"{_NOT_PORTED[family]}")
+    if family_temporal(family) == "static" and (residency != "vmem"
+                                                or depth is not None):
+        raise ValueError(
+            "static_gcn has no state to page; residency must be 'vmem'")
     if residency != "vmem" or depth is not None:
         raise NotImplementedError(
             f"state_residency={residency!r}, buffer_depth={depth!r}: the "
@@ -367,6 +469,12 @@ def stream_steps(family: str, *args, tn: int = 128, td=None,
                wh, b, edge_msg=None) -> (outs, hT)
       evolve  (idx, coef, x, mask, live, weights, b_gcn, gru_wx, gru_wh,
                gru_b, edge_aggs=None) -> (outs, weights_T)
+      tgn     (idx, coef, ts, x, renumber, mask, mem0, freq, w_in, wx, wh,
+               b) -> (outs, memT)        [T sequences event batches; ts
+               carries each lane's event time]
+      static_gcn (idx, coef, x, mask, weights, b_gcn, edge_aggs=None)
+               -> (outs,)                [T must be 1: fold snapshots onto
+               the batch axis]
     """
     return _stream_dispatch(family, False, args, kwargs, tn=tn, td=td,
                             force_ref=force_ref, device=device,

@@ -204,3 +204,74 @@ def evolve_stream_ref(neigh_idx, neigh_coef, node_feat, node_mask, live,
         live[None], [w[None] for w in weights0], b_gcn, gru_wx, gru_wh,
         gru_b, ea)
     return outs[0], tuple(w[0] for w in wT)
+
+
+def tgn_stream_batched_ref(neigh_idx, neigh_coef, neigh_ts, node_feat,
+                           renumber, node_mask, mem0, freq, w_in, wx, wh, b):
+    """B independent TGN event streams: (B, T, n, ...) padded event batches
+    (graph/events.pad_event_block), (B, G, H) node-memory stores;
+    frequencies, input projection and GRU params shared.
+
+    Per event batch every touched node aggregates its event partners' t-1
+    memory and the time encoding cos(ts * freq) of its events (coef
+    weighted, so dead lanes add exactly zero), feeds the GRU against its
+    own t-1 memory row, and the new memory is scattered back at its
+    renumber row only: untouched rows carry over. Returns (per-batch memory
+    outputs (B, T, n, H), final memory store)."""
+    store = mem0.clone()
+    outs = []
+    for t in range(neigh_idx.shape[1]):
+        ren, mask = renumber[:, t], node_mask[:, t]
+        coef = neigh_coef[:, t][..., None]
+        mem = _gather_rows(store, ren, mask)
+        agg_m = (_take_rows(mem, neigh_idx[:, t]) * coef).sum(dim=-2)
+        enc = torch.cos(neigh_ts[:, t][..., None] * freq)
+        agg_e = (enc * coef).sum(dim=-2)
+        inp = node_feat[:, t] @ w_in + agg_m + agg_e
+        m_new = fused_gru(inp, mem, wx, wh, b) * mask[..., None]
+        _scatter_rows_(store, ren, m_new)
+        outs.append(m_new)
+    return torch.stack(outs, dim=1), store
+
+
+def tgn_stream_ref(neigh_idx, neigh_coef, neigh_ts, node_feat, renumber,
+                   node_mask, mem0, freq, w_in, wx, wh, b):
+    """One TGN event stream: (T, n, ...) event batches, (G, H) memory
+    store. Returns (per-batch memory outputs (T, n, H), final store)."""
+    outs, memT = tgn_stream_batched_ref(
+        neigh_idx[None], neigh_coef[None], neigh_ts[None], node_feat[None],
+        renumber[None], node_mask[None], mem0[None], freq, w_in, wx, wh, b)
+    return outs[0], memT[0]
+
+
+def static_gcn_stream_batched_ref(neigh_idx, neigh_coef, node_feat,
+                                  node_mask, weights, b_gcn,
+                                  edge_aggs=None):
+    """B batches of (T, n, ...) independent static snapshots (no carry)
+    through the L-layer GCN: agg @ W_l + b_l, ReLU between layers, masked
+    every layer, the last layer linear; ``edge_aggs[l]`` (B, T, n, din_l)
+    is layer l's pre-aggregated edge term. Weights are shared (params, not
+    state). T is 1 on the kernel path; here any T works, the steps being
+    independent. Returns the 1-tuple (outputs (B, T, n, out_dim),)."""
+    x = node_feat
+    m = node_mask[..., None]
+    for i, (w, bb) in enumerate(zip(weights, b_gcn)):
+        agg = (_take_rows(x, neigh_idx) * neigh_coef[..., None]).sum(dim=-2)
+        if edge_aggs is not None:
+            agg = agg + edge_aggs[i]
+        h = agg @ w + bb
+        if i < len(weights) - 1:
+            h = torch.relu(h)
+        x = h * m
+    return (x,)
+
+
+def static_gcn_stream_ref(neigh_idx, neigh_coef, node_feat, node_mask,
+                          weights, b_gcn, edge_aggs=None):
+    """(T, n, ...) independent static snapshots through the L-layer GCN.
+    Returns the 1-tuple (outputs (T, n, out_dim),)."""
+    ea = None if edge_aggs is None else [a[None] for a in edge_aggs]
+    (outs,) = static_gcn_stream_batched_ref(
+        neigh_idx[None], neigh_coef[None], node_feat[None], node_mask[None],
+        weights, b_gcn, ea)
+    return (outs[0],)

@@ -44,13 +44,15 @@ def params_from_jax(cfg: DGNNConfig, params_np) -> dict:
 
 
 _STATE_KEYS = {"integrated": {"h", "c"}, "stacked": {"h"},
-               "weights_evolved": {"weights"}}
+               "weights_evolved": {"weights"}, "event_memory": {"mem"},
+               "static": set()}
 
 
 def state_from_jax(cfg: DGNNConfig, state_np) -> dict:
     """A JAX recurrent state (numpy leaves, any leading batch axis) as the
     port's tensors on the CPU: {"h", "c"} stores for GCRN, {"h"} for the
-    stacked DGNN, {"weights"} for EvolveGCN."""
+    stacked DGNN, {"weights"} for EvolveGCN, {"mem"} for TGN and {} for
+    the static GCN."""
     keys = _STATE_KEYS.get(cfg.dgnn_type)
     if keys is None:
         raise ValueError(f"no recurrent state layout for dgnn_type "

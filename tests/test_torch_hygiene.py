@@ -16,7 +16,7 @@ import torch
 
 import harness
 from repro_torch import api
-from repro_torch.configs.dgnn import GCRN_M2
+from repro_torch.configs.dgnn import GCRN_M2, STATIC_GCN, TGN
 from repro_torch.kernels import engine, ops
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -69,7 +69,39 @@ def test_kernel_wrappers_raise_instead_of_falling_back(no_cuda):
         engine.gcrn_engine(*([meta] * 11))
     with pytest.raises(ValueError, match="not supported"):
         engine.evolve_engine(*([meta] * 10))
+    with pytest.raises(ValueError, match="not supported"):
+        engine.tgn_engine(*([meta] * 12))
+    with pytest.raises(ValueError, match="not supported"):
+        engine.static_engine(*([meta] * 6))
     assert all(v == 0 for v in engine.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("family", ["tgn", "static_gcn"])
+def test_event_and_static_entry_points_default_to_cuda_and_raise(no_cuda,
+                                                                  family):
+    cfg = {"tgn": TGN, "static_gcn": STATIC_GCN}[family]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        api.BoosterSession(cfg, api.plan(cfg, level="v3"))
+    args, _, _ = harness.stream_kernel_case(family, seed=0, B=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ops.stream_steps_batched(family, *args)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        api.run_arrays(api.plan(family=family, batch=2), *args)
+
+
+@pytest.mark.parametrize("name", ["tgn_engine", "static_engine"])
+def test_new_engine_wrappers_need_the_card_for_cuda_tensors(no_cuda, name):
+    """The CPU path of the tgn / static wrappers is their plain version,
+    only for CPU tensors; the kernel itself is only reachable with a card."""
+    args, _, _ = harness.stream_kernel_case(
+        "tgn" if name == "tgn_engine" else "static_gcn", seed=1, B=2)
+    family = "tgn" if name == "tgn_engine" else "static_gcn"
+    packed = ops.pack(family, *ops.to_device(tuple(args), "cpu"))
+    engine.reset_launches()
+    getattr(engine, name)(*packed)  # plain version: counts nothing
+    assert engine.LAUNCHES[name] == 0
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        engine._library(name)
 
 
 def test_cpu_wrapper_runs_the_plain_version_and_counts_nothing():

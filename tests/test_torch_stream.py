@@ -1,6 +1,7 @@
 """The port's stream engine computes the JAX package's function.
 
-For the three ported families (gcrn, stacked, evolve),
+For the three dense-snapshot families (gcrn, stacked, evolve; tgn and
+static_gcn in tests/test_torch_temporal.py),
 ``repro_torch.kernels.ops``
 ``stream_steps[_batched]`` on the CPU — the kernel path (pack, the kernel
 wrapper's plain version, unpack) and the force-ref path — must match the
@@ -151,9 +152,16 @@ def test_cells_and_step_ops_match_jax(fused):
 
 
 @pytest.mark.parametrize("family", ["tgn", "static_gcn"])
-def test_unported_families_name_their_roadmap_item(family):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        tops.stream_steps(family, device="cpu")
+def test_event_and_static_families_run_on_the_cpu(family):
+    """tgn and static_gcn, once NotImplementedError in the port, run on the
+    CPU and match the JAX oracle; tgn's hbm_paged still names its ROADMAP
+    item (static_gcn has nothing to page: tests/test_torch_temporal.py)."""
+    args, _, _ = harness.stream_kernel_case(family, seed=3, B=2)
+    want = _jax(family, args, True)
+    _assert_close(_port(family, args, True), want, family)
+    if family == "tgn":
+        with pytest.raises(NotImplementedError, match="item 11"):
+            _port(family, args, True, state_residency="hbm_paged", td=8)
 
 
 def test_unknown_family_and_paged_residency_raise():
