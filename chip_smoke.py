@@ -5,33 +5,49 @@
 
 Phases (any failure exits non-zero):
   1. environment: card name and power limit, torch / CUDA versions, TF32 off;
-  2. build all eight kernels from src/repro_torch/kernels/csrc (one nvcc per
-     source, all at once);
+  2. build all fourteen kernels from src/repro_torch/kernels/csrc (nine
+     sources, one nvcc per source, all at once), and hold the port's
+     shared-memory estimate (engine.smem_bytes) equal to each library's own;
   3. every kernel against its plain PyTorch version on the card:
      a. narrow odd widths with partial node tiles, ragged with a length-0
-        row, with and without edge messages / the static edge term
+        row, with and without edge messages / the static edge term, the
+        paged engines at ring depths 1, 2 and 4 (also bit-for-bit against
+        the resident engine), the GRU / LSTM cells with a partial row tile
         (<= 1e-4: fp32 with TF32 off, only the order of summation differs);
      b. the five stream engines at full width (BC-Alpha, n_pad 640,
         G 3468): a T = 8, B = 2 ragged case (<= 1e-4) and the main path's
         own shapes (all 137 steps, 176 TGN event batches or 137 static
         slots; <= 1e-3 for the recurrences, which compound sum-order
-        differences, <= 1e-4 for the static GCN);
+        differences, <= 1e-4 for the static GCN); the four paged engines
+        (td 16) on the same inputs at depths 1, 2 and 4, bit-for-bit
+        against the resident engine and against their plain versions,
+        each depth timed beside the resident engine;
      c. the three per-step kernels (V2 steps, ELL SpMM) on the inputs the
         main path hands them at full width, recorded from one run of a path
-        that launches each, every step of the stream (<= 1e-4);
-     each timed with CUDA events beside its bound, and the ELL SpMM beside
-     torch.sparse.mm of the same matrix;
+        that launches each, every step of the stream (<= 1e-4); the GRU /
+        LSTM cells at benchmarks/kernel_bench.py's shape (640 rows, 128
+        wide, tb 128);
+     each timed with CUDA events beside its bound, the ELL SpMM beside
+     torch.sparse.mm of the same matrix, the cells beside torch.gru_cell /
+     torch.lstm_cell;
   4. main path: every level of GCRN-M2, EvolveGCN-O, the stacked
      GCN -> GRU, TGN and the static GCN through BoosterSession (run on the
      whole BC-Alpha stream, run_batched over windows: ragged at v3, equal at
      the per-step levels), and build_model(cfg, impl="pallas") with
      run_plan / run_plan_batched at the per-step levels. TGN runs on the
      BC-Alpha events (sorted by time, batches of 200: 176 event batches),
-     the others on the 137 snapshots. The launch counts are set to 0 just
-     before each path and read just after it; each path's results are held
-     against its force-ref run on the card (<= 1e-3).
-  5. the device's busy share of one run at baseline, v2 and v3 (kernel
-     time over wall time, torch.profiler).
+     the others on the 137 snapshots. Then the paged paths: plan(cfg,
+     level="v3", td=16, state_residency="hbm_paged", buffer_depth=d) for
+     GCRN-M2 at d = 1, 2, 4 and the other three stateful families at
+     d = 2, 4, through the session (run and run_batched) and through
+     run_arrays, each bit-for-bit against the resident run; the capacity
+     path (EvolveGCN-O at hidden 256 on 16 snapshots: resident refuses with
+     the hint to page, paged runs); and ops.fused_gru / ops.fused_lstm.
+     The launch counts are set to 0 just before each path and read just
+     after it; each path's results are held against its force-ref run on
+     the card (<= 1e-3; <= 1e-4 for the cells).
+  5. the device's busy share of one run at baseline, v2 and v3, resident
+     and paged (kernel time over wall time, torch.profiler).
   6. a probe of where a live node tile's time goes: gcrn_step on
      synthetic full-width inputs that vary live rows, lanes and widths.
 Prints ms/snapshot per path, a {"kernels": [...]} line and, last, the
@@ -40,6 +56,7 @@ device line.
 Imports nothing of the JAX package.
 """
 import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -92,6 +109,21 @@ SRC = "src/repro_torch/kernels/csrc"
 ENGINE = {"gcrn": "gcrn_engine", "evolve": "evolve_engine",
           "stacked": "stacked_engine", "tgn": "tgn_engine",
           "static_gcn": "static_engine"}
+# the paged engine of each stateful family (hbm_paged residency), its
+# window width on the main path (8 windows of the 128-wide state) and the
+# ring depths of its paged main paths
+PAGED = {"gcrn": "gcrn_engine_paged", "evolve": "evolve_engine_paged",
+         "stacked": "stacked_engine_paged", "tgn": "tgn_engine_paged"}
+PAGED_TD = 16
+PAGED_DEPTHS = {GCRN_M2.name: (1, 2, 4), EVOLVEGCN.name: (2, 4),
+                STACKED.name: (2, 4), TGN.name: (2, 4)}
+# the capacity path: EvolveGCN-O at this hidden width (square D = 256, over
+# the resident engine's shared memory) on the stream's first snapshots
+CAPACITY_HIDDEN = 256
+CAPACITY_T = 16
+# the GRU / LSTM cells' shape (benchmarks/kernel_bench.py): rows, input and
+# hidden width, row tile
+RNN_ROWS, RNN_DIN, RNN_H, RNN_TB = 640, 128, 128, 128
 REPLACES = {
     "gcrn_engine": "src/repro/kernels/stream_fused.py:833",
     "evolve_engine": "src/repro/kernels/stream_fused.py:1191",
@@ -101,6 +133,12 @@ REPLACES = {
     "gcrn_step": "src/repro/kernels/dgnn_fused.py:58",
     "stacked_step": "src/repro/kernels/dgnn_fused.py:119",
     "ell_spmm": "src/repro/kernels/csr_spmm.py:47",
+    # the engine's hbm_paged protocol: _Engine.stage_in / write_back /
+    # paged_fill, with the family's cell
+    **{name: "src/repro/kernels/stream_fused.py:515"
+       for name in PAGED.values()},
+    "fused_gru": "src/repro/kernels/fused_rnn.py:35",
+    "fused_lstm": "src/repro/kernels/fused_rnn.py:75",
 }
 
 
@@ -381,24 +419,45 @@ def bound(flops, byts):
 
 # ------------------------------------------------------------ kernels ----
 
-def kernel_inputs(model, params, snaps, lengths=None):
+def kernel_inputs(model, params, snaps, lengths=None, residency="vmem"):
     """The kernel wrapper's inputs for a (B, T, ...) batch: the model's
     stream arguments, packed by kernels/ops.py as the main path packs them
     (the static GCN's (B, T) snapshots folded onto (B * T, 1) slots, its
-    lengths turned into per-slot liveness, as StaticGCN does)."""
+    lengths turned into per-slot liveness, as StaticGCN does; TGN's
+    partners as local ids for its paged engine)."""
     if model.stream_family == "static_gcn":
         snaps, lengths = model.fold_slots(snaps, lengths)
     B = snaps.node_mask.shape[0]
     state = init_states_batched(model, params, B)
     return ops.pack(model.stream_family,
-                    *model.stream_args(params, state, snaps), lengths=lengths)
+                    *model.stream_args(params, state, snaps), lengths=lengths,
+                    residency=residency)
 
 
 def record(name: str, **kw):
-    """A stream engine's JSON record with the keys every kernel carries."""
-    return {"name": name, "route": "cuda", "source": f"{SRC}/{name}.cu",
+    """A kernel's JSON record with the keys every kernel carries."""
+    return {"name": name, "route": "cuda",
+            "source": f"{SRC}/{engine.SOURCE[name]}.cu",
             "replaces": REPLACES[name], "launches": 0, "library_ms": None,
             **kw}
+
+
+def expect_raises(fn, exc, text: str) -> str:
+    """Run ``fn``, which must raise ``exc`` with ``text`` in its message;
+    returns the message. Anything else ends the run."""
+    try:
+        fn()
+    except exc as e:
+        check(text in str(e), f"{exc.__name__} without {text!r}: {e}")
+        return str(e)
+    raise RuntimeError(f"chip_smoke check failed: no {exc.__name__} "
+                       f"({text!r})")
+
+
+def bitwise(a, b) -> bool:
+    """Two results of the same structure are equal bit for bit."""
+    a, b = flat(a), flat(b)
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 def check_engine(name, kernel, plain, check_inp, main_inp, cost, tol_main):
@@ -423,6 +482,159 @@ def check_engine(name, kernel, plain, check_inp, main_inp, cost, tol_main):
         f"bound {bound_ms:.4f} ms ({flops:.3e} flop, {byts:.3e} B)")
     return record(name, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                   bound_ms=bound_ms, bound_by=bound_by, err_t8_b2=err_small)
+
+
+def check_paged_engine(family, resident_inp, paged_inp, cost, ms_resident):
+    """A paged engine on the inputs of ``check_engine`` (``resident_inp`` /
+    ``paged_inp``: (T = 8 B = 2 ragged, main path) packed for the resident
+    and the paged wrapper) at td 16 and every ring depth: bit for bit
+    against the resident kernel, against its plain version (<= 1e-4 /
+    <= 1e-3), and timed beside the resident kernel in the same run; its
+    record (``ms`` at depth 2, the main path's default)."""
+    name, resident = PAGED[family], getattr(engine, ENGINE[family])
+    kernel = getattr(engine, name)
+    plain = getattr(engine, f"{family}_paged_plain")
+    ring = lambda d: dict(td=PAGED_TD, depth=d)
+    errs = {}
+    for label, r_in, p_in, tol in (
+            ("T=8 B=2 ragged", resident_inp[0], paged_inp[0], TOL_KERNEL),
+            ("main-path shapes", resident_inp[1], paged_inp[1], TOL_STREAM)):
+        want_r = resident(*r_in)
+        want_p = plain(*p_in, **ring(2))
+        for depth in engine.RING_DEPTHS:
+            got = kernel(*p_in, **ring(depth))
+            torch.cuda.synchronize()
+            same = bitwise(got, want_r)
+            err = max_err(got, want_p)
+            errs[(label, depth)] = err
+            log(f"{name}: {label} td={PAGED_TD} depth={depth} bitwise vs "
+                f"{ENGINE[family]} {same}, max_abs_err={err:.3e} vs plain "
+                f"(tol {tol})")
+            check(same, f"{name} depth {depth} {label} bit-identical")
+            check(np.isfinite(err) and err <= tol, f"{name} {label}")
+    main_p, main_r = paged_inp[1], resident_inp[1]
+    ms = {d: cuda_ms(lambda d=d: kernel(*main_p, **ring(d)), reps=5)
+          for d in engine.RING_DEPTHS}
+    ms_res = cuda_ms(lambda: resident(*main_r), reps=5)
+    plain_ms = cuda_ms(lambda: plain(*main_p, **ring(2)), reps=2)
+    flops, byts = cost(main_r)
+    bound_ms, bound_by = bound(flops, byts)
+    log(f"{name}: depth 1/2/4 {ms[1]:.3f} / {ms[2]:.3f} / {ms[4]:.3f} ms, "
+        f"{ENGINE[family]} {ms_res:.3f} ms in this run ({ms_resident:.3f} "
+        f"in its own check), {plain_ms:.3f} ms plain, bound {bound_ms:.4f} "
+        f"ms ({flops:.3e} flop, {byts:.3e} B)")
+    return record(name, max_abs_err=errs[("main-path shapes", 2)], ms=ms[2],
+                  plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                  ms_depth={str(d): v for d, v in ms.items()},
+                  resident_ms=ms_res, td=PAGED_TD,
+                  err_t8_b2=max(v for (lb, _), v in errs.items()
+                                if lb.startswith("T=8")))
+
+
+def rnn_inputs(cell: str, rows: int, din: int, h: int, seed: int):
+    """Random CUDA inputs of a GRU / LSTM cell (numpy, from ``seed``)."""
+    rng = np.random.default_rng(seed)
+    g = 3 if cell == "fused_gru" else 4
+    f32 = lambda *shape: torch.from_numpy(
+        (rng.normal(size=shape) * 0.3).astype(np.float32)).cuda()
+    c = (f32(rows, h),) if cell == "fused_lstm" else ()
+    return (f32(rows, din), f32(rows, h), *c, f32(din, g * h), f32(h, g * h),
+            f32(g * h))
+
+
+def rnn_cost(cell: str, inp):
+    """(flop, bytes) of one GRU / LSTM cell: both products (2 rows (din +
+    H) G H) and ~10 element operations a gate output; every input read once
+    and the outputs written once."""
+    rows, din = inp[0].shape
+    h = inp[1].shape[1]
+    g = 3 if cell == "fused_gru" else 4
+    outs = 1 if cell == "fused_gru" else 2
+    flops = 2 * rows * (din + h) * g * h + 10 * rows * h * g
+    return flops, nbytes(*inp) + outs * rows * h * 4
+
+
+def torch_cell(cell: str, inp):
+    """The one PyTorch call that computes the cell (weights transposed,
+    no hidden bias: tests/test_torch_fused_rnn.py pins it)."""
+    if cell == "fused_gru":
+        x, h, wx, wh, b = inp
+        zero = torch.zeros_like(b)
+        return lambda: torch.gru_cell(x, h, wx.T, wh.T, b, zero)
+    x, h, c, wx, wh, b = inp
+    zero = torch.zeros_like(b)
+    return lambda: torch.lstm_cell(x, (h, c), wx.T, wh.T, b, zero)
+
+
+def check_rnn_cell(cell: str, inp):
+    """A GRU / LSTM cell kernel vs its plain version at the benchmark's
+    shape (<= 1e-4), timed as bare launches beside its bound, the plain
+    version and torch.gru_cell / torch.lstm_cell; its record."""
+    wrapper, plain = getattr(engine, cell), getattr(engine, f"{cell}_plain")
+    got, want = wrapper(*inp, tb=RNN_TB), plain(*inp)
+    lib = torch_cell(cell, inp)
+    lib_err = max_err(lib(), want)
+    torch.cuda.synchronize()
+    err = max_err(got, want)
+    log(f"{cell}: rows={inp[0].shape[0]} din={inp[0].shape[1]} "
+        f"H={inp[1].shape[1]} tb={RNN_TB} max_abs_err={err:.3e} "
+        f"(tol {TOL_KERNEL}); torch {cell.removeprefix('fused_')}_cell vs "
+        f"plain {lib_err:.3e}")
+    check(np.isfinite(err) and err <= TOL_KERNEL, cell)
+    prepared = engine.prepare(cell, *inp, tb=RNN_TB)
+    ms = cuda_ms(lambda: [engine.launch(prepared) for _ in range(20)],
+                 reps=5) / 20
+    plain_ms = cuda_ms(lambda: plain(*inp), reps=20)
+    lib_ms = cuda_ms(lambda: [lib() for _ in range(20)], reps=5) / 20
+    flops, byts = rnn_cost(cell, inp)
+    bound_ms, bound_by = bound(flops, byts)
+    log(f"{cell}: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, "
+        f"{lib_ms:.4f} ms torch {cell.removeprefix('fused_')}_cell, bound "
+        f"{bound_ms:.5f} ms ({flops:.3e} flop, {byts:.3e} B)")
+    return record(cell, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                  bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
+
+
+def smem_check(main_inp, paged_main_inp):
+    """engine.smem_bytes (the estimate the wrappers refuse launches by)
+    equals each library's own <name>_smem_bytes, at the main path's widths
+    (resident, and paged at every depth), at the capacity path's D = 256,
+    and for the cells."""
+    dims = {}
+    g = main_inp["gcrn"]
+    dims["gcrn_engine"] = dict(k=g[0].shape[-1], din=g[3].shape[-1],
+                               H=g[6].shape[-1])
+    dims["gcrn_step"] = dims["gcrn_engine"]
+    ev = main_inp["evolve"]
+    dims["evolve_engine"] = dict(k=ev[0].shape[-1], D=ev[5].shape[-1])
+    st = main_inp["stacked"]
+    dims["stacked_engine"] = dict(k=st[0].shape[-1], din=st[3].shape[-1],
+                                  dmid=st[7].shape[-1], H=st[6].shape[-1])
+    dims["stacked_step"] = dims["stacked_engine"]
+    tg = main_inp["tgn"]
+    dims["tgn_engine"] = dict(k=tg[0].shape[-1], din=tg[3].shape[-1],
+                              H=tg[6].shape[-1])
+    sg = main_inp["static_gcn"]
+    dims["static_engine"] = dict(k=sg[0].shape[-1], D=sg[4].shape[-1])
+    dims["fused_gru"] = dims["fused_lstm"] = dict(din=RNN_DIN, H=RNN_H)
+    cases = list(dims.items())
+    for family, name in PAGED.items():
+        n = paged_main_inp[family][0].shape[2]
+        base = dict(dims[ENGINE[family]])
+        if family in ("gcrn", "tgn"):
+            base["n"] = n
+        cases += [(name, dict(base, td=PAGED_TD, depth=d))
+                  for d in engine.RING_DEPTHS]
+    k = dims["evolve_engine"]["k"]
+    cases += [("evolve_engine", dict(k=k, D=CAPACITY_HIDDEN)),
+              ("evolve_engine_paged", dict(k=k, D=CAPACITY_HIDDEN,
+                                           td=PAGED_TD, depth=2))]
+    for name, d in cases:
+        est, lib = engine.smem_bytes(name, **d), engine.library_smem_bytes(
+            name, **d)
+        log(f"smem {name} {d}: estimate {est} B, library {lib} B"
+            + (" (over the budget)" if est > engine.SMEM_LIMIT else ""))
+        check(est == lib, f"smem_bytes({name}, {d}) == library")
 
 
 def static_wave_probe(inp):
@@ -518,6 +730,22 @@ def check_step_kernel(name, plain, calls, timed, cost, library=None):
                   library_ms=lib_ms, timed_calls=n_t)
 
 
+def paged_small_check(family, args, lengths, resident, want, label):
+    """The family's paged engine through ops at narrow widths: bit for bit
+    against the resident run and within 1e-4 of the force-ref run, at
+    windows that divide the state (td 8) or leave a narrower last one
+    (td 16 of 24), at every ring depth."""
+    for td, depth in ((8, 1), (8, 2), (8, 4), (16, 2)):
+        got = ops.stream_steps_batched(
+            family, *args, lengths=lengths, td=td, device="cuda",
+            state_residency="hbm_paged", buffer_depth=depth)
+        same, err = bitwise(got, resident), max_err(got, want)
+        log(f"{PAGED[family]}: n=37 {label} td={td} depth={depth} bitwise "
+            f"vs resident {same}, max_abs_err={err:.3e} (tol {TOL_KERNEL})")
+        check(same and np.isfinite(err) and err <= TOL_KERNEL,
+              f"{PAGED[family]} {label} td={td} depth={depth}")
+
+
 def small_shapes_check():
     """Every kernel through ops at narrow widths and a node count that
     leaves a partial 32-row tile and a partial 8-row micro-tile (n = 37,
@@ -564,6 +792,8 @@ def small_shapes_check():
             log(f"{family}_engine: n=37 H/D=24/16 ragged edges={edges} "
                 f"max_abs_err={err:.3e} (tol {TOL_KERNEL})")
             check(np.isfinite(err) and err <= TOL_KERNEL, family)
+            paged_small_check(family, full, lengths, got, want,
+                              f"edges={edges}")
     # TGN and the static GCN: odd feature widths, a length-0 ragged row
     # (a dead slot for the static GCN), event times up to BC-Alpha's
     din_o, dims_o = 13, [(13, 11), (11, 7)]
@@ -587,6 +817,18 @@ def small_shapes_check():
         log(f"{ENGINE[family]}: n=37 k=5 din=13 H/D=24/13,11,7 ragged "
             f"{lens} {label} max_abs_err={err:.3e} (tol {TOL_KERNEL})")
         check(np.isfinite(err) and err <= TOL_KERNEL, family)
+        if family in PAGED:
+            paged_small_check(family, full, lens, got, want, label)
+    # the GRU / LSTM cells: odd widths, a 48-row tile (a partial 32-row
+    # sub-tile) and a 32-row one
+    for cell in ("fused_gru", "fused_lstm"):
+        inp = rnn_inputs(cell, 96, 13, 24, SEED)
+        for tb in (48, 32):
+            got = getattr(ops, cell)(*inp, tb=tb)
+            err = max_err(got, getattr(ops, cell)(*inp, force_ref=True))
+            log(f"{cell}: rows=96 din=13 H=24 tb={tb} max_abs_err={err:.3e} "
+                f"(tol {TOL_KERNEL})")
+            check(np.isfinite(err) and err <= TOL_KERNEL, f"{cell} tb={tb}")
     cu = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()
     g = [cu(a[0, 0]) for a in (idx, coef, eidx)]
     xs, hs, cs = cu(x[0, 0]), cu(f32(n, h)), cu(f32(n, h))
@@ -666,10 +908,11 @@ def out_width(cfg) -> int:
 
 
 def drive(cfg, level, impl, params, n_global, stream, np_stream, *,
-          force_ref=False, reps=0):
+          force_ref=False, reps=0, plan_kw=None):
     """One main path: a run of the whole stream, then a batched run over
-    windows. Returns ((outs, state, outs_b, states_b), run ms/snapshot of
-    the first run and of ``reps`` more runs of the same stream)."""
+    windows (``plan_kw``: more fields of the session's plan). Returns
+    ((outs, state, outs_b, states_b), run ms/snapshot of the first run and
+    of ``reps`` more runs of the same stream)."""
     T = stream.node_mask.shape[0]
     wins = windows_for(cfg, level)
     ms = []
@@ -685,7 +928,8 @@ def drive(cfg, level, impl, params, n_global, stream, np_stream, *,
         return out
 
     if impl == "session":
-        sess = api.BoosterSession(cfg, api.plan(cfg, level=level),
+        sess = api.BoosterSession(cfg, api.plan(cfg, level=level,
+                                                **(plan_kw or {})),
                                   n_global=n_global, params=params,
                                   device="cuda", force_ref=force_ref)
         outs = timed(lambda: sess.run(stream))
@@ -735,6 +979,129 @@ def check_path(label, cfg, level, res, ref, T):
           f"{label} vs force_ref {errs}")
 
 
+def paged_plan(depth: int) -> dict:
+    """The plan fields of a paged main path."""
+    return dict(td=PAGED_TD, state_residency="hbm_paged", buffer_depth=depth)
+
+
+@contextlib.contextmanager
+def deterministic():
+    """torch's deterministic algorithms on (index_add_ without atomics: the
+    stacked model's earlier GCN layer scatter-adds), so two runs of a
+    session path give the same bits; the kernels are deterministic
+    either way."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def check_bitwise(label, res, resident) -> None:
+    """A paged path's results equal the resident path's bit for bit."""
+    same = {"run outs": bitwise(res[0], resident[0]),
+            "run state": bitwise(res[1], resident[1]),
+            "batched outs": bitwise(list(res[2]), list(resident[2])),
+            "batched states": bitwise(res[3], resident[3])}
+    log(f"{label} bitwise vs resident: "
+        + ", ".join(f"{k} {v}" for k, v in same.items()))
+    check(all(same.values()), f"{label} bit-identical to resident {same}")
+
+
+def arrays_inputs(cfg, params, n_global, stream, np_stream):
+    """run_arrays' argument lists for a path: the whole stream (solo) and
+    its v3 windows stacked ragged (batched), and the windows' lengths."""
+    model = build_model(cfg, n_global=n_global)
+    solo = model.stream_args(params, model.init_state(params, mode="v3"),
+                             stream)
+    wins = windows_for(cfg, "v3")
+    snaps, lens = stack_ragged([window(np_stream, a, b) for a, b in wins],
+                               "cuda")
+    batched = model.stream_args(
+        params, init_states_batched(model, params, len(wins), mode="v3"),
+        snaps)
+    return solo, batched, tuple(lens)
+
+
+def drive_arrays(cfg, inputs, plan_kw, force_ref=False):
+    """A run_arrays path: the solo stream, then the ragged batch."""
+    solo, batched, lens = inputs
+    a = api.run_arrays(api.plan(cfg, level="v3", **plan_kw), *solo,
+                       force_ref=force_ref, device="cuda")
+    b = api.run_arrays(api.plan(cfg, level="v3", batch=len(lens),
+                                lengths=lens, **plan_kw), *batched,
+                       force_ref=force_ref, device="cuda")
+    torch.cuda.synchronize()
+    return a, b
+
+
+def launched(label: str) -> dict:
+    """The launch counts of the path just run (nonzero ones), logged."""
+    counts = {k: v for k, v in engine.LAUNCHES.items() if v}
+    log(f"path {label}: launches {counts}")
+    return counts
+
+
+def capacity_path(n_global, np_stream, gen) -> dict:
+    """EvolveGCN-O at hidden 256 (square D = 256) on the stream's first
+    CAPACITY_T snapshots: the resident engine's W copy is over the card's
+    shared memory, so the resident session refuses with the hint to page,
+    launching nothing; the paged session (td 16, depth 2) runs and matches
+    its force-ref run. Returns the paged run's launch counts."""
+    cfg = dataclasses.replace(EVOLVEGCN, hidden=CAPACITY_HIDDEN)
+    model = build_model(cfg, n_global=n_global)
+    params = ops.to_device(model.init(gen), "cuda")
+    snaps = window(np_stream, 0, CAPACITY_T).to("cuda")
+    D = max(max(d) for d in layer_dims(cfg))
+    session = lambda plan_kw, force_ref=False: api.BoosterSession(
+        cfg, api.plan(cfg, level="v3", **plan_kw), n_global=n_global,
+        params=params, device="cuda", force_ref=force_ref)
+    label = f"capacity {cfg.name} hidden={CAPACITY_HIDDEN} (D={D}) T={CAPACITY_T}"
+    engine.reset_launches()
+    msg = expect_raises(lambda: session({}).run(snaps), ValueError,
+                        "page the state store with plan(state_residency="
+                        "'hbm_paged', td=...)")
+    check(not any(engine.LAUNCHES.values()), f"{label}: refused, launched")
+    log(f"{label} resident: refused: {msg}")
+    engine.reset_launches()
+    sess = session(paged_plan(2))
+    outs = sess.run(snaps)
+    torch.cuda.synchronize()
+    counts = launched(f"{label} hbm_paged d2")
+    check(counts.get("evolve_engine_paged", 0) > 0,
+          f"{label} launched evolve_engine_paged")
+    ref = session(paged_plan(2), force_ref=True)
+    ref_outs = ref.run(snaps)
+    errs = {"outs": max_err(outs, ref_outs),
+            "state": max_err(sess.state, ref.state)}
+    log(f"{label} hbm_paged d2 vs force_ref: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f" (tol {TOL_STREAM})")
+    check(outs.shape == (CAPACITY_T, N_PAD, cfg.out_dim)
+          and bool(torch.isfinite(outs).all())
+          and float(outs.abs().max()) > 0, f"{label} outputs")
+    check(all(np.isfinite(v) and v <= TOL_STREAM for v in errs.values()),
+          f"{label} vs force_ref {errs}")
+    return counts
+
+
+def rnn_path(cell: str) -> dict:
+    """ops.fused_gru / ops.fused_lstm at the benchmark's shape, against the
+    force-ref call (<= 1e-4); returns the launch counts."""
+    inp = rnn_inputs(cell, RNN_ROWS, RNN_DIN, RNN_H, SEED + 1)
+    engine.reset_launches()
+    got = getattr(ops, cell)(*inp, tb=RNN_TB)
+    torch.cuda.synchronize()
+    counts = launched(f"ops.{cell} rows={RNN_ROWS} tb={RNN_TB}")
+    check(counts.get(cell, 0) > 0, f"ops.{cell} launched {cell}")
+    err = max_err(got, getattr(ops, cell)(*inp, tb=RNN_TB, force_ref=True))
+    log(f"ops.{cell} vs force_ref: max_abs_err={err:.3e} (tol {TOL_KERNEL})")
+    check(np.isfinite(err) and err <= TOL_KERNEL, f"ops.{cell}")
+    return counts
+
+
 def tile_probe():
     """Where a live node tile's time goes: gcrn_step at full width (n 640,
     din 64, H 128, k 27) on synthetic inputs that vary the live rows, the
@@ -770,14 +1137,15 @@ def tile_probe():
         log(f"tile probe gcrn_step: {label}: {us:.1f} us a call")
 
 
-def busy_share(cfg, level, params, n_global, stream):
+def busy_share(cfg, level, params, n_global, stream, plan_kw=None):
     """(wall ms, device ms) of one session ``run`` of the whole stream under
     torch.profiler: the device time is the kernels' summed self time. The
     profiler's own host cost lengthens the wall time, so 1 - device / wall
     overstates the idle share."""
     from torch.profiler import ProfilerActivity, profile
 
-    sess = api.BoosterSession(cfg, api.plan(cfg, level=level),
+    sess = api.BoosterSession(cfg, api.plan(cfg, level=level,
+                                            **(plan_kw or {})),
                               n_global=n_global, params=params,
                               device="cuda")
     sess.run(stream)  # warm-up
@@ -814,7 +1182,10 @@ def main() -> int:
                     else str(p) for p in paths.values()))
     for name, text in engine.BUILD_LOG.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "Compiling entry function" in line:
+                # the kernel, and its template flag (Lb1: the paged variant)
+                log(f"  {name}: {line.split(chr(39))[1]}")
+            elif "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
     np_stream, n_global = bc_alpha()
@@ -844,6 +1215,7 @@ def main() -> int:
     static_dims = [(STATIC_GCN.in_dim, STATIC_GCN.hidden),
                    (STATIC_GCN.hidden, STATIC_GCN.out_dim)]
     records = []
+    inputs, paged_inputs, costs = {}, {}, {}
     for cfg, name, plain, cost, (b_in, s_in), tol in (
             (GCRN_M2, "gcrn_engine", engine.gcrn_plain, gcrn_cost,
              (check_b, solo), TOL_STREAM),
@@ -858,13 +1230,27 @@ def main() -> int:
              lambda inp: static_cost(inp, static_dims), (check_b, solo),
              TOL_KERNEL)):
         m, p = models[cfg.name], params[cfg.name]
+        family = m.stream_family
+        inputs[family] = (kernel_inputs(m, p, b_in, lengths=[8, 5]),
+                          kernel_inputs(m, p, s_in))
+        costs[family] = cost
+        # the paged engines take the resident packs, but TGN's partners
+        # as local ids
+        paged_inputs[family] = inputs[family] if family != "tgn" else (
+            kernel_inputs(m, p, b_in, lengths=[8, 5], residency="hbm_paged"),
+            kernel_inputs(m, p, s_in, residency="hbm_paged"))
         records.append(check_engine(
-            name, getattr(engine, name), plain,
-            kernel_inputs(m, p, b_in, lengths=[8, 5]),
-            kernel_inputs(m, p, s_in), cost, tol))
+            name, getattr(engine, name), plain, *inputs[family], cost, tol))
+    for family in PAGED:
+        records.append(check_paged_engine(
+            family, inputs[family], paged_inputs[family], costs[family],
+            next(r["ms"] for r in records if r["name"] == ENGINE[family])))
+    smem_check({f: v[1] for f, v in inputs.items()},
+               {f: v[1] for f, v in paged_inputs.items()})
+    del paged_inputs
 
-    static_wave_probe(kernel_inputs(models[STATIC_GCN.name],
-                                    params[STATIC_GCN.name], solo))
+    static_wave_probe(inputs["static_gcn"][1])
+    del inputs
 
     # phase 3c: the per-step kernels on recorded main-path inputs
     with recording("gcrn_step") as g_calls:
@@ -895,6 +1281,9 @@ def main() -> int:
                           library=[lambda a=a, x=x: torch.sparse.mm(a, x)
                                    for a, x in lib]),
     ]
+    records += [check_rnn_cell(cell, rnn_inputs(cell, RNN_ROWS, RNN_DIN,
+                                                RNN_H, SEED))
+                for cell in ("fused_gru", "fused_lstm")]
     log(f"phase 3 (kernel checks and timings): {time.time() - t0:.1f} s")
 
     # phase 4: the main paths, counts read around each
@@ -925,16 +1314,84 @@ def main() -> int:
         check_path(label, cfg, level, res, ref, T_path)
     log(f"phase 4 (main paths): {time.time() - t0:.1f} s")
 
+    # phase 4, paged: the session paths, then run_arrays, at every depth;
+    # each session path is timed as the others, then run once more beside
+    # a resident run with deterministic algorithms for the bitwise check
+    t0 = time.time()
+    for cfg in (GCRN_M2, EVOLVEGCN, STACKED, TGN):
+        p = params[cfg.name]
+        path_stream, path_np = streams[cfg.name]
+        T_path = path_stream.node_mask.shape[0]
+        family = api.family_for(cfg)
+        with deterministic():
+            resident_bits, _ = drive(cfg, "v3", "session", p, n_global,
+                                     path_stream, path_np)
+        for depth in PAGED_DEPTHS[cfg.name]:
+            kw = paged_plan(depth)
+            label = f"{cfg.name} v3 hbm_paged d{depth} session"
+            engine.reset_launches()
+            res, ms = drive(cfg, "v3", "session", p, n_global, path_stream,
+                            path_np, reps=RUN_REPS, plan_kw=kw)
+            counts = {k: v for k, v in engine.LAUNCHES.items() if v}
+            log(f"path {label}: run {float(np.median(ms[1:])):.4f} "
+                f"ms/snapshot median of {RUN_REPS} (first {ms[0]:.4f}, all "
+                f"{', '.join(f'{m:.4f}' for m in ms)}; T={T_path}), "
+                f"launches {counts}")
+            check(counts.get(PAGED[family], 0) > 0
+                  and counts.get(ENGINE[family], 0) == 0,
+                  f"{label} launched {PAGED[family]} only")
+            for name, v in counts.items():
+                launches[name] += v
+            with deterministic():
+                bits, _ = drive(cfg, "v3", "session", p, n_global,
+                                path_stream, path_np, plan_kw=kw)
+            check_bitwise(label, bits, resident_bits)
+            engine.reset_launches()
+            ref, _ = drive(cfg, "v3", "session", p, n_global, path_stream,
+                           path_np, force_ref=True, plan_kw=kw)
+            check(not any(engine.LAUNCHES.values()),
+                  f"{label} force_ref reached a kernel")
+            check_path(label, cfg, "v3", res, ref, T_path)
+        arr = arrays_inputs(cfg, p, n_global, path_stream, path_np)
+        resident = drive_arrays(cfg, arr, {})
+        ref = drive_arrays(cfg, arr, {}, force_ref=True)
+        for depth in PAGED_DEPTHS[cfg.name]:
+            label = f"{cfg.name} hbm_paged d{depth} run_arrays"
+            engine.reset_launches()
+            got = drive_arrays(cfg, arr, paged_plan(depth))
+            counts = launched(label)
+            check(counts.get(PAGED[family], 0) > 0
+                  and counts.get(ENGINE[family], 0) == 0,
+                  f"{label} launched {PAGED[family]} only")
+            for name, v in counts.items():
+                launches[name] += v
+            same = bitwise(got, resident)
+            err = max_err(got, ref)
+            log(f"{label}: solo + ragged batch {arr[2]} bitwise vs resident "
+                f"{same}, vs force_ref {err:.3e} (tol {TOL_STREAM})")
+            check(same and np.isfinite(err) and err <= TOL_STREAM, label)
+        del arr, resident, ref, resident_bits
+    for name, v in capacity_path(n_global, np_stream, gen).items():
+        launches[name] += v
+    for cell in ("fused_gru", "fused_lstm"):
+        for name, v in rnn_path(cell).items():
+            launches[name] += v
+    log(f"phase 4 (paged paths, capacity, RNN cells): "
+        f"{time.time() - t0:.1f} s")
+
     # phase 5: the device's busy share of a run, per kind of level
-    for cfg, level in ((GCRN_M2, "baseline"), (GCRN_M2, "v2"),
-                       (GCRN_M2, "v3"), (STACKED, "v3"), (TGN, "v3"),
-                       (STATIC_GCN, "v3")):
+    for cfg, level, kw in ((GCRN_M2, "baseline", {}), (GCRN_M2, "v2", {}),
+                           (GCRN_M2, "v3", {}), (STACKED, "v3", {}),
+                           (TGN, "v3", {}), (STATIC_GCN, "v3", {}),
+                           (GCRN_M2, "v3", paged_plan(2)),
+                           (TGN, "v3", paged_plan(2))):
         wall, device = busy_share(cfg, level, params[cfg.name], n_global,
-                                  streams[cfg.name][0])
+                                  streams[cfg.name][0], plan_kw=kw)
         share = (f"{device / wall:.3f}" if device > 0
                  else "not measured (the profiler saw no device time)")
-        log(f"busy {cfg.name} {level}: run {wall:.2f} ms wall under the "
-            f"profiler, {device:.2f} ms of kernels, busy share {share}")
+        paged = f" hbm_paged d{kw['buffer_depth']}" if kw else ""
+        log(f"busy {cfg.name} {level}{paged}: run {wall:.2f} ms wall under "
+            f"the profiler, {device:.2f} ms of kernels, busy share {share}")
 
     # phase 6: where a live node tile's time goes
     tile_probe()

@@ -7,10 +7,11 @@ streams in one launch) or to :func:`run_arrays` (pre-padded ELL arrays).
 ``plan()`` accepts and validates every field the JAX one does, with the
 same messages. Every level of ``FAMILY_LEVELS`` runs for every family:
 gcrn, evolve and stacked on padded snapshot streams, tgn on padded event
-batches (graph/events.py), static_gcn on independent snapshots. What the
-port cannot execute yet raises ``NotImplementedError`` naming its ROADMAP
-item when it is executed: ``hbm_paged`` residency, a sharded
-``DeviceSpec`` and the serve layer.
+batches (graph/events.py), static_gcn on independent snapshots; the
+stateful families at v3 also with ``state_residency="hbm_paged"`` (their
+paged engines). What the port cannot execute yet raises
+``NotImplementedError`` naming its ROADMAP item when it is executed: a
+sharded ``DeviceSpec`` and the serve layer.
 
 The torch device is an argument of the session (and of ``run_arrays``),
 not a plan field. It defaults to "cuda" and raises when there is no card;
@@ -332,8 +333,11 @@ def run_arrays(p: StreamPlan, *args, force_ref: bool = False,
     if p.batch > 1 or p.lengths is not None:
         return _ops.stream_steps_batched(
             p.family, *args, tn=p.tn, td=p.td, lengths=p.lengths,
+            state_residency=p.state_residency, buffer_depth=p.buffer_depth,
             force_ref=force_ref, device=device)
     return _ops.stream_steps(p.family, *args, tn=p.tn, td=p.td,
+                             state_residency=p.state_residency,
+                             buffer_depth=p.buffer_depth,
                              force_ref=force_ref, device=device)
 
 

@@ -11,7 +11,8 @@ baseline and v3 of the event-driven tgn and the static static_gcn.
   v2         intra-step fusion: one fused kernel per step (GCRN, stacked).
   v3         time fusion: the whole (T, ...) stream in one launch of the
              family's stream-engine kernel, ragged over T through the
-             plan's ``lengths``.
+             plan's ``lengths``, its state resident or paged (the plan's
+             ``state_residency`` and ``buffer_depth``).
 
 The per-step levels run a Python loop over T (the JAX package's
 ``lax.scan``) and, batched, a loop over B (its ``vmap``), equal T only.
@@ -65,9 +66,6 @@ def _check_executable(plan) -> None:
         value = getattr(plan, f.name)
         if f.metadata.get("serve") and value != f.default:
             raise NotImplementedError(f"{f.name}={value!r}: {SERVE_ITEM}")
-    if plan.state_residency != "vmem":
-        raise NotImplementedError(
-            "state_residency='hbm_paged' is ROADMAP.md queue 1 item 11")
     if plan.device.n_devices > 1:
         raise NotImplementedError(
             "DeviceSpec sharding is ROADMAP.md queue 1 item 13")
@@ -134,7 +132,10 @@ def run_plan(model: Model, params, state0, snaps_T, plan, *,
     _check_executable(plan)
     if plan.level == "v3":
         return model.step_stream(params, state0, snaps_T, tn=plan.tn,
-                                 td=plan.td, force_ref=force_ref)
+                                 td=plan.td,
+                                 state_residency=plan.state_residency,
+                                 buffer_depth=plan.buffer_depth,
+                                 force_ref=force_ref)
     n_global = getattr(model, "n_global", None)
     if n_global is not None:  # a store: its rows are checked once a stream
         kops.check_renumber(snaps_T.renumber, n_global)
@@ -172,7 +173,10 @@ def run_plan_batched(model: Model, params, states0, snaps_BT, plan,
         lens = None if lengths is None else [int(t) for t in lengths]
         return model.step_stream_batched(params, states0, snaps_BT,
                                          tn=plan.tn, td=plan.td,
-                                         lengths=lens, force_ref=force_ref)
+                                         lengths=lens,
+                                         state_residency=plan.state_residency,
+                                         buffer_depth=plan.buffer_depth,
+                                         force_ref=force_ref)
     if lengths is not None:
         raise ValueError("ragged lengths need the stream engine "
                          f"(level='v3'); level={plan.level!r}")

@@ -119,30 +119,38 @@ class EvolveGCN:
                 self._edge_aggs(params, snaps))
 
     def _run(self, params: dict, state: dict, snaps: PaddedSnapshot,
-             batched: bool, tn=128, td="cfg", lengths=None, force_ref=False):
+             batched: bool, tn=128, td="cfg", lengths=None,
+             state_residency="vmem", buffer_depth=None, force_ref=False):
         td = self.cfg.stream_td if td == "cfg" else td
         dev = params["gru"][0]["wx"].device
         args = self.stream_args(params, state, snaps)
         if batched:
             outs, wT = kops.stream_steps_batched(
                 self.stream_family, *args, tn=tn, td=td, lengths=lengths,
+                state_residency=state_residency, buffer_depth=buffer_depth,
                 force_ref=force_ref, device=dev)
         else:
-            outs, wT = kops.stream_steps(self.stream_family, *args, tn=tn,
-                                         td=td, force_ref=force_ref,
-                                         device=dev)
+            outs, wT = kops.stream_steps(
+                self.stream_family, *args, tn=tn, td=td,
+                state_residency=state_residency, buffer_depth=buffer_depth,
+                force_ref=force_ref, device=dev)
         return {"weights": list(wT)}, outs
 
     def step_stream(self, params: dict, state: dict, snaps_T: PaddedSnapshot,
-                    *, tn=128, td="cfg", force_ref=False):
-        """V3: a whole (T, ...) stream through the weights-resident kernel."""
+                    *, tn=128, td="cfg", state_residency="vmem",
+                    buffer_depth=None, force_ref=False):
+        """V3: a whole (T, ...) stream through the weights-resident kernel
+        (or its paged variant: ``state_residency="hbm_paged"``)."""
         return self._run(params, state, snaps_T, batched=False, tn=tn, td=td,
-                         force_ref=force_ref)
+                         state_residency=state_residency,
+                         buffer_depth=buffer_depth, force_ref=force_ref)
 
     def step_stream_batched(self, params: dict, state: dict,
                             snaps_BT: PaddedSnapshot, *, tn=128, td="cfg",
-                            lengths=None, force_ref=False):
+                            lengths=None, state_residency="vmem",
+                            buffer_depth=None, force_ref=False):
         """Batched V3: B independent streams, weight state leaves
         (B, din_l, dout_l), one launch; ``lengths`` runs it ragged."""
         return self._run(params, state, snaps_BT, batched=True, tn=tn, td=td,
-                         lengths=lengths, force_ref=force_ref)
+                         lengths=lengths, state_residency=state_residency,
+                         buffer_depth=buffer_depth, force_ref=force_ref)

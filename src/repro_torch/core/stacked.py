@@ -122,30 +122,37 @@ class StackedDGNN:
 
     def _stream(self, params: dict, state: dict, snaps: PaddedSnapshot,
                 batched: bool, tn=128, td="cfg", lengths=None,
-                force_ref=False):
+                state_residency="vmem", buffer_depth=None, force_ref=False):
         td = self.cfg.stream_td if td == "cfg" else td
         dev = params["gru"]["wx"].device
         args = self.stream_args(params, state, snaps, force_ref=force_ref)
         if batched:
             outs_h, h_T = kops.stream_steps_batched(
                 self.stream_family, *args, tn=tn, td=td, lengths=lengths,
+                state_residency=state_residency, buffer_depth=buffer_depth,
                 force_ref=force_ref, device=dev)
         else:
             outs_h, h_T = kops.stream_steps(
-                self.stream_family, *args, tn=tn, td=td, force_ref=force_ref,
-                device=dev)
+                self.stream_family, *args, tn=tn, td=td,
+                state_residency=state_residency, buffer_depth=buffer_depth,
+                force_ref=force_ref, device=dev)
         return {"h": h_T}, outs_h
 
     def step_stream(self, params: dict, state: dict, snaps_T: PaddedSnapshot,
-                    *, tn=128, td="cfg", force_ref=False):
+                    *, tn=128, td="cfg", state_residency="vmem",
+                    buffer_depth=None, force_ref=False):
         """V3: a whole (T, ...) snapshot stream through the stream engine."""
         return self._stream(params, state, snaps_T, batched=False, tn=tn,
-                            td=td, force_ref=force_ref)
+                            td=td, state_residency=state_residency,
+                            buffer_depth=buffer_depth, force_ref=force_ref)
 
     def step_stream_batched(self, params: dict, state: dict,
                             snaps_BT: PaddedSnapshot, *, tn=128, td="cfg",
-                            lengths=None, force_ref=False):
+                            lengths=None, state_residency="vmem",
+                            buffer_depth=None, force_ref=False):
         """Batched V3: B independent (B, T, ...) streams, state leaves
         (B, n_global, H), one launch; ``lengths`` runs it ragged over T."""
         return self._stream(params, state, snaps_BT, batched=True, tn=tn,
-                            td=td, lengths=lengths, force_ref=force_ref)
+                            td=td, lengths=lengths,
+                            state_residency=state_residency,
+                            buffer_depth=buffer_depth, force_ref=force_ref)

@@ -93,31 +93,38 @@ class TGNModel:
 
     def _stream(self, params: dict, state: dict, blocks: PaddedEventBlock,
                 batched: bool, tn=128, td="cfg", lengths=None,
-                force_ref=False):
+                state_residency="vmem", buffer_depth=None, force_ref=False):
         td = self.cfg.stream_td if td == "cfg" else td
         dev = params["w_in"].device
         args = self.stream_args(params, state, blocks)
         if batched:
             outs, mem_T = kops.stream_steps_batched(
                 self.stream_family, *args, tn=tn, td=td, lengths=lengths,
+                state_residency=state_residency, buffer_depth=buffer_depth,
                 force_ref=force_ref, device=dev)
         else:
             outs, mem_T = kops.stream_steps(
-                self.stream_family, *args, tn=tn, td=td, force_ref=force_ref,
-                device=dev)
+                self.stream_family, *args, tn=tn, td=td,
+                state_residency=state_residency, buffer_depth=buffer_depth,
+                force_ref=force_ref, device=dev)
         return {"mem": mem_T}, outs
 
     def step_stream(self, params: dict, state: dict,
                     blocks_T: PaddedEventBlock, *, tn=128, td="cfg",
+                    state_residency="vmem", buffer_depth=None,
                     force_ref=False):
         """V3: a whole (T, ...) event-batch stream through the engine."""
         return self._stream(params, state, blocks_T, batched=False, tn=tn,
-                            td=td, force_ref=force_ref)
+                            td=td, state_residency=state_residency,
+                            buffer_depth=buffer_depth, force_ref=force_ref)
 
     def step_stream_batched(self, params: dict, state: dict,
                             blocks_BT: PaddedEventBlock, *, tn=128, td="cfg",
-                            lengths=None, force_ref=False):
+                            lengths=None, state_residency="vmem",
+                            buffer_depth=None, force_ref=False):
         """Batched V3: B independent event streams, state leaves
         (B, n_global, H), one launch; ``lengths`` counts event batches."""
         return self._stream(params, state, blocks_BT, batched=True, tn=tn,
-                            td=td, lengths=lengths, force_ref=force_ref)
+                            td=td, lengths=lengths,
+                            state_residency=state_residency,
+                            buffer_depth=buffer_depth, force_ref=force_ref)

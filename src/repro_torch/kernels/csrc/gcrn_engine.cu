@@ -27,12 +27,27 @@
 // thread with the LSTM update fused behind it; the gate tensor never
 // leaves registers.
 //
+// Paged variant (hbm_paged residency, gcrn_engine_paged_launch): the same
+// kernel compiled with kPaged. The tile pass reads no t-1 state from global
+// memory itself: the step's gathered h rows (the neighbours of agg_h) and
+// the tile's own c rows come through the paging ring (engine_common.cuh)
+// in td-wide column windows, and the agg tile's h columns and a k-major c
+// tile are filled window by window with the resident kernel's arithmetic.
+// A slot is the window of all n gathered h rows plus the tile's kTileRows
+// c rows, (n + kTileRows) x td floats: the store's (G, td) window of the
+// TPU engine (3468 x 16 x 4 B = 222 KB at full width) would not fit twice
+// in 227 KB, and a step reads only its own n rows. The ring stages from
+// the gathered rows, never from the stores that the step's scatter writes,
+// so the t-1 / t order is the resident kernel's. Outputs and final stores
+// are bit-identical to the resident kernel's.
+//
 // What bounds it. The stream's work is serial in t and this kernel gives
 // a stream one SM: with B streams only B of the 132 SMs work, so the
 // kernel is bound by one SM's fp32 FMA rate on the gate product
 // (2 n (din + H) 4H flops a step), far from the card's roofline, which is
 // set by the bytes of the per-step inputs. Spreading one stream over a
-// thread-block cluster is the next step (ROADMAP.md).
+// thread-block cluster is the next step (ROADMAP.md). The paged variant
+// adds the ring's copies: (n + kTileRows) H floats a live tile.
 #include "engine_common.cuh"
 
 using namespace engine;
@@ -56,8 +71,10 @@ struct GcrnArgs {
   float* h_rows;      // (B, n, H) scratch: t-1 h of this step's rows
   float* c_rows;      // (B, n, H) scratch: this step's c rows
   int T, n, k, din, H, G, e;
+  int td, depth;      // paged: ring window width and depth
 };
 
+template <bool kPaged>
 __global__ void __launch_bounds__(kThreads) gcrn_engine_kernel(GcrnArgs a) {
   extern __shared__ __align__(16) float smem[];
   const int H = a.H, n = a.n, k = a.k, din = a.din;
@@ -66,6 +83,16 @@ __global__ void __launch_bounds__(kThreads) gcrn_engine_kernel(GcrnArgs a) {
   int* s_idx = reinterpret_cast<int*>(tile + K * kTileStride);
   float* s_coef = reinterpret_cast<float*>(s_idx + kTileRows * k);
   int* s_eidx = reinterpret_cast<int*>(s_coef + kTileRows * k);
+  // paged: the tile's own t-1 c rows (k-major), then the ring
+  float* ct = reinterpret_cast<float*>(s_eidx + kTileRows * k);
+  Ring ring{};
+  if constexpr (kPaged) {
+    float* slots = ct + H * kTileStride;
+    const int slot_floats = (n + kTileRows) * a.td;
+    ring = ring_make(slots, reinterpret_cast<uint64_t*>(
+                                slots + (size_t)a.depth * slot_floats),
+                     a.depth, a.td, slot_floats);
+  }
 
   const int b = blockIdx.x;
   float* h_store = a.h_store + (size_t)b * a.G * H;
@@ -99,6 +126,7 @@ __global__ void __launch_bounds__(kThreads) gcrn_engine_kernel(GcrnArgs a) {
       reinterpret_cast<float4*>(h_rows)[p] = hv;
       reinterpret_cast<float4*>(c_rows)[p] = cv;
     }
+    if constexpr (kPaged) ring_publish();
     __syncthreads();
 
     // 2. node tiles: aggregate, gate product, LSTM update
@@ -115,10 +143,32 @@ __global__ void __launch_bounds__(kThreads) gcrn_engine_kernel(GcrnArgs a) {
                     emsg != nullptr ? s_eidx : nullptr);
       __syncthreads();
       aggregate_tile(x, emsg, din, s_idx, s_coef, s_eidx, k, tile, 0);
-      aggregate_tile(h_rows, nullptr, H, s_idx, s_coef, s_eidx, k, tile, din);
-      __syncthreads();
-      lstm_tile(tile, din, H, true, a.wx, a.wh, a.bias, c_rows, mask, r0, n,
-                out, c_rows);
+      if constexpr (kPaged) {
+        // agg_h and the own c rows, window by window through the ring
+        const int rows = min(kTileRows, n - r0);
+        const int td = a.td;
+        ring_sweep(ring, H, RowBlock{h_rows, H, n},
+                   RowBlock{c_rows + (size_t)r0 * H, H, rows},
+                   [&](int c0, int width, const float* slot) {
+                     aggregate_window(slot, td, width, s_idx, s_coef, k,
+                                      tile, din + c0);
+                     const float* cw = slot + (size_t)n * td;
+                     for (int p = threadIdx.x; p < kTileRows * width;
+                          p += kThreads) {
+                       const int r = p / width, c = p - r * width;
+                       ct[(c0 + c) * kTileStride + r] =
+                           r < rows ? cw[r * td + c] : 0.0f;
+                     }
+                   });
+        lstm_tile(tile, din, H, true, a.wx, a.wh, a.bias, ct, r0, 1,
+                  kTileStride, mask, r0, n, out, c_rows);
+      } else {
+        aggregate_tile(h_rows, nullptr, H, s_idx, s_coef, s_eidx, k, tile,
+                       din);
+        __syncthreads();
+        lstm_tile(tile, din, H, true, a.wx, a.wh, a.bias, c_rows, 0, H, 1,
+                  mask, r0, n, out, c_rows);
+      }
       __syncthreads();
     }
 
@@ -137,22 +187,24 @@ __global__ void __launch_bounds__(kThreads) gcrn_engine_kernel(GcrnArgs a) {
   }
 }
 
-}  // namespace
-
-extern "C" {
-
-size_t gcrn_engine_smem_bytes(int k, int din, int H) {
-  return sizeof(float) * (size_t)(din + H) * kTileStride +
-         (size_t)kTileRows * k * (2 * sizeof(int) + sizeof(float));
+template <bool kPaged>
+int launch(const GcrnArgs& a, int B, size_t smem, void* stream) {
+  if (a.H % 4 != 0) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      gcrn_engine_kernel<kPaged>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  gcrn_engine_kernel<kPaged>
+      <<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
 }
 
-int gcrn_engine_launch(const void* idx, const void* coef, const void* eidx,
-                       const void* x, const void* rowg, const void* mask,
-                       const void* wx, const void* wh, const void* bias,
-                       const void* emsg, void* out, void* h_store,
-                       void* c_store, void* h_rows, void* c_rows, int B, int T,
-                       int n, int k, int din, int H, int G, int e,
-                       void* stream) {
+GcrnArgs make_args(const void* idx, const void* coef, const void* eidx,
+                   const void* x, const void* rowg, const void* mask,
+                   const void* wx, const void* wh, const void* bias,
+                   const void* emsg, void* out, void* h_store, void* c_store,
+                   void* h_rows, void* c_rows, int T, int n, int k, int din,
+                   int H, int G, int e) {
   GcrnArgs a;
   a.idx = static_cast<const int*>(idx);
   a.coef = static_cast<const float*>(coef);
@@ -170,17 +222,63 @@ int gcrn_engine_launch(const void* idx, const void* coef, const void* eidx,
   a.h_rows = static_cast<float*>(h_rows);
   a.c_rows = static_cast<float*>(c_rows);
   a.T = T; a.n = n; a.k = k; a.din = din; a.H = H; a.G = G; a.e = e;
-  if (H % 4 != 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = gcrn_engine_smem_bytes(k, din, H);
-  cudaError_t err = cudaFuncSetAttribute(
-      gcrn_engine_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  gcrn_engine_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
+  a.td = 0; a.depth = 0;
+  return a;
+}
+
+}  // namespace
+
+extern "C" {
+
+size_t gcrn_engine_smem_bytes(int k, int din, int H) {
+  return sizeof(float) * (size_t)(din + H) * kTileStride +
+         (size_t)kTileRows * k * (2 * sizeof(int) + sizeof(float));
+}
+
+size_t gcrn_engine_paged_smem_bytes(int k, int din, int H, int n, int td,
+                                    int depth) {
+  return gcrn_engine_smem_bytes(k, din, H) +
+         sizeof(float) * (size_t)H * kTileStride +
+         sizeof(float) * (size_t)depth * (n + kTileRows) * td + kRingBarBytes;
+}
+
+int gcrn_engine_launch(const void* idx, const void* coef, const void* eidx,
+                       const void* x, const void* rowg, const void* mask,
+                       const void* wx, const void* wh, const void* bias,
+                       const void* emsg, void* out, void* h_store,
+                       void* c_store, void* h_rows, void* c_rows, int B, int T,
+                       int n, int k, int din, int H, int G, int e,
+                       void* stream) {
+  const GcrnArgs a = make_args(idx, coef, eidx, x, rowg, mask, wx, wh, bias,
+                               emsg, out, h_store, c_store, h_rows, c_rows, T,
+                               n, k, din, H, G, e);
+  return launch<false>(a, B, gcrn_engine_smem_bytes(k, din, H), stream);
+}
+
+int gcrn_engine_paged_launch(const void* idx, const void* coef,
+                             const void* eidx, const void* x, const void* rowg,
+                             const void* mask, const void* wx, const void* wh,
+                             const void* bias, const void* emsg, void* out,
+                             void* h_store, void* c_store, void* h_rows,
+                             void* c_rows, int B, int T, int n, int k, int din,
+                             int H, int G, int e, int td, int depth,
+                             void* stream) {
+  if (td <= 0 || td % 8 != 0 || depth < 1 || depth > kMaxDepth)
+    return (int)cudaErrorInvalidValue;
+  GcrnArgs a = make_args(idx, coef, eidx, x, rowg, mask, wx, wh, bias, emsg,
+                         out, h_store, c_store, h_rows, c_rows, T, n, k, din,
+                         H, G, e);
+  a.td = td; a.depth = depth;
+  return launch<true>(
+      a, B, gcrn_engine_paged_smem_bytes(k, din, H, n, td, depth), stream);
 }
 
 const char* gcrn_engine_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+const char* gcrn_engine_paged_error_string(int code) {
+  return gcrn_engine_error_string(code);
 }
 
 }  // extern "C"

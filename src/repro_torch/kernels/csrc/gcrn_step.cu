@@ -66,8 +66,8 @@ __global__ void __launch_bounds__(kThreads) gcrn_step_kernel(StepArgs a) {
     aggregate_tile(a.h, nullptr, H, s_idx, s_coef, s_eidx, k, tile, din);
     __syncthreads();
   }
-  lstm_tile(tile, din, H, dense, a.wx, a.wh, a.bias, a.c, nullptr, r0, n,
-            a.h_out, a.c_out);
+  lstm_tile(tile, din, H, dense, a.wx, a.wh, a.bias, a.c, 0, H, 1, nullptr,
+            r0, n, a.h_out, a.c_out);
 }
 
 }  // namespace

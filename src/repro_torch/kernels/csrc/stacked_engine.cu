@@ -25,6 +25,13 @@
 // and the GRU run as register micro-tiles (engine_common.cuh). All-padding
 // tiles (no nonzero mask) write zeros and skip their arithmetic.
 //
+// Paged variant (hbm_paged residency, stacked_engine_paged_launch): the
+// same kernel compiled with kPaged. The only t-1 state a tile reads is its
+// own rows' h; it comes through the paging ring (engine_common.cuh) in
+// td-wide column windows of the tile's kTileRows gathered rows, filling
+// the k-major h tile window by window. Outputs and the final store are
+// bit-identical to the resident kernel's.
+//
 // What bounds it. One SM per stream, serial in t: bound by that SM's fp32
 // FMA rate on 2 rows (din dmid + dmid 3H + H 3H) flops a step, far from the
 // card's roofline, which the per-step bytes set.
@@ -51,8 +58,10 @@ struct StackedArgs {
   float* h_store;     // (B, G, H), h0 on entry, final h on exit
   float* h_rows;      // (B, n, H) scratch: t-1 h of this step's rows
   int T, n, k, din, dmid, H, G, e;
+  int td, depth;      // paged: ring window width and depth
 };
 
+template <bool kPaged>
 __global__ void __launch_bounds__(kThreads) stacked_engine_kernel(StackedArgs a) {
   extern __shared__ __align__(16) float smem[];
   const int H = a.H, n = a.n, k = a.k, din = a.din, dmid = a.dmid;
@@ -63,6 +72,14 @@ __global__ void __launch_bounds__(kThreads) stacked_engine_kernel(StackedArgs a)
   int* s_idx = reinterpret_cast<int*>(ht + H * kTileStride);
   float* s_coef = reinterpret_cast<float*>(s_idx + kTileRows * k);
   int* s_eidx = reinterpret_cast<int*>(s_coef + kTileRows * k);
+  Ring ring{};
+  if constexpr (kPaged) {
+    float* slots = reinterpret_cast<float*>(s_eidx + kTileRows * k);
+    const int slot_floats = kTileRows * a.td;
+    ring = ring_make(slots, reinterpret_cast<uint64_t*>(
+                                slots + (size_t)a.depth * slot_floats),
+                     a.depth, a.td, slot_floats);
+  }
 
   const int b = blockIdx.x;
   float* h_store = a.h_store + (size_t)b * a.G * H;
@@ -91,6 +108,7 @@ __global__ void __launch_bounds__(kThreads) stacked_engine_kernel(StackedArgs a)
       }
       reinterpret_cast<float4*>(h_rows)[p] = hv;
     }
+    if constexpr (kPaged) ring_publish();
     __syncthreads();
 
     // 2. node tiles: aggregate, node transform, GRU against the own row
@@ -103,8 +121,24 @@ __global__ void __launch_bounds__(kThreads) stacked_engine_kernel(StackedArgs a)
       }
       load_ell_tile(idx, coef, eidx, r0, n, k, s_idx, s_coef,
                     emsg != nullptr ? s_eidx : nullptr);
-      load_tile(h_rows, H, r0, n, ht);
-      __syncthreads();
+      if constexpr (kPaged) {
+        // the own rows' t-1 h, window by window through the ring
+        const int rows = min(kTileRows, n - r0);
+        const int td = a.td;
+        ring_sweep(ring, H, RowBlock{h_rows + (size_t)r0 * H, H, rows},
+                   RowBlock{nullptr, 0, 0},
+                   [&](int c0, int width, const float* slot) {
+                     for (int p = threadIdx.x; p < kTileRows * width;
+                          p += kThreads) {
+                       const int r = p / width, c = p - r * width;
+                       ht[(c0 + c) * kTileStride + r] =
+                           r < rows ? slot[r * td + c] : 0.0f;
+                     }
+                   });
+      } else {
+        load_tile(h_rows, H, r0, n, ht);
+        __syncthreads();
+      }
       aggregate_tile(x, emsg, din, s_idx, s_coef, s_eidx, k, agg, 0);
       __syncthreads();
       linear_tile(agg, din, a.wg, a.bg, dmid, nt);
@@ -125,22 +159,24 @@ __global__ void __launch_bounds__(kThreads) stacked_engine_kernel(StackedArgs a)
   }
 }
 
-}  // namespace
-
-extern "C" {
-
-size_t stacked_engine_smem_bytes(int k, int din, int dmid, int H) {
-  return sizeof(float) * (size_t)(din + dmid + H) * kTileStride +
-         (size_t)kTileRows * k * (2 * sizeof(int) + sizeof(float));
+template <bool kPaged>
+int launch(const StackedArgs& a, int B, size_t smem, void* stream) {
+  if (a.H % 4 != 0) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      stacked_engine_kernel<kPaged>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  stacked_engine_kernel<kPaged>
+      <<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
 }
 
-int stacked_engine_launch(const void* idx, const void* coef, const void* eidx,
-                          const void* x, const void* rowg, const void* mask,
-                          const void* wg, const void* bg, const void* wx,
-                          const void* wh, const void* bias, const void* emsg,
-                          void* out, void* h_store, void* h_rows, int B, int T,
-                          int n, int k, int din, int dmid, int H, int G, int e,
-                          void* stream) {
+StackedArgs make_args(const void* idx, const void* coef, const void* eidx,
+                      const void* x, const void* rowg, const void* mask,
+                      const void* wg, const void* bg, const void* wx,
+                      const void* wh, const void* bias, const void* emsg,
+                      void* out, void* h_store, void* h_rows, int T, int n,
+                      int k, int din, int dmid, int H, int G, int e) {
   StackedArgs a;
   a.idx = static_cast<const int*>(idx);
   a.coef = static_cast<const float*>(coef);
@@ -158,18 +194,65 @@ int stacked_engine_launch(const void* idx, const void* coef, const void* eidx,
   a.h_store = static_cast<float*>(h_store);
   a.h_rows = static_cast<float*>(h_rows);
   a.T = T; a.n = n; a.k = k; a.din = din; a.dmid = dmid; a.H = H; a.G = G;
-  a.e = e;
-  if (H % 4 != 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = stacked_engine_smem_bytes(k, din, dmid, H);
-  cudaError_t err = cudaFuncSetAttribute(
-      stacked_engine_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  stacked_engine_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
+  a.e = e; a.td = 0; a.depth = 0;
+  return a;
+}
+
+}  // namespace
+
+extern "C" {
+
+size_t stacked_engine_smem_bytes(int k, int din, int dmid, int H) {
+  return sizeof(float) * (size_t)(din + dmid + H) * kTileStride +
+         (size_t)kTileRows * k * (2 * sizeof(int) + sizeof(float));
+}
+
+size_t stacked_engine_paged_smem_bytes(int k, int din, int dmid, int H,
+                                       int td, int depth) {
+  return stacked_engine_smem_bytes(k, din, dmid, H) +
+         sizeof(float) * (size_t)depth * kTileRows * td + kRingBarBytes;
+}
+
+int stacked_engine_launch(const void* idx, const void* coef, const void* eidx,
+                          const void* x, const void* rowg, const void* mask,
+                          const void* wg, const void* bg, const void* wx,
+                          const void* wh, const void* bias, const void* emsg,
+                          void* out, void* h_store, void* h_rows, int B, int T,
+                          int n, int k, int din, int dmid, int H, int G, int e,
+                          void* stream) {
+  const StackedArgs a = make_args(idx, coef, eidx, x, rowg, mask, wg, bg, wx,
+                                  wh, bias, emsg, out, h_store, h_rows, T, n,
+                                  k, din, dmid, H, G, e);
+  return launch<false>(a, B, stacked_engine_smem_bytes(k, din, dmid, H),
+                       stream);
+}
+
+int stacked_engine_paged_launch(const void* idx, const void* coef,
+                                const void* eidx, const void* x,
+                                const void* rowg, const void* mask,
+                                const void* wg, const void* bg,
+                                const void* wx, const void* wh,
+                                const void* bias, const void* emsg, void* out,
+                                void* h_store, void* h_rows, int B, int T,
+                                int n, int k, int din, int dmid, int H, int G,
+                                int e, int td, int depth, void* stream) {
+  if (td <= 0 || td % 8 != 0 || depth < 1 || depth > kMaxDepth)
+    return (int)cudaErrorInvalidValue;
+  StackedArgs a = make_args(idx, coef, eidx, x, rowg, mask, wg, bg, wx, wh,
+                            bias, emsg, out, h_store, h_rows, T, n, k, din,
+                            dmid, H, G, e);
+  a.td = td; a.depth = depth;
+  return launch<true>(
+      a, B, stacked_engine_paged_smem_bytes(k, din, dmid, H, td, depth),
+      stream);
 }
 
 const char* stacked_engine_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+const char* stacked_engine_paged_error_string(int code) {
+  return stacked_engine_error_string(code);
 }
 
 }  // extern "C"

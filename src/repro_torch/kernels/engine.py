@@ -1,11 +1,15 @@
 """Build, bind and launch the hand-written CUDA kernels.
 
-Eight kernels, one source each under ``csrc/``: the stream engines of the
-three dense-snapshot families (``gcrn_engine.cu``, ``evolve_engine.cu``,
+Fourteen kernels from nine sources under ``csrc/``: the stream engines of
+the three dense-snapshot families (``gcrn_engine.cu``, ``evolve_engine.cu``,
 ``stacked_engine.cu``), of the event-driven TGN (``tgn_engine.cu``) and of
-the static GCN (``static_engine.cu``), all level v3; the V2 fused steps
-(``gcrn_step.cu``, ``stacked_step.cu``); and the ELL SpMM of the
-message-passing stage (``ell_spmm.cu``, ``impl="pallas"``). Each source is compiled by ``nvcc``
+the static GCN (``static_engine.cu``), all level v3; the paged variants of
+the four stateful engines (``<family>_engine_paged``, hbm_paged residency:
+the same source compiled with its paging flag, the t-1 state staged
+through a ring of td-wide windows); the V2 fused steps (``gcrn_step.cu``,
+``stacked_step.cu``); the ELL SpMM of the message-passing stage
+(``ell_spmm.cu``, ``impl="pallas"``); and the fused GRU and LSTM cells
+(``fused_rnn.cu``). Each source is compiled by ``nvcc``
 at first use into a shared library with a plain C interface, keyed by a
 hash of the sources and flags, under ``build/repro_torch/`` at the
 checkout root (``REPRO_TORCH_BUILD_DIR`` overrides it), and loaded with
@@ -13,13 +17,18 @@ checkout root (``REPRO_TORCH_BUILD_DIR`` overrides it), and loaded with
 
 Each wrapper takes packed tensors (kernels/ops.py packs them):
 
-* on CPU tensors it runs the kernel's plain PyTorch version (kernels/ref.py);
+* on CPU tensors it runs the kernel's plain PyTorch version (kernels/ref.py,
+  or the ``*_plain`` functions here);
 * on CUDA tensors it checks them, allocates outputs and scratch, launches
   the kernel on the current stream and counts the launch in ``LAUNCHES``;
   a build or launch error raises, and nothing falls back to the plain path;
 * any other device raises.
 
-Index tensors are range-checked before a launch (one device sync).
+A stream engine's shared memory is estimated here (``smem_bytes``, equal to
+each library's own ``<name>_smem_bytes``) and a launch over the card's
+227 KB is refused on either device, with the JAX package's hint: page the
+store, or shrink td. Index tensors are range-checked before a launch (one
+device sync).
 """
 from __future__ import annotations
 
@@ -41,7 +50,14 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 KERNELS = ("gcrn_engine", "evolve_engine", "stacked_engine", "tgn_engine",
-           "static_engine", "gcrn_step", "stacked_step", "ell_spmm")
+           "static_engine", "gcrn_step", "stacked_step", "ell_spmm",
+           "gcrn_engine_paged", "evolve_engine_paged", "stacked_engine_paged",
+           "tgn_engine_paged", "fused_gru", "fused_lstm")
+#: the source (``csrc/<source>.cu``, one library) of each kernel
+SOURCE = {**{name: name for name in KERNELS[:8]},
+          **{f"{family}_engine_paged": f"{family}_engine"
+             for family in ("gcrn", "evolve", "stacked", "tgn")},
+          "fused_gru": "fused_rnn", "fused_lstm": "fused_rnn"}
 
 #: the kernels' register micro-tile: each thread owns this many node rows
 #: (and, in the evolve kernel, this many columns of W). The kernels take
@@ -50,6 +66,13 @@ KERNELS = ("gcrn_engine", "evolve_engine", "stacked_engine", "tgn_engine",
 ROW_ALIGN = 8
 #: a CTA's shared memory on Hopper (227 KB)
 SMEM_LIMIT = 232448
+#: the kernels' node tile: rows a tile, floats between a k-major tile's columns
+TILE_ROWS = 32
+TILE_STRIDE = TILE_ROWS + 4
+#: paging-ring depths (hbm_paged buffer_depth); the kernels reserve an
+#: mbarrier for each of the deepest ring's slots
+RING_DEPTHS = (1, 2, 4)
+RING_BAR_BYTES = 8 * max(RING_DEPTHS)
 
 #: launches per kernel since the last ``reset_launches()``; only a real
 #: kernel launch counts, never the plain path
@@ -81,47 +104,48 @@ def _nvcc() -> str:
     return path
 
 
-def _digest(name: str) -> str:
+def _digest(source: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
+    for src in (CSRC / f"{source}.cu", *sorted(CSRC.glob("*.cuh"))):
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
 
 
-def _lib_path(name: str) -> Path:
-    return build_dir() / f"lib{name}_{_digest(name)}.so"
+def _lib_path(source: str) -> Path:
+    return build_dir() / f"lib{source}_{_digest(source)}.so"
 
 
 def build(names=KERNELS) -> dict:
-    """Compile the named kernels that are not built yet, one ``nvcc`` per
-    source, all running at once. Returns {name: library path}; raises if
-    any compile fails. The compiler's output (``-Xptxas -v``: registers,
-    shared memory, spills) lands in ``BUILD_LOG``."""
+    """Compile the sources of the named kernels that are not built yet, one
+    ``nvcc`` per source, all running at once. Returns {name: library
+    path}; raises if any compile fails. The compiler's output (``-Xptxas
+    -v``: registers, shared memory, spills) lands in ``BUILD_LOG``, by
+    source."""
     nvcc = _nvcc()
     out = build_dir()
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in names:
-        lib = _lib_path(name)
+    for source in dict.fromkeys(SOURCE[name] for name in names):
+        lib = _lib_path(source)
         if lib.exists():
             continue
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-               str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, lib)
+               str(CSRC / f"{source}.cu")]
+        procs[source] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT, text=True),
+                         tmp, lib)
     failed = []
-    for name, (proc, tmp, lib) in procs.items():
+    for source, (proc, tmp, lib) in procs.items():
         log, _ = proc.communicate()
-        BUILD_LOG[name] = log
+        BUILD_LOG[source] = log
         if proc.returncode != 0:
-            failed.append(f"{name}:\n{log}")
+            failed.append(f"{source}:\n{log}")
             continue
         os.replace(tmp, lib)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
-    return {name: _lib_path(name) for name in names}
+    return {name: _lib_path(SOURCE[name]) for name in names}
 
 
 #: C signature of each kernel library: (pointer arguments of ``<name>_launch``
@@ -137,6 +161,12 @@ _SIGNATURES = {
     "gcrn_step": (12, 4, 3),
     "stacked_step": (12, 5, 4),
     "ell_spmm": (6, 6, 0),
+    "gcrn_engine_paged": (15, 10, 6),
+    "evolve_engine_paged": (13, 8, 4),
+    "stacked_engine_paged": (15, 11, 6),
+    "tgn_engine_paged": (14, 9, 6),
+    "fused_gru": (6, 4, 2),
+    "fused_lstm": (8, 4, 2),
 }
 
 
@@ -193,6 +223,114 @@ def _check_smem(name: str, smem: int, dims: str) -> None:
                          f"memory, over {SMEM_LIMIT}")
 
 
+# ------------------------------------------------------ shared memory ----
+
+def _tile(cols: int) -> int:
+    """Bytes of a k-major node tile of ``cols`` columns."""
+    return 4 * cols * TILE_STRIDE
+
+
+def _ell(k: int, words: int) -> int:
+    """Bytes of a tile's ELL lanes, ``words`` 4-byte values a lane."""
+    return TILE_ROWS * k * 4 * words
+
+
+def _ring(depth: int, rows: int, td: int) -> int:
+    """Bytes of a paging ring of ``depth`` (rows, td) slots and its
+    mbarriers."""
+    return 4 * depth * rows * td + RING_BAR_BYTES
+
+
+#: each kernel's dynamic shared memory: (argument names of the library's
+#: ``<name>_smem_bytes``, in its order; the same function of them)
+_SMEM = {
+    "gcrn_engine": (("k", "din", "H"),
+                    lambda k, din, H: _tile(din + H) + _ell(k, 3)),
+    "evolve_engine": (("k", "D"),
+                      lambda k, D: 4 * D * D + _tile(D) + _ell(k, 2)),
+    "stacked_engine": (("k", "din", "dmid", "H"),
+                       lambda k, din, dmid, H: _tile(din + dmid + H)
+                       + _ell(k, 3)),
+    "tgn_engine": (("k", "din", "H"),
+                   lambda k, din, H: _tile(din + 3 * H) + _ell(k, 3)),
+    "static_engine": (("k", "D"), lambda k, D: _tile(2 * D) + _ell(k, 2)),
+    "gcrn_step": (("k", "din", "H"),
+                  lambda k, din, H: _tile(din + H) + _ell(k, 3)),
+    "stacked_step": (("k", "din", "dmid", "H"),
+                     lambda k, din, dmid, H: _tile(din + dmid + H)
+                     + _ell(k, 3)),
+    # a slot: the window of all n gathered h rows and the tile's c rows
+    "gcrn_engine_paged": (("k", "din", "H", "n", "td", "depth"),
+                          lambda k, din, H, n, td, depth: _tile(din + 2 * H)
+                          + _ell(k, 3) + _ring(depth, n + TILE_ROWS, td)),
+    # a slot: a (D, td) column window of W_l; no D x D buffer
+    "evolve_engine_paged": (("k", "D", "td", "depth"),
+                            lambda k, D, td, depth: _tile(D) + _ell(k, 2)
+                            + _ring(depth, D, td)),
+    # a slot: the window of the tile's own h rows
+    "stacked_engine_paged": (("k", "din", "dmid", "H", "td", "depth"),
+                             lambda k, din, dmid, H, td, depth:
+                             _tile(din + dmid + H) + _ell(k, 3)
+                             + _ring(depth, TILE_ROWS, td)),
+    # a slot: the window of all n gathered rows; no partner-aggregate tile
+    "tgn_engine_paged": (("k", "din", "H", "n", "td", "depth"),
+                         lambda k, din, H, n, td, depth: _tile(din + 2 * H)
+                         + _ell(k, 3) + _ring(depth, n, td)),
+    "fused_gru": (("din", "H"), lambda din, H: _tile(din + H)),
+    "fused_lstm": (("din", "H"), lambda din, H: _tile(din + H)),
+}
+
+
+def smem_bytes(name: str, **dims) -> int:
+    """Dynamic shared memory of one launch of kernel ``name`` at ``dims``
+    (the arguments of its ``<name>_smem_bytes``: some of k, din, dmid, H, D,
+    n, td, depth). It equals the library's own figure (``library_smem_bytes``,
+    on the card). No estimate grows with the store height G: the stores stay
+    in global memory."""
+    args, fn = _SMEM[name]
+    return fn(*(dims[a] for a in args))
+
+
+def library_smem_bytes(name: str, **dims) -> int:
+    """The kernel library's own ``<name>_smem_bytes`` at ``dims`` (needs the
+    card: the library is built and loaded)."""
+    args, _ = _SMEM[name]
+    return int(getattr(_library(name), f"{name}_smem_bytes")(
+        *(dims[a] for a in args)))
+
+
+def _check_budget(family: str, residency: str, td, smem: int) -> None:
+    """Refuse a stream-engine launch whose shared memory is over the card's
+    227 KB, with the JAX package's hint (its budget is the TPU's 16 MiB of
+    VMEM, so the two packages refuse at different sizes)."""
+    if smem > SMEM_LIMIT:
+        hint = ("shrink td" if residency == "hbm_paged" else
+                "page the state store with plan(state_residency="
+                "'hbm_paged', td=...)")
+        raise ValueError(
+            f"family {family!r} ({residency}, td={td}) needs {smem} bytes of "
+            f"shared memory, over the {SMEM_LIMIT}-byte budget — {hint}")
+
+
+def _check_ring(name: str, td, depth) -> None:
+    """A paged engine's window width and ring depth: td a positive multiple
+    of ``ROW_ALIGN`` (a window's rows move as 16-byte bulk copies, and the
+    evolve kernel's micro-tile reads 8 columns at once), depth one of
+    ``RING_DEPTHS``."""
+    if not (isinstance(td, int) and td > 0 and td % ROW_ALIGN == 0):
+        raise ValueError(f"{name}: td={td!r} must be a positive multiple of "
+                         f"{ROW_ALIGN}")
+    if depth not in RING_DEPTHS:
+        raise ValueError(f"{name}: depth={depth!r} must be one of "
+                         f"{RING_DEPTHS}")
+
+
+def _windows(cols: int, td: int) -> list:
+    """The td-wide column windows of ``cols`` columns, in the ring's order
+    (the last one narrower where td does not divide cols)."""
+    return [slice(c, min(c + td, cols)) for c in range(0, cols, td)]
+
+
 def _stream_ptr():
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
@@ -227,17 +365,41 @@ def gcrn_plain(idx, coef, eidx, x, rowg, mask, h0, c0, wx, wh, b, emsg=None):
                                         c0, wx, wh, b, emsg)
 
 
-def gcrn_engine(idx, coef, eidx, x, rowg, mask, h0, c0, wx, wh, b, emsg=None):
-    """GC-LSTM over B streams of T steps in one launch.
+def gcrn_paged_plain(idx, coef, eidx, x, rowg, mask, h0, c0, wx, wh, b,
+                     emsg=None, *, td, depth):
+    """The paged GCRN kernel's function in plain PyTorch, on the packed
+    inputs of ``gcrn_plain``: each step gathers its rows, then aggregates
+    their t-1 h (agg_h) window by window, td columns at a time, in the
+    ring's order; the own c rows are read as they are (staging rows by
+    windows moves no value). The ring's ``depth`` does not change the
+    function."""
+    _check_ring("gcrn_engine_paged", td, depth)
+    G, H = h0.shape[1:]
+    ren = torch.where(rowg < G, rowg, -1)
+    h_store, c_store = h0.clone(), c0.clone()
+    wins = _windows(H, td)
+    outs = []
+    for t in range(idx.shape[1]):
+        r, m = ren[:, t], mask[:, t]
+        h_rows = _ref._gather_rows(h_store, r, m)
+        c_rows = _ref._gather_rows(c_store, r, m)
+        lanes = (idx[:, t], coef[:, t], eidx[:, t])
+        em = None if emsg is None else emsg[:, t]
+        agg_x = _ref.ell_spmm(*lanes, x[:, t], em)
+        agg_h = torch.cat([_ref.ell_spmm(*lanes, h_rows[..., w])
+                           for w in wins], dim=-1)
+        h_new, c_new = _ref.fused_lstm(agg_x, agg_h, c_rows, wx, wh, b)
+        h_new, c_new = h_new * m[..., None], c_new * m[..., None]
+        _ref._scatter_rows_(h_store, r, h_new)
+        _ref._scatter_rows_(c_store, r, c_new)
+        outs.append(h_new)
+    return torch.stack(outs, dim=1), h_store, c_store
 
-    idx/eidx (B, T, n, k) int32, coef (B, T, n, k), x (B, T, n, din),
-    rowg (B, T, n) int32 (G drops), mask (B, T, n), h0/c0 (B, G, H),
-    wx (din, 4H), wh (H, 4H), b (4H,), emsg (B, T, e, din) or None; all
-    float tensors float32, H a multiple of 4. Returns (outs (B, T, n, H), hT, cT)."""
-    name = "gcrn_engine"
-    if _device_kind(name, x) == "cpu":
-        return gcrn_plain(idx, coef, eidx, x, rowg, mask, h0, c0, wx, wh, b,
-                          emsg)
+
+def _gcrn_cuda(name, ring, idx, coef, eidx, x, rowg, mask, h0, c0, wx, wh,
+               b, emsg):
+    """Check CUDA tensors and launch the GCRN kernel ``name`` (``ring``: ()
+    resident, (td, depth) paged)."""
     B, T, n, k = idx.shape
     din, (G, H) = x.shape[-1], h0.shape[1:]
     f32, i32 = torch.float32, torch.int32
@@ -261,8 +423,6 @@ def gcrn_engine(idx, coef, eidx, x, rowg, mask, h0, c0, wx, wh, b, emsg=None):
         raise ValueError(f"{name}: H={H} must be a multiple of 4 (the "
                          "store rows move as float4)")
     lib = _library(name)
-    _check_smem(name, lib.gcrn_engine_smem_bytes(k, din, H),
-                f"k={k}, din={din}, H={H}")
     e = 0 if emsg is None else emsg.shape[2]
     outs = torch.empty((B, T, n, H), dtype=f32, device=x.device)
     hT, cT = h0.clone(), c0.clone()
@@ -272,8 +432,43 @@ def gcrn_engine(idx, coef, eidx, x, rowg, mask, h0, c0, wx, wh, b, emsg=None):
         _launch(name, lib, _ptr(idx), _ptr(coef), _ptr(eidx), _ptr(x),
                 _ptr(rowg), _ptr(mask), _ptr(wx), _ptr(wh), _ptr(b),
                 _ptr(emsg), _ptr(outs), _ptr(hT), _ptr(cT), _ptr(h_rows),
-                _ptr(c_rows), B, T, n, k, din, H, G, e, _stream_ptr())
+                _ptr(c_rows), B, T, n, k, din, H, G, e, *ring, _stream_ptr())
     return outs, hT, cT
+
+
+def gcrn_engine(idx, coef, eidx, x, rowg, mask, h0, c0, wx, wh, b, emsg=None):
+    """GC-LSTM over B streams of T steps in one launch.
+
+    idx/eidx (B, T, n, k) int32, coef (B, T, n, k), x (B, T, n, din),
+    rowg (B, T, n) int32 (G drops), mask (B, T, n), h0/c0 (B, G, H),
+    wx (din, 4H), wh (H, 4H), b (4H,), emsg (B, T, e, din) or None; all
+    float tensors float32, H a multiple of 4. Returns (outs (B, T, n, H), hT, cT)."""
+    name = "gcrn_engine"
+    _check_budget("gcrn", "vmem", None, smem_bytes(
+        name, k=idx.shape[-1], din=x.shape[-1], H=h0.shape[-1]))
+    if _device_kind(name, x) == "cpu":
+        return gcrn_plain(idx, coef, eidx, x, rowg, mask, h0, c0, wx, wh, b,
+                          emsg)
+    return _gcrn_cuda(name, (), idx, coef, eidx, x, rowg, mask, h0, c0, wx,
+                      wh, b, emsg)
+
+
+def gcrn_engine_paged(idx, coef, eidx, x, rowg, mask, h0, c0, wx, wh, b,
+                      emsg=None, *, td: int, depth: int = 2):
+    """``gcrn_engine`` with its t-1 state paged (hbm_paged): the step's
+    gathered rows reach the tile pass through a ``depth``-deep ring of
+    td-wide column windows. Same arguments and results, bit-identical on
+    the card."""
+    name = "gcrn_engine_paged"
+    _check_ring(name, td, depth)
+    _check_budget("gcrn", "hbm_paged", td, smem_bytes(
+        name, k=idx.shape[-1], din=x.shape[-1], H=h0.shape[-1],
+        n=idx.shape[2], td=td, depth=depth))
+    if _device_kind(name, x) == "cpu":
+        return gcrn_paged_plain(idx, coef, eidx, x, rowg, mask, h0, c0, wx,
+                                wh, b, emsg, td=td, depth=depth)
+    return _gcrn_cuda(name, (td, depth), idx, coef, eidx, x, rowg, mask, h0,
+                      c0, wx, wh, b, emsg)
 
 
 # ----------------------------------------------------------- evolve ----
@@ -289,18 +484,46 @@ def evolve_plain(idx, coef, x, mask, live, w0, bg, gwx, gwh, gb, eagg=None):
     return outs, torch.stack(wT, dim=1)
 
 
-def evolve_engine(idx, coef, x, mask, live, w0, bg, gwx, gwh, gb, eagg=None):
-    """L-layer GCN with matrix-GRU-evolved weights over B streams of T
-    steps in one launch.
+def evolve_paged_plain(idx, coef, x, mask, live, w0, bg, gwx, gwh, gb,
+                       eagg=None, *, td, depth):
+    """The paged EvolveGCN kernel's function in plain PyTorch, on the packed
+    inputs of ``evolve_plain``: W_l is read in (D, td) column windows, in
+    the ring's order; the GCN product's output columns of a window come
+    from that window alone, and the matrix-GRU evolves each window's
+    columns on their own (its batch is W's columns)."""
+    _check_ring("evolve_engine_paged", td, depth)
+    T, L, D = idx.shape[1], w0.shape[1], w0.shape[2]
+    w = w0.clone()
+    wins = _windows(D, td)
+    outs = []
+    for t in range(T):
+        a = x[:, t]
+        m = mask[:, t][..., None]
+        for l in range(L):
+            agg = (_ref._take_rows(a, idx[:, t])
+                   * coef[:, t][..., None]).sum(dim=-2)
+            if eagg is not None:
+                agg = agg + eagg[:, t, l]
+            h = torch.cat([agg @ w[:, l, :, s] + bg[l, s] for s in wins],
+                          dim=-1)
+            if l < L - 1:
+                h = torch.relu(h)
+            a = h * m
+        outs.append(a)
+        on = (live[:, t] > 0)[:, None, None]
+        for l in range(L):
+            new = torch.cat([
+                _ref.fused_gru(w[:, l, :, s].transpose(1, 2),
+                               w[:, l, :, s].transpose(1, 2), gwx[l], gwh[l],
+                               gb[l]).transpose(1, 2) for s in wins], dim=-1)
+            w[:, l] = torch.where(on, new, w[:, l])
+    return torch.stack(outs, dim=1), w
 
-    idx (B, T, n, k) int32, coef (B, T, n, k), x (B, T, n, D),
-    mask (B, T, n), live (B, T) int32, w0 (B, L, D, D), bg (L, D),
-    gwx/gwh (L, D, 3D), gb (L, 3D), eagg (B, T, L, n, D) or None; D a
-    multiple of ``ROW_ALIGN``. Returns (outs (B, T, n, D), wT (B, L, D, D))."""
-    name = "evolve_engine"
-    if _device_kind(name, x) == "cpu":
-        return evolve_plain(idx, coef, x, mask, live, w0, bg, gwx, gwh, gb,
-                            eagg)
+
+def _evolve_cuda(name, ring, idx, coef, x, mask, live, w0, bg, gwx, gwh, gb,
+                 eagg):
+    """Check CUDA tensors and launch the EvolveGCN kernel ``name`` (``ring``:
+    () resident, (td, depth) paged)."""
     B, T, n, k = idx.shape
     L, D = w0.shape[1], w0.shape[2]
     f32, i32 = torch.float32, torch.int32
@@ -318,7 +541,6 @@ def evolve_engine(idx, coef, x, mask, live, w0, bg, gwx, gwh, gb, eagg=None):
     if D % ROW_ALIGN:
         raise ValueError(f"{name}: D={D} must be a multiple of {ROW_ALIGN}")
     lib = _library(name)
-    _check_smem(name, lib.evolve_engine_smem_bytes(k, D), f"k={k}, D={D}")
     outs = torch.empty((B, T, n, D), dtype=f32, device=x.device)
     wT = w0.clone()
     act = torch.empty((B, 2, n, D), dtype=f32, device=x.device)
@@ -326,8 +548,42 @@ def evolve_engine(idx, coef, x, mask, live, w0, bg, gwx, gwh, gb, eagg=None):
         _launch(name, lib, _ptr(idx), _ptr(coef), _ptr(x), _ptr(mask),
                 _ptr(live), _ptr(bg), _ptr(gwx), _ptr(gwh), _ptr(gb),
                 _ptr(eagg), _ptr(outs), _ptr(wT), _ptr(act), B, T, n, k, L,
-                D, _stream_ptr())
+                D, *ring, _stream_ptr())
     return outs, wT
+
+
+def evolve_engine(idx, coef, x, mask, live, w0, bg, gwx, gwh, gb, eagg=None):
+    """L-layer GCN with matrix-GRU-evolved weights over B streams of T
+    steps in one launch.
+
+    idx (B, T, n, k) int32, coef (B, T, n, k), x (B, T, n, D),
+    mask (B, T, n), live (B, T) int32, w0 (B, L, D, D), bg (L, D),
+    gwx/gwh (L, D, 3D), gb (L, 3D), eagg (B, T, L, n, D) or None; D a
+    multiple of ``ROW_ALIGN``. Returns (outs (B, T, n, D), wT (B, L, D, D))."""
+    name = "evolve_engine"
+    _check_budget("evolve", "vmem", None, smem_bytes(
+        name, k=idx.shape[-1], D=w0.shape[2]))
+    if _device_kind(name, x) == "cpu":
+        return evolve_plain(idx, coef, x, mask, live, w0, bg, gwx, gwh, gb,
+                            eagg)
+    return _evolve_cuda(name, (), idx, coef, x, mask, live, w0, bg, gwx, gwh,
+                        gb, eagg)
+
+
+def evolve_engine_paged(idx, coef, x, mask, live, w0, bg, gwx, gwh, gb,
+                        eagg=None, *, td: int, depth: int = 2):
+    """``evolve_engine`` with W paged (hbm_paged): each W_l moves through a
+    ``depth``-deep ring of (D, td) column windows and no D x D buffer sits in
+    shared memory. Same arguments and results, bit-identical on the card."""
+    name = "evolve_engine_paged"
+    _check_ring(name, td, depth)
+    _check_budget("evolve", "hbm_paged", td, smem_bytes(
+        name, k=idx.shape[-1], D=w0.shape[2], td=td, depth=depth))
+    if _device_kind(name, x) == "cpu":
+        return evolve_paged_plain(idx, coef, x, mask, live, w0, bg, gwx, gwh,
+                                  gb, eagg, td=td, depth=depth)
+    return _evolve_cuda(name, (td, depth), idx, coef, x, mask, live, w0, bg,
+                        gwx, gwh, gb, eagg)
 
 
 # ---------------------------------------------------------- stacked ----
@@ -341,20 +597,21 @@ def stacked_plain(idx, coef, eidx, x, rowg, mask, h0, wg, bg, wx, wh, b,
                                            wg, bg, wx, wh, b, emsg)
 
 
-def stacked_engine(idx, coef, eidx, x, rowg, mask, h0, wg, bg, wx, wh, b,
-                   emsg=None):
-    """The last GCN layer and the GRU over B streams of T steps in one
-    launch.
+def stacked_paged_plain(idx, coef, eidx, x, rowg, mask, h0, wg, bg, wx, wh,
+                        b, emsg=None, *, td, depth):
+    """The paged stacked kernel's function in plain PyTorch: the paged
+    kernel stages only each tile's own t-1 rows, window by window, which
+    moves no value, so this is ``stacked_plain`` (``td`` and ``depth``
+    checked as the kernel's)."""
+    _check_ring("stacked_engine_paged", td, depth)
+    return stacked_plain(idx, coef, eidx, x, rowg, mask, h0, wg, bg, wx, wh,
+                         b, emsg)
 
-    idx/eidx (B, T, n, k) int32, coef (B, T, n, k), x (B, T, n, din) (the
-    last layer's input), rowg (B, T, n) int32 (G drops), mask (B, T, n),
-    h0 (B, G, H), wg (din, dmid), bg (dmid,), wx (dmid, 3H), wh (H, 3H),
-    b (3H,), emsg (B, T, e, din) or None; all float tensors float32, H a
-    multiple of 4. Returns (outs (B, T, n, H), hT (B, G, H))."""
-    name = "stacked_engine"
-    if _device_kind(name, x) == "cpu":
-        return stacked_plain(idx, coef, eidx, x, rowg, mask, h0, wg, bg, wx,
-                             wh, b, emsg)
+
+def _stacked_cuda(name, ring, idx, coef, eidx, x, rowg, mask, h0, wg, bg, wx,
+                  wh, b, emsg):
+    """Check CUDA tensors and launch the stacked kernel ``name`` (``ring``:
+    () resident, (td, depth) paged)."""
     B, T, n, k = idx.shape
     din, dmid, (G, H) = x.shape[-1], wg.shape[-1], h0.shape[1:]
     f32, i32 = torch.float32, torch.int32
@@ -379,8 +636,6 @@ def stacked_engine(idx, coef, eidx, x, rowg, mask, h0, wg, bg, wx, wh, b,
         raise ValueError(f"{name}: H={H} must be a multiple of 4 (the "
                          "store rows move as float4)")
     lib = _library(name)
-    _check_smem(name, lib.stacked_engine_smem_bytes(k, din, dmid, H),
-                f"k={k}, din={din}, dmid={dmid}, H={H}")
     e = 0 if emsg is None else emsg.shape[2]
     outs = torch.empty((B, T, n, H), dtype=f32, device=x.device)
     hT = h0.clone()
@@ -389,8 +644,47 @@ def stacked_engine(idx, coef, eidx, x, rowg, mask, h0, wg, bg, wx, wh, b,
         _launch(name, lib, _ptr(idx), _ptr(coef), _ptr(eidx), _ptr(x),
                 _ptr(rowg), _ptr(mask), _ptr(wg), _ptr(bg), _ptr(wx),
                 _ptr(wh), _ptr(b), _ptr(emsg), _ptr(outs), _ptr(hT),
-                _ptr(h_rows), B, T, n, k, din, dmid, H, G, e, _stream_ptr())
+                _ptr(h_rows), B, T, n, k, din, dmid, H, G, e, *ring,
+                _stream_ptr())
     return outs, hT
+
+
+def stacked_engine(idx, coef, eidx, x, rowg, mask, h0, wg, bg, wx, wh, b,
+                   emsg=None):
+    """The last GCN layer and the GRU over B streams of T steps in one
+    launch.
+
+    idx/eidx (B, T, n, k) int32, coef (B, T, n, k), x (B, T, n, din) (the
+    last layer's input), rowg (B, T, n) int32 (G drops), mask (B, T, n),
+    h0 (B, G, H), wg (din, dmid), bg (dmid,), wx (dmid, 3H), wh (H, 3H),
+    b (3H,), emsg (B, T, e, din) or None; all float tensors float32, H a
+    multiple of 4. Returns (outs (B, T, n, H), hT (B, G, H))."""
+    name = "stacked_engine"
+    _check_budget("stacked", "vmem", None, smem_bytes(
+        name, k=idx.shape[-1], din=x.shape[-1], dmid=wg.shape[-1],
+        H=h0.shape[-1]))
+    if _device_kind(name, x) == "cpu":
+        return stacked_plain(idx, coef, eidx, x, rowg, mask, h0, wg, bg, wx,
+                             wh, b, emsg)
+    return _stacked_cuda(name, (), idx, coef, eidx, x, rowg, mask, h0, wg,
+                         bg, wx, wh, b, emsg)
+
+
+def stacked_engine_paged(idx, coef, eidx, x, rowg, mask, h0, wg, bg, wx, wh,
+                         b, emsg=None, *, td: int, depth: int = 2):
+    """``stacked_engine`` with its t-1 state paged (hbm_paged): a tile's own
+    rows reach it through a ``depth``-deep ring of td-wide column windows.
+    Same arguments and results, bit-identical on the card."""
+    name = "stacked_engine_paged"
+    _check_ring(name, td, depth)
+    _check_budget("stacked", "hbm_paged", td, smem_bytes(
+        name, k=idx.shape[-1], din=x.shape[-1], dmid=wg.shape[-1],
+        H=h0.shape[-1], td=td, depth=depth))
+    if _device_kind(name, x) == "cpu":
+        return stacked_paged_plain(idx, coef, eidx, x, rowg, mask, h0, wg,
+                                   bg, wx, wh, b, emsg, td=td, depth=depth)
+    return _stacked_cuda(name, (td, depth), idx, coef, eidx, x, rowg, mask,
+                         h0, wg, bg, wx, wh, b, emsg)
 
 
 # -------------------------------------------------------------- tgn ----
@@ -418,6 +712,76 @@ def tgn_plain(gidx, coef, ts, x, rowg, mask, mem0, freq, w_in, wx, wh, b):
     return torch.stack(outs, dim=1), store
 
 
+def tgn_paged_plain(idx, coef, ts, x, rowg, mask, mem0, freq, w_in, wx, wh,
+                    b, *, td, depth):
+    """The paged TGN kernel's function in plain PyTorch, on the packed
+    inputs of ``tgn_engine_paged`` (partners by their local id ``idx``):
+    each batch gathers its touched rows' t-1 memory, then aggregates its
+    partners' rows from it window by window, td columns at a time, in the
+    ring's order (the own rows are read as they are). This is
+    kernels/ref.py tgn_stream_batched_ref walked by windows."""
+    _check_ring("tgn_engine_paged", td, depth)
+    G, H = mem0.shape[1:]
+    ren = torch.where(rowg < G, rowg, -1)
+    store = mem0.clone()
+    wins = _windows(H, td)
+    outs = []
+    for t in range(idx.shape[1]):
+        r, m = ren[:, t], mask[:, t]
+        c = coef[:, t][..., None]
+        rows = _ref._gather_rows(store, r, m)
+        agg_m = torch.cat([(_ref._take_rows(rows[..., w], idx[:, t]) * c)
+                           .sum(dim=-2) for w in wins], dim=-1)
+        agg_e = (torch.cos(ts[:, t][..., None] * freq) * c).sum(dim=-2)
+        inp = x[:, t] @ w_in + agg_m + agg_e
+        m_new = _ref.fused_gru(inp, rows, wx, wh, b) * m[..., None]
+        _ref._scatter_rows_(store, r, m_new)
+        outs.append(m_new)
+    return torch.stack(outs, dim=1), store
+
+
+def _tgn_cuda(name, ring, lane, coef, ts, x, rowg, mask, mem0, freq, w_in,
+              wx, wh, b):
+    """Check CUDA tensors and launch the TGN kernel ``name`` (``ring``: ()
+    resident with ``lane`` the partners' global rows, (td, depth) paged
+    with ``lane`` their local ids)."""
+    B, T, n, k = lane.shape
+    din, (G, H) = x.shape[-1], mem0.shape[1:]
+    f32, i32 = torch.float32, torch.int32
+    _check(name, x.device, **{"idx" if ring else "gidx": (lane, i32)},
+           coef=(coef, f32), ts=(ts, f32),
+           x=(x, f32), rowg=(rowg, i32), mask=(mask, f32), mem0=(mem0, f32),
+           freq=(freq, f32), w_in=(w_in, f32), wx=(wx, f32), wh=(wh, f32),
+           b=(b, f32))
+    if (coef.shape != lane.shape or ts.shape != lane.shape
+            or x.shape[:3] != (B, T, n) or rowg.shape != (B, T, n)
+            or mask.shape != (B, T, n) or mem0.shape != (B, G, H)
+            or freq.shape != (H,) or w_in.shape != (din, H)
+            or wx.shape != (H, 3 * H) or wh.shape != (H, 3 * H)
+            or b.shape != (3 * H,)):
+        raise ValueError(f"{name}: inconsistent shapes")
+    if ring:
+        _check_index(name, "idx", lane, n)
+    else:
+        _check_index(name, "gidx", lane, G)
+    _check_index(name, "rowg", rowg, G + 1)
+    if H % 4:
+        raise ValueError(f"{name}: H={H} must be a multiple of 4 (the "
+                         "store rows move as float4)")
+    lib = _library(name)
+    outs = torch.empty((B, T, n, H), dtype=f32, device=x.device)
+    memT = mem0.clone()
+    scratch = (torch.empty((B, n, H), dtype=f32, device=x.device),) if ring \
+        else ()
+    with torch.cuda.device(x.device):
+        _launch(name, lib, _ptr(lane), _ptr(coef), _ptr(ts), _ptr(x),
+                _ptr(rowg), _ptr(mask), _ptr(freq), _ptr(w_in), _ptr(wx),
+                _ptr(wh), _ptr(b), _ptr(outs), _ptr(memT),
+                *(_ptr(t) for t in scratch), B, T, n, k, din, H, G, *ring,
+                _stream_ptr())
+    return outs, memT
+
+
 def tgn_engine(gidx, coef, ts, x, rowg, mask, mem0, freq, w_in, wx, wh, b):
     """TGN node memory over B streams of T event batches in one launch.
 
@@ -427,39 +791,33 @@ def tgn_engine(gidx, coef, ts, x, rowg, mask, mem0, freq, w_in, wx, wh, b):
     freq (H,), w_in (din, H), wx/wh (H, 3H), b (3H,); all float tensors
     float32, H a multiple of 4. Returns (outs (B, T, n, H), memT (B, G, H))."""
     name = "tgn_engine"
+    _check_budget("tgn", "vmem", None, smem_bytes(
+        name, k=gidx.shape[-1], din=x.shape[-1], H=mem0.shape[-1]))
     if _device_kind(name, x) == "cpu":
         return tgn_plain(gidx, coef, ts, x, rowg, mask, mem0, freq, w_in, wx,
                          wh, b)
-    B, T, n, k = gidx.shape
-    din, (G, H) = x.shape[-1], mem0.shape[1:]
-    f32, i32 = torch.float32, torch.int32
-    _check(name, x.device, gidx=(gidx, i32), coef=(coef, f32), ts=(ts, f32),
-           x=(x, f32), rowg=(rowg, i32), mask=(mask, f32), mem0=(mem0, f32),
-           freq=(freq, f32), w_in=(w_in, f32), wx=(wx, f32), wh=(wh, f32),
-           b=(b, f32))
-    if (coef.shape != gidx.shape or ts.shape != gidx.shape
-            or x.shape[:3] != (B, T, n) or rowg.shape != (B, T, n)
-            or mask.shape != (B, T, n) or mem0.shape != (B, G, H)
-            or freq.shape != (H,) or w_in.shape != (din, H)
-            or wx.shape != (H, 3 * H) or wh.shape != (H, 3 * H)
-            or b.shape != (3 * H,)):
-        raise ValueError(f"{name}: inconsistent shapes")
-    _check_index(name, "gidx", gidx, G)
-    _check_index(name, "rowg", rowg, G + 1)
-    if H % 4:
-        raise ValueError(f"{name}: H={H} must be a multiple of 4 (the "
-                         "store rows move as float4)")
-    lib = _library(name)
-    _check_smem(name, lib.tgn_engine_smem_bytes(k, din, H),
-                f"k={k}, din={din}, H={H}")
-    outs = torch.empty((B, T, n, H), dtype=f32, device=x.device)
-    memT = mem0.clone()
-    with torch.cuda.device(x.device):
-        _launch(name, lib, _ptr(gidx), _ptr(coef), _ptr(ts), _ptr(x),
-                _ptr(rowg), _ptr(mask), _ptr(freq), _ptr(w_in), _ptr(wx),
-                _ptr(wh), _ptr(b), _ptr(outs), _ptr(memT), B, T, n, k, din,
-                H, G, _stream_ptr())
-    return outs, memT
+    return _tgn_cuda(name, (), gidx, coef, ts, x, rowg, mask, mem0, freq,
+                     w_in, wx, wh, b)
+
+
+def tgn_engine_paged(idx, coef, ts, x, rowg, mask, mem0, freq, w_in, wx, wh,
+                     b, *, td: int, depth: int = 2):
+    """``tgn_engine`` with its memory paged (hbm_paged): each batch gathers
+    its touched rows, and partners (by their local id ``idx`` (B, T, n, k)
+    int32, in place of ``gidx``) and own rows reach the tile pass through a
+    ``depth``-deep ring of td-wide column windows. Otherwise the arguments
+    and results of ``tgn_engine``, bit-identical on the card under the
+    event contract."""
+    name = "tgn_engine_paged"
+    _check_ring(name, td, depth)
+    _check_budget("tgn", "hbm_paged", td, smem_bytes(
+        name, k=idx.shape[-1], din=x.shape[-1], H=mem0.shape[-1],
+        n=idx.shape[2], td=td, depth=depth))
+    if _device_kind(name, x) == "cpu":
+        return tgn_paged_plain(idx, coef, ts, x, rowg, mask, mem0, freq,
+                               w_in, wx, wh, b, td=td, depth=depth)
+    return _tgn_cuda(name, (td, depth), idx, coef, ts, x, rowg, mask, mem0,
+                     freq, w_in, wx, wh, b)
 
 
 # ----------------------------------------------------------- static ----
@@ -544,8 +902,8 @@ def launch(p: Prepared):
 
 def prepare(name: str, *args, **kwargs) -> Prepared:
     """Check, allocate and marshal one launch of the per-step kernel
-    ``name`` ("gcrn_step", "stacked_step" or "ell_spmm") on CUDA tensors,
-    with that wrapper's arguments."""
+    ``name`` ("gcrn_step", "stacked_step", "ell_spmm", "fused_gru" or
+    "fused_lstm") on CUDA tensors, with that wrapper's arguments."""
     return _PREPARE[name](*args, **kwargs)
 
 
@@ -694,6 +1052,94 @@ def _prepare_ell_spmm(idx, coef, eidx, x, emsg=None) -> Prepared:
     return Prepared(name, lib, args, out, (idx, coef, eidx, x, emsg))
 
 
+
+# ------------------------------------------------------ fused RNN cells ----
+# Per-call kernels like the V2 steps: ``prepare("fused_gru", ...)`` /
+# ``launch`` split them for timing bare launches.
+
+def _check_tb(name: str, Bs: int, tb) -> None:
+    """The TPU kernel's row tile: a positive divisor of the batch."""
+    if not (isinstance(tb, int) and tb > 0 and Bs % tb == 0):
+        raise ValueError(f"{name}: batch {Bs} is not a multiple of the row "
+                         f"tile tb={tb!r}")
+
+
+def fused_gru_plain(x, h, wx, wh, b):
+    """The GRU cell kernel's function in plain PyTorch."""
+    return _ref.fused_gru(x, h, wx, wh, b)
+
+
+def fused_gru(x, h, wx, wh, b, *, tb: int = 128):
+    """GRU cell over Bs rows, one CTA per tb-row tile: gx = x @ wx + b,
+    gh = h @ wh (r | z | n), h' = (1 - z) n + z h.
+
+    x (Bs, din), h (Bs, H), wx (din, 3H), wh (H, 3H), b (3H,), float32;
+    Bs a multiple of tb. Returns h' (Bs, H)."""
+    _check_tb("fused_gru", x.shape[0], tb)
+    if _device_kind("fused_gru", x) == "cpu":
+        return fused_gru_plain(x, h, wx, wh, b)
+    return launch(_prepare_fused_gru(x, h, wx, wh, b, tb=tb))
+
+
+def _prepare_fused_gru(x, h, wx, wh, b, *, tb: int = 128) -> Prepared:
+    name = "fused_gru"
+    (Bs, din), H = x.shape, h.shape[-1]
+    _check_tb(name, Bs, tb)
+    f32 = torch.float32
+    _check(name, x.device, x=(x, f32), h=(h, f32), wx=(wx, f32),
+           wh=(wh, f32), b=(b, f32))
+    if (h.shape != (Bs, H) or wx.shape != (din, 3 * H)
+            or wh.shape != (H, 3 * H) or b.shape != (3 * H,)):
+        raise ValueError(f"{name}: inconsistent shapes")
+    lib = _library(name)
+    _check_smem(name, smem_bytes(name, din=din, H=H), f"din={din}, H={H}")
+    out = torch.empty((Bs, H), dtype=f32, device=x.device)
+    with torch.cuda.device(x.device):
+        args = (_ptr(x), _ptr(h), _ptr(wx), _ptr(wh), _ptr(b), _ptr(out), Bs,
+                din, H, tb, _stream_ptr())
+    return Prepared(name, lib, args, out, (x, h, wx, wh, b))
+
+
+def fused_lstm_plain(x, h, c, wx, wh, b):
+    """The LSTM cell kernel's function in plain PyTorch."""
+    return _ref.fused_lstm(x, h, c, wx, wh, b)
+
+
+def fused_lstm(x, h, c, wx, wh, b, *, tb: int = 128):
+    """LSTM cell over Bs rows, one CTA per tb-row tile: gates = x @ wx +
+    h @ wh + b (i | f | g | o), c' = sig(f) c + sig(i) tanh(g),
+    h' = sig(o) tanh(c').
+
+    x (Bs, din), h/c (Bs, H), wx (din, 4H), wh (H, 4H), b (4H,), float32;
+    Bs a multiple of tb. Returns (h', c'), each (Bs, H)."""
+    _check_tb("fused_lstm", x.shape[0], tb)
+    if _device_kind("fused_lstm", x) == "cpu":
+        return fused_lstm_plain(x, h, c, wx, wh, b)
+    return launch(_prepare_fused_lstm(x, h, c, wx, wh, b, tb=tb))
+
+
+def _prepare_fused_lstm(x, h, c, wx, wh, b, *, tb: int = 128) -> Prepared:
+    name = "fused_lstm"
+    (Bs, din), H = x.shape, h.shape[-1]
+    _check_tb(name, Bs, tb)
+    f32 = torch.float32
+    _check(name, x.device, x=(x, f32), h=(h, f32), c=(c, f32), wx=(wx, f32),
+           wh=(wh, f32), b=(b, f32))
+    if (h.shape != (Bs, H) or c.shape != (Bs, H) or wx.shape != (din, 4 * H)
+            or wh.shape != (H, 4 * H) or b.shape != (4 * H,)):
+        raise ValueError(f"{name}: inconsistent shapes")
+    lib = _library(name)
+    _check_smem(name, smem_bytes(name, din=din, H=H), f"din={din}, H={H}")
+    h_out = torch.empty((Bs, H), dtype=f32, device=x.device)
+    c_out = torch.empty_like(h_out)
+    with torch.cuda.device(x.device):
+        args = (_ptr(x), _ptr(h), _ptr(c), _ptr(wx), _ptr(wh), _ptr(b),
+                _ptr(h_out), _ptr(c_out), Bs, din, H, tb, _stream_ptr())
+    return Prepared(name, lib, args, (h_out, c_out), (x, h, c, wx, wh, b))
+
+
 _PREPARE = {"gcrn_step": _prepare_gcrn_step,
             "stacked_step": _prepare_stacked_step,
-            "ell_spmm": _prepare_ell_spmm}
+            "ell_spmm": _prepare_ell_spmm,
+            "fused_gru": _prepare_fused_gru,
+            "fused_lstm": _prepare_fused_lstm}

@@ -3,9 +3,13 @@
 Per-step ops (levels baseline / o1 / v1 / v2): ``ell_spmm`` (the
 message-passing stage of ``impl="pallas"``), ``dgnn_fused_step`` (GCRN V2)
 and ``stacked_fused_step`` (stacked V2), each with the JAX package's
-signature. Stream engine (level v3): one pair of entry points,
-``stream_steps`` / ``stream_steps_batched``, dispatched by family name as
-in the JAX package. This layer owns what surrounds the kernels: moving the
+signature; the fused RNN cells ``fused_gru`` / ``fused_lstm``. Stream
+engine (level v3): one pair of entry points, ``stream_steps`` /
+``stream_steps_batched``, dispatched by family name as in the JAX package,
+with the state resident (``state_residency="vmem"``) or paged
+(``"hbm_paged"``: the family's paged engine, its t-1 state staged through a
+``buffer_depth``-deep ring of td-wide windows, bit-identical results).
+This layer owns what surrounds the kernels: moving the
 arguments to the device, the global-row table, the evolve pack/unpack
 (``pack`` builds a stream kernel wrapper's inputs), ragged ``lengths``, and
 the force-ref gate. Under ``force_ref=True`` the plain oracle
@@ -32,7 +36,8 @@ _TEMPORAL = {"gcrn": "dense", "stacked": "dense", "evolve": "dense",
              "tgn": "event", "static_gcn": "static"}
 
 RESIDENCY_MODES = ("vmem", "hbm_paged")
-BUFFER_DEPTHS = (1, 2, 4)
+#: the paging ring's depths (the paged engines' ``RING_DEPTHS``)
+BUFFER_DEPTHS = _engine.RING_DEPTHS
 
 
 def stream_families() -> tuple:
@@ -163,6 +168,32 @@ def stacked_fused_step(neigh_idx, neigh_coef, neigh_eidx, x, h, w_gcn, b_gcn,
         _contig(edge_msg))
 
 
+def fused_gru(x, h, wx, wh, b, *, tb: int = 128, force_ref: bool = False,
+              device="cuda"):
+    """GRU cell: gx = x @ wx + b, gh = h @ wh (r | z | n gates),
+    h' = (1 - z) n + z h, on ``device``; x (Bs, din), h (Bs, H), Bs a
+    multiple of the row tile ``tb`` (one CTA a tile)."""
+    x, h, wx, wh, b = to_device((x, h, wx, wh, b), resolve_device(device))
+    if force_ref:
+        return _ref.fused_gru(x, h, wx, wh, b)
+    return _engine.fused_gru(x.contiguous(), h.contiguous(), wx.contiguous(),
+                             wh.contiguous(), b.contiguous(), tb=tb)
+
+
+def fused_lstm(x, h, c, wx, wh, b, *, tb: int = 128, force_ref: bool = False,
+               device="cuda"):
+    """LSTM cell: gates = x @ wx + h @ wh + b (i | f | g | o),
+    c' = sig(f) c + sig(i) tanh(g), h' = sig(o) tanh(c'), on ``device``.
+    Returns (h', c')."""
+    x, h, c, wx, wh, b = to_device((x, h, c, wx, wh, b),
+                                   resolve_device(device))
+    if force_ref:
+        return _ref.fused_lstm(x, h, c, wx, wh, b)
+    return _engine.fused_lstm(x.contiguous(), h.contiguous(), c.contiguous(),
+                              wx.contiguous(), wh.contiguous(),
+                              b.contiguous(), tb=tb)
+
+
 # ------------------------------------------------------------- stream ----
 
 def _gcrn_pack(neigh_idx, neigh_coef, neigh_eidx, node_feat, renumber,
@@ -232,40 +263,51 @@ def _evolve_pack(neigh_idx, neigh_coef, node_feat, node_mask, live, weights,
             torch.stack(gwh).contiguous(), torch.stack(gb).contiguous(), eagg)
 
 
+def _engine_call(family: str, packed: tuple, ring):
+    """The family's kernel wrapper on packed inputs: the resident engine
+    (``ring`` None) or the paged one (``ring`` = (td, depth))."""
+    if ring is None:
+        return getattr(_engine, f"{family}_engine")(*packed)
+    td, depth = ring
+    return getattr(_engine, f"{family}_engine_paged")(*packed, td=td,
+                                                      depth=depth)
+
+
 def _gcrn_launch(batched, neigh_idx, neigh_coef, neigh_eidx, node_feat,
-                 renumber, node_mask, h0, c0, wx, wh, b, edge_msg=None):
+                 renumber, node_mask, h0, c0, wx, wh, b, edge_msg=None, *,
+                 ring=None):
     """Pack + kernel wrapper for the integrated (GC-LSTM) family."""
     if not batched:
         em = None if edge_msg is None else edge_msg[None]
         outs, hT, cT = _gcrn_launch(
             True, neigh_idx[None], neigh_coef[None], neigh_eidx[None],
             node_feat[None], renumber[None], node_mask[None], h0[None],
-            c0[None], wx, wh, b, em)
+            c0[None], wx, wh, b, em, ring=ring)
         return outs[0], hT[0], cT[0]
-    return _engine.gcrn_engine(*_gcrn_pack(
+    return _engine_call("gcrn", _gcrn_pack(
         neigh_idx, neigh_coef, neigh_eidx, node_feat, renumber, node_mask,
-        h0, c0, wx, wh, b, edge_msg))
+        h0, c0, wx, wh, b, edge_msg), ring)
 
 
 def _stacked_launch(batched, neigh_idx, neigh_coef, neigh_eidx, node_feat,
                     renumber, node_mask, h0, w_gcn, b_gcn, wx, wh, b,
-                    edge_msg=None):
+                    edge_msg=None, *, ring=None):
     """Pack + kernel wrapper for the stacked (GCN -> GRU) family."""
     if not batched:
         em = None if edge_msg is None else edge_msg[None]
         outs, hT = _stacked_launch(
             True, neigh_idx[None], neigh_coef[None], neigh_eidx[None],
             node_feat[None], renumber[None], node_mask[None], h0[None],
-            w_gcn, b_gcn, wx, wh, b, em)
+            w_gcn, b_gcn, wx, wh, b, em, ring=ring)
         return outs[0], hT[0]
-    return _engine.stacked_engine(*_stacked_pack(
+    return _engine_call("stacked", _stacked_pack(
         neigh_idx, neigh_coef, neigh_eidx, node_feat, renumber, node_mask,
-        h0, w_gcn, b_gcn, wx, wh, b, edge_msg))
+        h0, w_gcn, b_gcn, wx, wh, b, edge_msg), ring)
 
 
 def _evolve_launch(batched, neigh_idx, neigh_coef, node_feat, node_mask,
                    live, weights, b_gcn, gru_wx, gru_wh, gru_b,
-                   edge_aggs=None):
+                   edge_aggs=None, *, ring=None):
     """Pack + kernel wrapper for the weights-evolved family; returns
     outputs and per-layer weights sliced back to their true shapes."""
     if not batched:
@@ -273,11 +315,11 @@ def _evolve_launch(batched, neigh_idx, neigh_coef, node_feat, node_mask,
         outs, wT = _evolve_launch(
             True, neigh_idx[None], neigh_coef[None], node_feat[None],
             node_mask[None], live[None], [w[None] for w in weights], b_gcn,
-            gru_wx, gru_wh, gru_b, ea)
+            gru_wx, gru_wh, gru_b, ea, ring=ring)
         return outs[0], tuple(w[0] for w in wT)
-    outs, wT = _engine.evolve_engine(*_evolve_pack(
+    outs, wT = _engine_call("evolve", _evolve_pack(
         neigh_idx, neigh_coef, node_feat, node_mask, live, weights, b_gcn,
-        gru_wx, gru_wh, gru_b, edge_aggs))
+        gru_wx, gru_wh, gru_b, edge_aggs), ring)
     dims = [w.shape[-2:] for w in weights]
     weights_T = tuple(wT[:, i, :di, :do] for i, (di, do) in enumerate(dims))
     return outs[..., :dims[-1][1]], weights_T
@@ -306,11 +348,18 @@ def _partner_rows(renumber, neigh_idx):
 
 
 def _tgn_pack(neigh_idx, neigh_coef, neigh_ts, node_feat, renumber,
-              node_mask, mem0, freq, w_in, wx, wh, b):
+              node_mask, mem0, freq, w_in, wx, wh, b, *, paged=False):
     """The TGN kernel wrapper's inputs: each lane's partner as a global row
-    (the kernel reads partners straight from the memory store, as the
-    Pallas cell does), the own-row table, float32 timestamps."""
-    return (_partner_rows(renumber, neigh_idx), neigh_coef.contiguous(),
+    (the resident kernel reads partners straight from the memory store, as
+    the Pallas cell does) or, ``paged``, as its local id (the paged kernel
+    reads them from the batch's gathered rows, through the ring); the
+    own-row table, float32 timestamps."""
+    if paged:
+        _check_local_ids(neigh_idx, neigh_idx.shape[-2])
+        lanes = _i32(neigh_idx)
+    else:
+        lanes = _partner_rows(renumber, neigh_idx)
+    return (lanes, neigh_coef.contiguous(),
             neigh_ts.to(torch.float32).contiguous(), node_feat.contiguous(),
             _row_index_table(renumber, mem0.shape[1]),
             node_mask.contiguous(), mem0.contiguous(), freq.contiguous(),
@@ -319,7 +368,8 @@ def _tgn_pack(neigh_idx, neigh_coef, neigh_ts, node_feat, renumber,
 
 
 def _tgn_launch(batched, neigh_idx, neigh_coef, neigh_ts, node_feat,
-                renumber, node_mask, mem0, freq, w_in, wx, wh, b):
+                renumber, node_mask, mem0, freq, w_in, wx, wh, b, *,
+                ring=None):
     """Pack + kernel wrapper for the event-stream (TGN) family. The T axis
     sequences event batches (graph/events.pad_event_block); ``neigh_ts``
     carries each lane's timestamp in the slot the dense families use for
@@ -336,11 +386,11 @@ def _tgn_launch(batched, neigh_idx, neigh_coef, neigh_ts, node_feat,
         outs, memT = _tgn_launch(
             True, neigh_idx[None], neigh_coef[None], neigh_ts[None],
             node_feat[None], renumber[None], node_mask[None], mem0[None],
-            freq, w_in, wx, wh, b)
+            freq, w_in, wx, wh, b, ring=ring)
         return outs[0], memT[0]
-    return _engine.tgn_engine(*_tgn_pack(
+    return _engine_call("tgn", _tgn_pack(
         neigh_idx, neigh_coef, neigh_ts, node_feat, renumber, node_mask,
-        mem0, freq, w_in, wx, wh, b))
+        mem0, freq, w_in, wx, wh, b, paged=ring is not None), ring)
 
 
 def _static_pack(neigh_idx, neigh_coef, node_feat, node_mask, weights,
@@ -416,13 +466,15 @@ def _apply_lengths(family: str, args: tuple, lengths) -> tuple:
     return tuple(out)
 
 
-def pack(family: str, *args, lengths=None) -> tuple:
+def pack(family: str, *args, lengths=None, residency: str = "vmem") -> tuple:
     """The inputs that ``stream_steps_batched`` hands the family's kernel
-    wrapper (``engine.<family>_engine``) for the
-    same batched argument list (tensors already on their device), ragged
-    ``lengths`` applied."""
+    wrapper (``engine.<family>_engine``, or ``engine.<family>_engine_paged``
+    under ``residency="hbm_paged"``) for the same batched argument list
+    (tensors already on their device), ragged ``lengths`` applied."""
     if lengths is not None:
         args = _apply_lengths(family, args, lengths)
+    if family == "tgn":
+        return _tgn_pack(*args, paged=residency == "hbm_paged")
     return _STREAM_DISPATCH[family][2](*args)
 
 
@@ -435,15 +487,29 @@ def _stream_dispatch(family: str, batched: bool, args, kwargs, *, tn, td,
                                                 or depth is not None):
         raise ValueError(
             "static_gcn has no state to page; residency must be 'vmem'")
-    if residency != "vmem" or depth is not None:
-        raise NotImplementedError(
-            f"state_residency={residency!r}, buffer_depth={depth!r}: the "
-            "port keeps every store resident; hbm_paged is ROADMAP.md "
-            "queue 1 item 11")
-    # tn and td are TPU VMEM tiling knobs: the plan validates them, and the
-    # CUDA kernels compute the same function for any value (they take any
-    # node count and pad widths to their own micro-tile)
-    del tn, td
+    # the JAX stream_call's checks and messages
+    if residency not in RESIDENCY_MODES:
+        raise ValueError(
+            f"unknown state residency {residency!r}; expected one of "
+            f"{RESIDENCY_MODES}")
+    ring = None
+    if residency == "hbm_paged":
+        depth = 2 if depth is None else depth
+        if td is None:
+            raise ValueError(
+                "state_residency='hbm_paged' requires td blocking: td "
+                "is the (n_global, td) paging window the DMA ring "
+                "stages (td=None keeps the store fully VMEM-resident)")
+        if depth not in BUFFER_DEPTHS:
+            raise ValueError(
+                f"buffer_depth must be one of {BUFFER_DEPTHS}, "
+                f"got {depth}")
+        ring = (td, depth)
+    # tn, and td of a resident store, are TPU VMEM tiling knobs: the plan
+    # validates them, and the CUDA kernels compute the same function for
+    # any value (they take any node count and pad widths to their own
+    # micro-tile). A paged engine's td is its ring's window width.
+    del tn
     dev = resolve_device(device)
     args = to_device(tuple(args), dev)
     kwargs = {k: to_device(v, dev) for k, v in kwargs.items()}
@@ -453,6 +519,8 @@ def _stream_dispatch(family: str, batched: bool, args, kwargs, *, tn, td,
     if force_ref:
         # the one force-ref gate: no kernel wrapper is reachable from here
         return oracles[1 if batched else 0](*args, **kwargs)
+    if ring is not None:
+        kwargs["ring"] = ring
     return launch(batched, *args, **kwargs)
 
 
@@ -461,6 +529,10 @@ def stream_steps(family: str, *args, tn: int = 128, td=None,
                  force_ref: bool = False, device="cuda", **kwargs):
     """One stream of T snapshots through one launch of the family's stream
     engine, on ``device`` ("cuda" by default; "cpu" runs the plain path).
+    ``state_residency="hbm_paged"`` launches the family's paged engine: it
+    needs ``td`` (the ring's window width), and ``buffer_depth`` (1, 2 or 4;
+    None means 2) is the ring's depth. Static families have no state to
+    page.
 
     Family argument lists (the kernels/ref.py oracles' order):
       gcrn    (idx, coef, eidx, x, renumber, mask, h0, c0, wx, wh, b,

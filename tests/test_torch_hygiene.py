@@ -73,6 +73,17 @@ def test_kernel_wrappers_raise_instead_of_falling_back(no_cuda):
         engine.tgn_engine(*([meta] * 12))
     with pytest.raises(ValueError, match="not supported"):
         engine.static_engine(*([meta] * 6))
+    for name, n_args in (("gcrn_engine_paged", 11),
+                         ("evolve_engine_paged", 10),
+                         ("stacked_engine_paged", 12),
+                         ("tgn_engine_paged", 12)):
+        with pytest.raises(ValueError, match="not supported"):
+            getattr(engine, name)(*([meta] * n_args), td=8, depth=2)
+    meta2 = torch.zeros((8, 8), device="meta")
+    with pytest.raises(ValueError, match="not supported"):
+        engine.fused_gru(*([meta2] * 5), tb=8)
+    with pytest.raises(ValueError, match="not supported"):
+        engine.fused_lstm(*([meta2] * 6), tb=8)
     assert all(v == 0 for v in engine.LAUNCHES.values())
 
 
@@ -89,16 +100,33 @@ def test_event_and_static_entry_points_default_to_cuda_and_raise(no_cuda,
         api.run_arrays(api.plan(family=family, batch=2), *args)
 
 
-@pytest.mark.parametrize("name", ["tgn_engine", "static_engine"])
+def _cpu_call(name):
+    """One call of the kernel wrapper ``name`` on small CPU tensors."""
+    if name in ("fused_gru", "fused_lstm"):
+        z = lambda *s: torch.zeros(s)
+        g = 3 if name == "fused_gru" else 4
+        c = (z(16, 8),) if name == "fused_lstm" else ()
+        return getattr(engine, name)(z(16, 4), z(16, 8), *c, z(4, g * 8),
+                                     z(8, g * 8), z(g * 8), tb=8)
+    family = name.removesuffix("_paged").removesuffix("_engine")
+    family = "static_gcn" if family == "static" else family
+    args, _, _ = harness.stream_kernel_case(family, seed=1, B=2)
+    paged = name.endswith("_paged")
+    packed = ops.pack(family, *ops.to_device(tuple(args), "cpu"),
+                      residency="hbm_paged" if paged else "vmem")
+    ring = dict(td=8, depth=2) if paged else {}
+    return getattr(engine, name)(*packed, **ring)
+
+
+@pytest.mark.parametrize("name", [
+    "tgn_engine", "static_engine", "gcrn_engine_paged", "evolve_engine_paged",
+    "stacked_engine_paged", "tgn_engine_paged", "fused_gru", "fused_lstm"])
 def test_new_engine_wrappers_need_the_card_for_cuda_tensors(no_cuda, name):
-    """The CPU path of the tgn / static wrappers is their plain version,
-    only for CPU tensors; the kernel itself is only reachable with a card."""
-    args, _, _ = harness.stream_kernel_case(
-        "tgn" if name == "tgn_engine" else "static_gcn", seed=1, B=2)
-    family = "tgn" if name == "tgn_engine" else "static_gcn"
-    packed = ops.pack(family, *ops.to_device(tuple(args), "cpu"))
+    """The CPU path of the tgn / static, paged and RNN-cell wrappers is
+    their plain version, only for CPU tensors; the kernel itself is only
+    reachable with a card."""
     engine.reset_launches()
-    getattr(engine, name)(*packed)  # plain version: counts nothing
+    _cpu_call(name)  # plain version: counts nothing
     assert engine.LAUNCHES[name] == 0
     with pytest.raises(RuntimeError, match="no CUDA device"):
         engine._library(name)
@@ -113,7 +141,8 @@ def test_cpu_wrapper_runs_the_plain_version_and_counts_nothing():
     assert engine.LAUNCHES == {name: 0 for name in engine.KERNELS}
 
 
-@pytest.mark.parametrize("name", ["gcrn_step", "stacked_step", "ell_spmm"])
+@pytest.mark.parametrize("name", ["gcrn_step", "stacked_step", "ell_spmm",
+                                  "fused_gru", "fused_lstm"])
 def test_prepare_raises_without_a_card(no_cuda, name):
     """A prepared launch exists only on the card: ``engine.prepare`` checks
     the tensors, then needs the kernel library, and raises without it."""
@@ -125,7 +154,12 @@ def test_prepare_raises_without_a_card(no_cuda, name):
                           z(n, h), z(d, 4 * h), z(h, 4 * h), z(4 * h)),
             "stacked_step": (i(n, k), z(n, k), i(n, k), z(n, d), z(n, h),
                              z(d, h), z(h), z(h, 3 * h), z(h, 3 * h),
-                             z(3 * h))}[name]
+                             z(3 * h)),
+            "fused_gru": (z(n, d), z(n, h), z(d, 3 * h), z(h, 3 * h),
+                          z(3 * h)),
+            "fused_lstm": (z(n, d), z(n, h), z(n, h), z(d, 4 * h),
+                           z(h, 4 * h), z(4 * h))}[name]
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        engine.prepare(name, *args)
+        engine.prepare(name, *args,
+                       **({"tb": n} if name.startswith("fused") else {}))
     assert all(v == 0 for v in engine.LAUNCHES.values())

@@ -160,9 +160,36 @@ def test_plan_validation_matches_jax(kwargs):
     assert str(got.value) == str(want.value)
 
 
+def _assert_paged_session_runs(case, plan_kwargs):
+    """ROADMAP queue 1 item 11 (hbm_paged) is ported: the paged plan runs
+    on the CPU and matches the resident session (1e-6) and the JAX
+    session (3e-4), on the JAX model's parameters."""
+    jops.set_force_ref(True)
+    try:
+        jsess, resident = _sessions(case)
+        want = np.asarray(jsess.run(case.stacked[0]))
+    finally:
+        jops.set_force_ref(False)
+    paged = tapi.BoosterSession(resident.cfg,
+                                tapi.plan(resident.cfg, **plan_kwargs),
+                                n_global=case.n_global,
+                                params=resident.params, device="cpu")
+    got = paged.run(_port_snaps(case.stacked[0])).numpy()
+    base = resident.run(_port_snaps(case.stacked[0])).numpy()
+    assert np.isfinite(want).all() and np.abs(want).max() > 0
+    np.testing.assert_allclose(got, base, atol=1e-6, rtol=0)
+    np.testing.assert_allclose(got, want, atol=ATOL)
+    for k in ("h", "c"):
+        np.testing.assert_allclose(paged.state[k].numpy(),
+                                   resident.state[k].numpy(), atol=1e-6,
+                                   rtol=0)
+
+
 @pytest.mark.parametrize("kwargs,match", [
     (dict(level="o1", stream_chunk=4), "stream_chunk=4: .*item 12"),
-    (dict(level="v3", state_residency="hbm_paged", td=8), "item 11"),
+    # item 11 (hbm_paged) is ported: this plan now executes (match None)
+    pytest.param(dict(level="v3", state_residency="hbm_paged", td=8), None,
+                 id="kwargs1-item 11"),
     (dict(scheduler="continuous", level="v3"), "scheduler='continuous': .*item 12"),
     (dict(max_retries=2, level="v3"), "max_retries=2: .*item 12"),
     (dict(n_pad=256, level="v3"), "n_pad=256: .*item 12"),
@@ -174,7 +201,10 @@ def test_unported_plan_fields_raise_on_execution(kwargs, match):
     sess = tapi.BoosterSession(cfg, p, n_global=case.n_global,
                                gen=torch.Generator().manual_seed(0),
                                device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        sess.run(_port_snaps(case.stacked[0]))
+    if match is None:
+        _assert_paged_session_runs(case, kwargs)
+    else:
+        with pytest.raises(NotImplementedError, match=match):
+            sess.run(_port_snaps(case.stacked[0]))
     with pytest.raises(NotImplementedError, match="item 12"):
         sess.serve([])

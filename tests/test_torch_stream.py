@@ -154,23 +154,36 @@ def test_cells_and_step_ops_match_jax(fused):
 @pytest.mark.parametrize("family", ["tgn", "static_gcn"])
 def test_event_and_static_families_run_on_the_cpu(family):
     """tgn and static_gcn, once NotImplementedError in the port, run on the
-    CPU and match the JAX oracle; tgn's hbm_paged still names its ROADMAP
-    item (static_gcn has nothing to page: tests/test_torch_temporal.py)."""
+    CPU and match the JAX oracle; so does tgn's hbm_paged, which matches
+    the resident call too (static_gcn has nothing to page:
+    tests/test_torch_temporal.py)."""
     args, _, _ = harness.stream_kernel_case(family, seed=3, B=2)
     want = _jax(family, args, True)
-    _assert_close(_port(family, args, True), want, family)
+    got = _port(family, args, True)
+    _assert_close(got, want, family)
     if family == "tgn":
-        with pytest.raises(NotImplementedError, match="item 11"):
-            _port(family, args, True, state_residency="hbm_paged", td=8)
+        paged = _port(family, args, True, state_residency="hbm_paged", td=8)
+        _assert_close(paged, want, "tgn hbm_paged")
+        for p, r in zip(_flat(paged), _flat(got)):
+            np.testing.assert_allclose(p, r, atol=1e-6, rtol=0)
 
 
 def test_unknown_family_and_paged_residency_raise():
+    """An unknown family raises; hbm_paged raises only where the JAX
+    stream_call does (no td), and with td it runs, matching the resident
+    call and the JAX oracle."""
     with pytest.raises(KeyError, match="unknown stream-engine family"):
         tops.stream_steps("gat", device="cpu")
     args, _, _ = harness.stream_kernel_case("gcrn", seed=1)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tops.stream_steps("gcrn", *args, state_residency="hbm_paged", td=8,
+    with pytest.raises(ValueError, match="requires td blocking"):
+        tops.stream_steps("gcrn", *args, state_residency="hbm_paged",
                           device="cpu")
+    paged = tops.stream_steps("gcrn", *args, state_residency="hbm_paged",
+                              td=8, device="cpu")
+    resident = _port("gcrn", args, False)
+    _assert_close(paged, _jax("gcrn", args, False), "gcrn hbm_paged")
+    for p, r in zip(_flat(paged), _flat(resident)):
+        np.testing.assert_allclose(p, r, atol=1e-6, rtol=0)
 
 
 def test_row_table_int64_renumber_and_sentinel():
