@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
-  1. environment: card name and power limit, torch / CUDA versions, TF32 off;
-  2. build all fourteen kernels from src/repro_torch/kernels/csrc (nine
+  1. environment: card name and power limit, torch / CUDA versions, TF32
+     off, bf16 reduced-precision reductions in matmuls off;
+  2. build all sixteen kernels from src/repro_torch/kernels/csrc (ten
      sources, one nvcc per source, all at once), and hold the port's
      shared-memory estimate (engine.smem_bytes) equal to each library's own;
   3. every kernel against its plain PyTorch version on the card:
@@ -50,6 +51,32 @@ Phases (any failure exits non-zero):
      and paged (kernel time over wall time, torch.profiler).
   6. a probe of where a live node tile's time goes: gcrn_step on
      synthetic full-width inputs that vary live rows, lanes and widths.
+Then the LM serving path, Qwen2.5-14B at full width and depth (48 layers,
+d_model 5120, 40 / 8 heads, head_dim 128, d_ff 13824, vocab 152064, QKV
+bias) with random bf16 weights drawn on the card from the seed:
+  3d. both flash kernels (flash_attention, flash_fwd) against their plain
+     versions: narrow cases (head_dim 16 / 80 / 96 / 128, S 128 / 384,
+     causal and not, group 1 / 4 / 5, fp32 <= 1e-4 and bf16 <= 2e-2, lse
+     <= 1e-4), the refusals (a tail, head_dim 136), then the q / k / v of
+     layer 0 and the last layer of one prefill (B 2, S 2048), timed with
+     CUDA events beside the bound, the plain version and
+     F.scaled_dot_product_attention (enable_gqa), which the port never
+     calls;
+  4. (a) prefill_step with attn_impl="flash" on 2 prompts of 2048 random
+     tokens: flash_fwd launched exactly once a layer and nothing else;
+     each layer's attention sublayer, teacher-forced, within 3e-2 of
+     attn_impl="xla" on the same input (the gate of the path); the
+     logits within 0.12 of max |logits| of attn_impl="xla" and of the
+     same path on the kernel's plain version, with the same argmax (48
+     random layers amplify a bf16 ulp to ~0.1); ms median of 3, counts
+     read around the timed calls too; (b) generate answers 2 requests
+     (16-token prompts, 16 new tokens, a 64-slot cache), ms a decode step,
+     and the decode logits after the last prompt token within 3e-2 of an
+     xla prefill of the prompts and 0.12 of a flash one; flash_attention's
+     own entry point (no model path reaches it). The kernels line's
+     launches are the counts read around these runs; the comparisons'
+     own launches are not in them;
+  5. the device's busy share of one prefill and of one decode step.
 Prints ms/snapshot per path, a {"kernels": [...]} line and, last, the
 device line.
 
@@ -66,11 +93,13 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import api  # noqa: E402
+from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.configs.dgnn import (BC_ALPHA, EVOLVEGCN, GCRN_M2,  # noqa: E402
                                       STACKED, STATIC_GCN, TGN)
 from repro_torch.core.dataflow import (build_model, init_states_batched,  # noqa: E402
@@ -82,9 +111,17 @@ from repro_torch.graph import (generate_temporal_graph, max_in_degree,  # noqa: 
                                renumber_and_normalize, slice_snapshots)
 from repro_torch.graph.padding import PaddedSnapshot, stack_ragged  # noqa: E402
 from repro_torch.kernels import engine, ops  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.models import (RuntimeConfig, decode_step,  # noqa: E402
+                                init_caches, init_params, prefill_step)
+from repro_torch.models import lm  # noqa: E402
+from repro_torch.nn.layers import embed_lookup  # noqa: E402
+from repro_torch.serve import generate  # noqa: E402
 
-# published H100 SXM peaks: fp32 outside the tensor cores, HBM3
+# published H100 SXM peaks: fp32 outside the tensor cores, bf16 dense
+# tensor cores, HBM3
 PEAK_FP32 = 67e12
+PEAK_BF16 = 989e12
 PEAK_BYTES = 3.35e12
 TOL_KERNEL = 1e-4
 TOL_STREAM = 1e-3
@@ -124,6 +161,31 @@ CAPACITY_T = 16
 # the GRU / LSTM cells' shape (benchmarks/kernel_bench.py): rows, input and
 # hidden width, row tile
 RNN_ROWS, RNN_DIN, RNN_H, RNN_TB = 640, 128, 128, 128
+# the LM serving path: Qwen2.5-14B at full width and depth, bf16 weights;
+# a prefill of LM_BATCH prompts of LM_SEQ tokens, then generate with
+# LM_PROMPT-token prompts, LM_NEW new tokens and a cache of LM_SKV
+LM_ARCH = "qwen2.5-14b"
+LM_RT = RuntimeConfig(param_dtype="bf16")
+LM_BATCH, LM_SEQ = 2, 2048
+LM_PROMPT, LM_NEW, LM_SKV = 16, 16, 64
+# logits, of max |logits| over the real vocabulary: TOL_LOGITS where the
+# two paths do not compound a difference (a layer's attention sublayer on
+# the same input; decode against the xla prefill, both with bf16 scores;
+# relative to max |output| there), TOL_DRIFT across the full depth
+# between paths that round at other places (fp32 against bf16 scores, or
+# only another summation order: the kernel against its plain version),
+# with the argmax over the vocabulary equal. Qwen2.5-14B's 48 random
+# layers amplify a bf16 ulp: such paths measured 6.5e-2 to 1.05e-1 apart
+# on the card (PERF.md, the flash findings), so the teacher-forced
+# sublayers at TOL_LOGITS are the gate that tells a wrong kernel apart
+TOL_LOGITS = 3e-2
+TOL_DRIFT = 0.12
+# a flash kernel against its plain version: fp32 differs only in the
+# order of summation; bf16 by one or two bf16 ulps at |o| <= 3
+TOL_FLASH = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+TOL_LSE = 1e-4
+# the flash kernels' narrow cases (bq = bk = 128)
+FLASH_HD, FLASH_S, FLASH_GROUPS = (16, 80, 96, 128), (128, 384), (1, 4, 5)
 REPLACES = {
     "gcrn_engine": "src/repro/kernels/stream_fused.py:833",
     "evolve_engine": "src/repro/kernels/stream_fused.py:1191",
@@ -139,6 +201,8 @@ REPLACES = {
        for name in PAGED.values()},
     "fused_gru": "src/repro/kernels/fused_rnn.py:35",
     "fused_lstm": "src/repro/kernels/fused_rnn.py:75",
+    "flash_attention": "src/repro/kernels/flash_attention.py:74",
+    "flash_fwd": "src/repro/kernels/flash_attention.py:240",
 }
 
 
@@ -1161,18 +1225,419 @@ def busy_share(cfg, level, params, n_global, stream, plan_kw=None):
     return wall, device
 
 
+# ------------------------------------------------- the LM serving path ----
+
+def flash_case(seed, bh, s, d, group, dtype):
+    """Random CUDA q / k / v of one flash call (numpy, from ``seed``):
+    unit-normal, distinct K / V per kv head."""
+    rng = np.random.default_rng(seed)
+    t = lambda *shape: torch.from_numpy(rng.normal(size=shape).astype(
+        np.float32)).to(dtype).cuda()
+    return t(bh, s, d), t(bh // group, s, d), t(bh // group, s, d)
+
+
+def flash_small_check():
+    """Both flash kernels against their plain versions on narrow cases:
+    head_dim 16 / 80 / 96 / 128, S 128 and 384 with bq = bk = 128, causal
+    and not, group 1 / 4 / 5 (B 2, 2 kv heads), fp32 and bf16; o within
+    TOL_FLASH[dtype], lse within TOL_LSE; flash_attention's o equal to
+    flash_fwd's bit for bit (one kernel template). Then the refusals on
+    CUDA tensors: a tail and a head_dim over the limit, launching
+    nothing. Returns the largest errors by dtype."""
+    worst = {dt: 0.0 for dt in TOL_FLASH}
+    lse_worst, n = 0.0, 0
+    for dtype in TOL_FLASH:
+        for d in FLASH_HD:
+            for s in FLASH_S:
+                for causal in (True, False):
+                    for group in FLASH_GROUPS:
+                        n += 1
+                        q, k, v = flash_case(n, 2 * 2 * group, s, d, group,
+                                             dtype)
+                        args = (q, k, v, causal, 128, 128, group)
+                        o, lse = fa.flash_fwd(*args)
+                        o2 = fa.flash_attention(q, k, v, causal=causal,
+                                                bq=128, bk=128, group=group)
+                        o_p, lse_p = fa.flash_fwd_plain(*args)
+                        torch.cuda.synchronize()
+                        err = max_err(o.float(), o_p.float())
+                        err_lse = max_err(lse, lse_p)
+                        label = (f"flash d={d} S={s} causal={causal} "
+                                 f"group={group} {dtype}")
+                        check(np.isfinite(err) and err <= TOL_FLASH[dtype]
+                              and err_lse <= TOL_LSE,
+                              f"{label}: o {err:.3e}, lse {err_lse:.3e}")
+                        check(torch.equal(o, o2), f"{label}: flash_attention"
+                              " o equals flash_fwd o")
+                        worst[dtype] = max(worst[dtype], err)
+                        lse_worst = max(lse_worst, err_lse)
+    for dtype, err in worst.items():
+        log(f"flash narrow cases {dtype}: {n // 2} cases, max_abs_err o "
+            f"{err:.3e} (tol {TOL_FLASH[dtype]}); flash_attention o equal "
+            "to flash_fwd o")
+    log(f"flash narrow cases: max_abs_err lse {lse_worst:.3e} (tol {TOL_LSE})")
+    engine.reset_launches()
+    q, k, v = flash_case(0, 4, 96, 16, 2, torch.bfloat16)
+    for name in ("flash_attention", "flash_fwd"):
+        fn = getattr(fa, name)
+        msg = expect_raises(lambda: fn(q, k, v, causal=True, bq=64, bk=32,
+                                       group=2), ValueError, "must divide")
+        log(f"{name}: S=96 bq=64 refused: {msg}")
+        big = flash_case(0, 2, 64, 136, 1, torch.bfloat16)
+        msg = expect_raises(lambda: fn(*big, causal=True, bq=64, bk=64,
+                                       group=1), ValueError,
+                            "multiple of 8 up to 128")
+        log(f"{name}: head_dim 136 refused: {msg}")
+    check(not any(engine.LAUNCHES.values()), "a refused flash call launched")
+    return worst
+
+
+def lm_model():
+    """Qwen2.5-14B at full width and depth, random bf16 weights drawn on the
+    card from the seed; (cfg, params)."""
+    cfg = ARCHS[LM_ARCH]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    params = init_params(cfg, LM_RT, torch.Generator(
+        device="cuda").manual_seed(SEED), device="cuda")
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in flat(params))
+    log(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, heads "
+        f"{cfg.n_heads} / {cfg.n_kv_heads} kv, head_dim "
+        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size} "
+        f"(padded {cfg.padded_vocab()}), qkv_bias {cfg.qkv_bias}; "
+        f"{n / 1e9:.3f} B params, "
+        f"{nbytes(*flat(params)) / 1e9:.2f} GB bf16, init "
+        f"{time.time() - t0:.1f} s, peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    return cfg, params
+
+
+def lm_tokens(b, s, seed, vocab):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, vocab, (b, s)).astype(
+        np.int32)).cuda()
+
+
+@contextlib.contextmanager
+def recording_flash(keep):
+    """Record the CUDA inputs of the flash_fwd calls whose index (the
+    layer, in one prefill) is in ``keep``; nn/attention reaches the
+    kernel through kernels/flash_attention.flash_mha, which looks
+    ``flash_fwd`` up at each call."""
+    calls, original, seen = {}, fa.flash_fwd, [0]
+
+    def wrapper(*args, **kwargs):
+        if seen[0] in keep:
+            calls[seen[0]] = tuple(a.clone() if torch.is_tensor(a) else a
+                                   for a in args)
+        seen[0] += 1
+        return original(*args, **kwargs)
+
+    fa.flash_fwd = wrapper
+    try:
+        yield calls
+    finally:
+        fa.flash_fwd = original
+
+
+def flash_cost(q, k, causal):
+    """(flop, bytes) of one flash call: 4 d flops per (q, k) pair a row
+    sees (S (S + 1) / 2 pairs a head when causal), q / k / v read once, o
+    and the lse rows written once."""
+    bh, s, d = q.shape
+    skv = k.shape[1]
+    pairs = s * (s + 1) // 2 if causal else s * skv
+    flops = 4.0 * d * pairs * bh
+    byts = 2 * nbytes(q) + 2 * nbytes(k) + bh * s * 4
+    return flops, byts
+
+
+def sdpa_call(q, k, v, group, causal):
+    """The one PyTorch call that computes the same attention:
+    scaled_dot_product_attention with enable_gqa, a kv head's ``group`` q
+    heads as one (B * Hkv, group, S, d) block against its (B * Hkv, 1, Skv,
+    d) K / V."""
+    s, d = q.shape[1:]
+    q4 = q.view(-1, group, s, d)
+    k4, v4 = k.view(-1, 1, k.shape[1], d), v.view(-1, 1, v.shape[1], d)
+    return lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                  is_causal=causal,
+                                                  enable_gqa=True)
+
+
+def check_flash_kernel(name, calls):
+    """A flash kernel on the prefill's own q / k / v (layer 0 and the last
+    layer) against its plain version (<= TOL_FLASH bf16, lse <= TOL_LSE),
+    timed with CUDA events beside its bound, the plain version and SDPA;
+    its record (times of the last layer's call)."""
+    err, err_lse = 0.0, 0.0
+    for layer, (q, k, v, causal, bq, bk, group) in sorted(calls.items()):
+        if name == "flash_fwd":
+            o, lse = fa.flash_fwd(q, k, v, causal, bq, bk, group)
+        else:
+            o, lse = fa.flash_attention(q, k, v, causal=causal, bq=bq, bk=bk,
+                                        group=group), None
+        o_p, lse_p = fa.flash_fwd_plain(q, k, v, causal, bq, bk, group)
+        lib = sdpa_call(q, k, v, group, causal)()
+        torch.cuda.synchronize()
+        e = max_err(o.float(), o_p.float())
+        e_lib = max_err(lib.reshape(o.shape).float(), o_p.float())
+        e_lse = 0.0 if lse is None else max_err(lse, lse_p)
+        log(f"{name}: layer {layer} q {tuple(q.shape)} k {tuple(k.shape)} "
+            f"{q.dtype} causal={causal} group={group} max_abs_err o "
+            f"{e:.3e} (tol {TOL_FLASH[torch.bfloat16]}), lse {e_lse:.3e} "
+            f"(tol {TOL_LSE}); SDPA vs plain {e_lib:.3e}")
+        check(np.isfinite(e) and e <= TOL_FLASH[torch.bfloat16]
+              and e_lse <= TOL_LSE, f"{name} layer {layer}")
+        err, err_lse = max(err, e), max(err_lse, e_lse)
+    q, k, v, causal, bq, bk, group = calls[max(calls)]
+    if name == "flash_fwd":
+        run = lambda: fa.flash_fwd(q, k, v, causal, bq, bk, group)
+    else:
+        run = lambda: fa.flash_attention(q, k, v, causal=causal, bq=bq,
+                                         bk=bk, group=group)
+    ms = cuda_ms(run, reps=10)
+    plain_ms = cuda_ms(lambda: fa.flash_fwd_plain(q, k, v, causal, bq, bk,
+                                                  group), reps=3)
+    lib_ms = cuda_ms(sdpa_call(q, k, v, group, causal), reps=10)
+    flops, byts = flash_cost(q, k, causal)
+    t_ops, t_bytes = flops / PEAK_BF16 * 1e3, byts / PEAK_BYTES * 1e3
+    bound_ms = max(t_ops, t_bytes)
+    log(f"{name}: {ms:.4f} ms kernel ({flops / ms / 1e9:.1f} TFLOP/s), "
+        f"{plain_ms:.4f} ms plain, {lib_ms:.4f} ms SDPA, bound "
+        f"{bound_ms:.4f} ms ({'operations' if t_ops >= t_bytes else 'bytes'}"
+        f": {flops:.3e} flop, {byts:.3e} B)")
+    return record(name, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                  bound_ms=bound_ms,
+                  bound_by="operations" if t_ops >= t_bytes else "bytes",
+                  library_ms=lib_ms, lse_max_abs_err=err_lse,
+                  shape=list(q.shape), kv_shape=list(k.shape))
+
+
+def logits_err(got, want, vocab):
+    """Largest difference over the real vocabulary, relative to max
+    |want| there."""
+    got, want = got[..., :vocab].float(), want[..., :vocab].float()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@contextlib.contextmanager
+def plain_flash():
+    """Route the model's flash calls to the kernel's plain version (on the
+    card): the same function, summed in another order."""
+    original = fa.flash_fwd
+    fa.flash_fwd = fa.flash_fwd_plain
+    try:
+        yield
+    finally:
+        fa.flash_fwd = original
+
+
+def layer_check(cfg, params, tokens):
+    """Every layer of one prefill, teacher-forced: each layer's attention
+    sublayer (the part the flash kernel changes) with attn_impl="flash"
+    against "xla" on the same input, the xla path's own hidden state, so a
+    layer's difference does not compound through the later ones; and the
+    whole layer's update (output minus input) the same way, logged.
+    The layers are walked as backbone walks them (lm.iter_layers,
+    lm.attention_sublayer, lm.layer_apply). Its flash launches are a check,
+    not the main path: the callers read the counts around the main path
+    alone. Returns the largest attention-sublayer difference relative to
+    max |output| of that layer, its layer, and the largest update
+    difference."""
+    rts = {impl: dataclasses.replace(LM_RT, attn_impl=impl)
+           for impl in ("flash", "xla")}
+    b, s = tokens.shape
+    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    rel = lambda got, want: float((got.float() - want.float()).abs().max()
+                                  / want.float().abs().max())
+    worst, at, worst_update = 0.0, -1, 0.0
+    with torch.inference_mode():
+        x = embed_lookup(params["embed"], tokens)
+        for layer, (_, mlp, pl, _) in enumerate(lm.iter_layers(params, cfg)):
+            att = {impl: lm.attention_sublayer(pl, cfg, rt, x, positions)[0]
+                   for impl, rt in rts.items()}
+            err = rel(att["flash"], att["xla"])
+            if err > worst:
+                worst, at = err, layer
+            y = {impl: lm.layer_apply(pl, cfg, rt, mlp, x, positions)[0]
+                 for impl, rt in rts.items()}
+            worst_update = max(worst_update,
+                               rel(y["flash"] - x, y["xla"] - x))
+            x = y["xla"]
+    return worst, at, worst_update
+
+
+def lm_prefill_path(cfg, params, tokens):
+    """Path (a): prefill_step with attn_impl="flash" on the prompts, counts
+    read around it (flash_fwd exactly once a layer, nothing else); its
+    logits against attn_impl="xla" (the full / chunked torch path at
+    attn_chunk 2048) and against the same path on the kernel's plain
+    version, within TOL_DRIFT of max |logits| (the full-depth spread of
+    bf16 paths that round at other places) with the same argmax, and each
+    layer's attention sublayer, teacher-forced, against xla within
+    TOL_LOGITS; then timed (median of 3, host clock to a sync), counts read
+    around the timed calls. Returns (the counts of the checked and the
+    timed prefills, ms)."""
+    rt = dataclasses.replace(LM_RT, attn_impl="flash")
+    engine.reset_launches()
+    logits = prefill_step(params, cfg, rt, {"tokens": tokens})
+    torch.cuda.synchronize()
+    counts = launched(f"{cfg.name} prefill flash B={tokens.shape[0]} "
+                      f"S={tokens.shape[1]}")
+    check(counts == {"flash_fwd": cfg.n_layers},
+          f"prefill launched flash_fwd once a layer, nothing else: {counts}")
+    check(logits.shape == (tokens.shape[0], 1, cfg.padded_vocab())
+          and bool(torch.isfinite(logits).all()), "prefill logits")
+    V = cfg.vocab_size
+    ref = prefill_step(params, cfg, dataclasses.replace(LM_RT,
+                                                        attn_impl="xla"),
+                       {"tokens": tokens})
+    with plain_flash():
+        plain = prefill_step(params, cfg, rt, {"tokens": tokens})
+    errs = {"flash vs xla": logits_err(logits, ref, V),
+            "flash vs flash-plain": logits_err(logits, plain, V),
+            "flash-plain vs xla": logits_err(plain, ref, V)}
+    same = {k: torch.equal(x[..., :V].argmax(-1), y[..., :V].argmax(-1))
+            for k, (x, y) in (("flash vs xla", (logits, ref)),
+                              ("flash vs flash-plain", (logits, plain)))}
+    log(f"prefill logits, max |diff| / max |logits| (max |logits| "
+        f"{float(ref[..., :V].abs().max()):.3f}): "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f" (tol {TOL_DRIFT}); argmax equal {same}")
+    check(all(np.isfinite(v) and v <= TOL_DRIFT for v in errs.values()),
+          f"prefill logits {errs}")
+    check(all(same.values()), f"prefill logits argmax {same}")
+    del ref, plain
+    err, at, err_update = layer_check(cfg, params, tokens)
+    log(f"prefill layers, teacher-forced, flash vs xla: attention sublayer "
+        f"max |diff| / max |output| {err:.3e} (worst layer {at}; tol "
+        f"{TOL_LOGITS}); whole-layer update {err_update:.3e}")
+    check(np.isfinite(err) and err <= TOL_LOGITS, "prefill layers")
+    ms = []
+    engine.reset_launches()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill_step(params, cfg, rt, {"tokens": tokens})
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    timed = launched(f"{cfg.name} prefill flash, 3 timed calls")
+    check(timed == {"flash_fwd": 3 * cfg.n_layers},
+          f"timed prefills launched flash_fwd once a layer: {timed}")
+    for k, v in timed.items():
+        counts[k] += v
+    log(f"prefill flash: {float(np.median(ms)):.2f} ms median of 3 (all "
+        f"{', '.join(f'{m:.2f}' for m in ms)}), "
+        f"{tokens.numel() / np.median(ms) * 1e3:.0f} tokens/s")
+    return counts, float(np.median(ms))
+
+
+def lm_generate_path(cfg, params):
+    """Path (b): generate answers LM_BATCH requests (LM_PROMPT-token
+    prompts, LM_NEW new tokens, a cache of LM_SKV), counts read around
+    it; then the decode logits after the last prompt token (decode_step
+    through the caches) against a flash prefill of the same prompts
+    within TOL_DRIFT, and against an xla prefill (bf16 scores, as decode)
+    within TOL_LOGITS. The reference prefill's launches are a check, not
+    the path's. Returns (counts, decode ms a token)."""
+    prompt = lm_tokens(LM_BATCH, LM_PROMPT, SEED + 2, cfg.vocab_size)
+    engine.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = generate(params, cfg, LM_RT, prompt, LM_NEW, LM_SKV)
+    torch.cuda.synchronize()
+    total = (time.perf_counter() - t0) * 1e3
+    counts = launched(f"{cfg.name} generate B={LM_BATCH} prompt "
+                      f"{LM_PROMPT} new {LM_NEW} skv {LM_SKV}")
+    n_steps = LM_PROMPT + LM_NEW - 1
+    check(out.shape == (LM_BATCH, LM_NEW) and out.dtype == torch.int32
+          and int(out.min()) >= 0 and int(out.max()) < cfg.vocab_size,
+          f"generate tokens {tuple(out.shape)}")
+    log(f"generate: {total:.1f} ms for {n_steps} decode steps, "
+        f"{total / n_steps:.2f} ms a step (B={LM_BATCH}); tokens "
+        f"{out.tolist()}")
+    caches = init_caches(cfg, LM_RT, LM_BATCH, LM_SKV)
+    for i in range(LM_PROMPT):
+        logits, caches = decode_step(params, cfg, LM_RT, prompt[:, i:i + 1],
+                                     caches)
+    engine.reset_launches()
+    ref = prefill_step(params, cfg, dataclasses.replace(
+        LM_RT, attn_impl="flash"), {"tokens": prompt})
+    torch.cuda.synchronize()
+    ref_counts = launched(f"{cfg.name} prefill flash of the prompts")
+    check(ref_counts == {"flash_fwd": cfg.n_layers},
+          f"prompt prefill launched flash_fwd once a layer: {ref_counts}")
+    ref_xla = prefill_step(params, cfg, dataclasses.replace(
+        LM_RT, attn_impl="xla"), {"tokens": prompt})
+    err = logits_err(logits, ref, cfg.vocab_size)
+    err_xla = logits_err(logits, ref_xla, cfg.vocab_size)
+    first = torch.equal(out[:, 0].long(),
+                        ref[:, -1, :cfg.vocab_size].argmax(-1))
+    log(f"decode after the prompt, max |diff| / max |logits|: vs flash "
+        f"prefill {err:.3e} (tol {TOL_DRIFT}), vs xla prefill (the same "
+        f"bf16 scores) {err_xla:.3e} (tol {TOL_LOGITS}); first generated "
+        f"token = flash prefill argmax {first}")
+    check(np.isfinite(err) and err <= TOL_DRIFT, "decode vs flash prefill")
+    check(np.isfinite(err_xla) and err_xla <= TOL_LOGITS,
+          "decode vs xla prefill")
+    return counts, total / n_steps
+
+
+def flash_attention_path(call):
+    """flash_attention's own entry point (no model path reaches it, as in
+    the JAX package) on the prefill's layer-0 q / k / v, counts read
+    around it; its o equals flash_fwd's."""
+    q, k, v, causal, bq, bk, group = call
+    want, _ = fa.flash_fwd(q, k, v, causal, bq, bk, group)
+    engine.reset_launches()
+    o = fa.flash_attention(q, k, v, causal=causal, bq=bq, bk=bk, group=group)
+    torch.cuda.synchronize()
+    counts = launched("kernels.flash_attention.flash_attention on the "
+                      "prefill's layer-0 q / k / v")
+    check(counts == {"flash_attention": 1}, f"flash_attention {counts}")
+    check(torch.equal(o, want), "flash_attention o equals flash_fwd o")
+    return counts
+
+
+def busy_share_fn(fn):
+    """(wall ms, device ms) of one ``fn()`` under torch.profiler (see
+    busy_share)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    device = sum(e.self_device_time_total for e in events) / 1e3
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
+    for e in top:
+        log(f"  {e.self_device_time_total / 1e3:9.2f} ms  {e.key[:90]}")
+    return wall, device
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     card = smi()
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} "
         f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
-        f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+        f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
+        "matmul.allow_bf16_reduced_precision_reduction="
+        f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}")
 
     # phase 2: build
     t0 = time.time()
@@ -1395,6 +1860,54 @@ def main() -> int:
 
     # phase 6: where a live node tile's time goes
     tile_probe()
+    del models, params, streams, stream, events
+
+    # the LM serving path. Phase 3d: both flash kernels on narrow cases,
+    # then on the q / k / v of layer 0 and the last layer of one full-width
+    # prefill
+    t0 = time.time()
+    flash_small_check()
+    cfg_lm, lm_params = lm_model()
+    flash_rt = dataclasses.replace(LM_RT, attn_impl="flash")
+    tokens = lm_tokens(LM_BATCH, LM_SEQ, SEED + 1, cfg_lm.vocab_size)
+    with recording_flash({0, cfg_lm.n_layers - 1}) as calls:
+        prefill_step(lm_params, cfg_lm, flash_rt, {"tokens": tokens})
+    check(sorted(calls) == [0, cfg_lm.n_layers - 1],
+          f"recorded flash calls {sorted(calls)}")
+    records += [check_flash_kernel("flash_fwd", calls),
+                check_flash_kernel("flash_attention", calls)]
+    log(f"phase 3d (flash kernels): {time.time() - t0:.1f} s")
+
+    # phase 4, LM: (a) the prefill, (b) generate, and flash_attention's own
+    # entry point; counts read around each
+    t0 = time.time()
+    counts, prefill_ms = lm_prefill_path(cfg_lm, lm_params, tokens)
+    for source in (counts, lm_generate_path(cfg_lm, lm_params)[0],
+                   flash_attention_path(calls[0])):
+        for name, v in source.items():
+            launches[name] += v
+    del calls
+    log(f"phase 4 (LM paths): {time.time() - t0:.1f} s")
+
+    # phase 5, LM: the device's busy share of one prefill
+    wall, device = busy_share_fn(lambda: prefill_step(
+        lm_params, cfg_lm, flash_rt, {"tokens": tokens}))
+    share = (f"{device / wall:.3f}" if device > 0
+             else "not measured (the profiler saw no device time)")
+    log(f"busy {cfg_lm.name} prefill flash B={LM_BATCH} S={LM_SEQ}: "
+        f"{wall:.2f} ms wall under the profiler, {device:.2f} ms of "
+        f"kernels, busy share {share}")
+    # and of one decode step (B 2, after one token in a 64-slot cache)
+    tok = lm_tokens(LM_BATCH, 1, SEED + 3, cfg_lm.vocab_size)
+    caches = decode_step(lm_params, cfg_lm, LM_RT, tok,
+                         init_caches(cfg_lm, LM_RT, LM_BATCH, LM_SKV))[1]
+    wall, device = busy_share_fn(lambda: decode_step(
+        lm_params, cfg_lm, LM_RT, tok, caches))
+    share = (f"{device / wall:.3f}" if device > 0
+             else "not measured (the profiler saw no device time)")
+    log(f"busy {cfg_lm.name} decode step B={LM_BATCH}: {wall:.2f} ms wall "
+        f"under the profiler, {device:.2f} ms of kernels, busy share "
+        f"{share}")
     for rec in records:
         rec["launches"] = launches[rec["name"]]
         check(rec["launches"] > 0, f"{rec['name']} launched on the main path")

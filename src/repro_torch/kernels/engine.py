@@ -1,6 +1,6 @@
 """Build, bind and launch the hand-written CUDA kernels.
 
-Fourteen kernels from nine sources under ``csrc/``: the stream engines of
+Sixteen kernels from ten sources under ``csrc/``: the stream engines of
 the three dense-snapshot families (``gcrn_engine.cu``, ``evolve_engine.cu``,
 ``stacked_engine.cu``), of the event-driven TGN (``tgn_engine.cu``) and of
 the static GCN (``static_engine.cu``), all level v3; the paged variants of
@@ -8,12 +8,14 @@ the four stateful engines (``<family>_engine_paged``, hbm_paged residency:
 the same source compiled with its paging flag, the t-1 state staged
 through a ring of td-wide windows); the V2 fused steps (``gcrn_step.cu``,
 ``stacked_step.cu``); the ELL SpMM of the message-passing stage
-(``ell_spmm.cu``, ``impl="pallas"``); and the fused GRU and LSTM cells
-(``fused_rnn.cu``). Each source is compiled by ``nvcc``
-at first use into a shared library with a plain C interface, keyed by a
-hash of the sources and flags, under ``build/repro_torch/`` at the
-checkout root (``REPRO_TORCH_BUILD_DIR`` overrides it), and loaded with
-``ctypes``.
+(``ell_spmm.cu``, ``impl="pallas"``); the fused GRU and LSTM cells
+(``fused_rnn.cu``); and the LM scaffold's flash attention forward, with
+and without the logsumexp rows (``flash_attention.cu``; its wrappers and
+plain versions are in kernels/flash_attention.py). Each source is
+compiled by ``nvcc`` at first use into a shared library with a plain C
+interface, keyed by a hash of the sources and flags, under
+``build/repro_torch/`` at the checkout root (``REPRO_TORCH_BUILD_DIR``
+overrides it), and loaded with ``ctypes``.
 
 Each wrapper takes packed tensors (kernels/ops.py packs them):
 
@@ -52,12 +54,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 KERNELS = ("gcrn_engine", "evolve_engine", "stacked_engine", "tgn_engine",
            "static_engine", "gcrn_step", "stacked_step", "ell_spmm",
            "gcrn_engine_paged", "evolve_engine_paged", "stacked_engine_paged",
-           "tgn_engine_paged", "fused_gru", "fused_lstm")
+           "tgn_engine_paged", "fused_gru", "fused_lstm", "flash_attention",
+           "flash_fwd")
 #: the source (``csrc/<source>.cu``, one library) of each kernel
 SOURCE = {**{name: name for name in KERNELS[:8]},
           **{f"{family}_engine_paged": f"{family}_engine"
              for family in ("gcrn", "evolve", "stacked", "tgn")},
-          "fused_gru": "fused_rnn", "fused_lstm": "fused_rnn"}
+          "fused_gru": "fused_rnn", "fused_lstm": "fused_rnn",
+          "flash_attention": "flash_attention",
+          "flash_fwd": "flash_attention"}
 
 #: the kernels' register micro-tile: each thread owns this many node rows
 #: (and, in the evolve kernel, this many columns of W). The kernels take
@@ -167,6 +172,8 @@ _SIGNATURES = {
     "tgn_engine_paged": (14, 9, 6),
     "fused_gru": (6, 4, 2),
     "fused_lstm": (8, 4, 2),
+    "flash_attention": (5, 7, 0),
+    "flash_fwd": (5, 7, 0),
 }
 
 

@@ -4,35 +4,41 @@ JAX's PRNG cannot be reproduced in torch, so a comparison of the two
 packages feeds both the same parameters: the JAX pytrees, flattened to
 numpy (``jax.tree.map(np.asarray, tree)``), become the port's tensors. The
 two packages lay out their parameters alike, so the conversion is
-structural; it checks every key and shape against the port's own layout.
+structural; it checks every key and shape (and, for the LM, dtype) against
+the port's own layout.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.dgnn import DGNNConfig
 from repro_torch.core.dataflow import build_model
+from repro_torch.models.lm import RuntimeConfig, init_params
 
 
-def _convert(ref, src, path: str):
+def _convert(ref, src, path: str, leaf=None):
+    """``src`` (numpy leaves) as tensors, checked key by key and shape by
+    shape against the layout ``ref``; ``leaf(ref, array, path)`` converts a
+    leaf (float32 by default)."""
     if isinstance(ref, dict):
         if not isinstance(src, dict) or set(src) != set(ref):
             got = sorted(src) if isinstance(src, dict) else type(src).__name__
             raise ValueError(f"{path or 'params'}: expected keys "
                              f"{sorted(ref)}, got {got}")
-        return {k: _convert(ref[k], src[k], f"{path}.{k}" if path else k)
-                for k in ref}
+        return {k: _convert(ref[k], src[k], f"{path}.{k}" if path else k,
+                            leaf) for k in ref}
     if isinstance(ref, list):
         if not isinstance(src, (list, tuple)) or len(src) != len(ref):
             raise ValueError(f"{path}: expected a list of {len(ref)}")
-        return [_convert(r, s, f"{path}[{i}]")
+        return [_convert(r, s, f"{path}[{i}]", leaf)
                 for i, (r, s) in enumerate(zip(ref, src))]
     a = np.asarray(src)
     if a.shape != tuple(ref.shape):
         raise ValueError(f"{path}: shape {a.shape}, expected "
                          f"{tuple(ref.shape)}")
-    return _tensor(a)
+    return _tensor(a) if leaf is None else leaf(ref, a, path)
 
 
 def params_from_jax(cfg: DGNNConfig, params_np) -> dict:
@@ -66,3 +72,28 @@ def state_from_jax(cfg: DGNNConfig, state_np) -> dict:
 
 def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.array(np.asarray(a), dtype=np.float32))
+
+
+#: numpy's name of each parameter dtype (bfloat16 is ml_dtypes', which JAX
+#: hands out)
+_NP_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
+
+
+def _lm_leaf(ref: torch.Tensor, a: np.ndarray, path: str) -> torch.Tensor:
+    if a.dtype.name != _NP_NAMES[ref.dtype]:
+        raise ValueError(f"{path}: dtype {a.dtype.name}, expected "
+                         f"{_NP_NAMES[ref.dtype]}")
+    a = np.ascontiguousarray(a)
+    if ref.dtype == torch.bfloat16:
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def lm_params_from_jax(cfg: ModelConfig, rt: RuntimeConfig,
+                       params_np) -> dict:
+    """The JAX LM's parameters (``repro.models.init_params(...)[0]`` with
+    numpy leaves) as the port's tensors on the CPU, every key, shape and
+    dtype checked against the port's own layout for (cfg, rt), which is
+    built on the ``meta`` device (no allocation, at any width)."""
+    return _convert(init_params(cfg, rt, device="meta"), params_np, "",
+                    _lm_leaf)

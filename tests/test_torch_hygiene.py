@@ -163,3 +163,83 @@ def test_prepare_raises_without_a_card(no_cuda, name):
         engine.prepare(name, *args,
                        **({"tb": n} if name.startswith("fused") else {}))
     assert all(v == 0 for v in engine.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "flash_fwd"])
+def test_flash_wrappers_need_the_card_for_cuda_tensors(no_cuda, name):
+    """The flash wrappers run their plain version for CPU tensors, counting
+    no launch; the kernel is only reachable with a card, and a tensor on
+    any other device is refused."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = torch.zeros((4, 16, 16)), torch.zeros((2, 16, 16)), \
+        torch.zeros((2, 16, 16))
+    engine.reset_launches()
+    if name == "flash_fwd":
+        fa.flash_fwd(q, k, v, True, 16, 16, 2)
+    else:
+        fa.flash_attention(q, k, v, causal=True, bq=16, bk=16, group=2)
+    assert all(v == 0 for v in engine.LAUNCHES.values())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        engine._library(name)
+    meta = [t.to("meta") for t in (q, k, v)]
+    with pytest.raises(ValueError, match="not supported"):
+        getattr(fa, name)(*meta, causal=True, bq=16, bk=16, group=2)
+
+
+def test_lm_entry_points_default_to_cuda_and_raise(no_cuda):
+    from repro_torch.configs import ARCHS, reduce_for_smoke
+    from repro_torch.models import RuntimeConfig, init_caches, init_params
+    from repro_torch.models import prefill_step
+    from repro_torch.serve import generate
+
+    cfg, rt = reduce_for_smoke(ARCHS["qwen2.5-14b"]), RuntimeConfig()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_params(cfg, rt)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_caches(cfg, rt, 1, 8)
+    params = init_params(cfg, rt, device="cpu")
+    tokens = torch.zeros((1, 4), dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        prefill_step(params, cfg, rt, {"tokens": tokens})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        generate(params, cfg, rt, tokens, 2, 8)
+    assert all(v == 0 for v in engine.LAUNCHES.values())
+
+
+def _lm_helper_call(name, **kw):
+    """One call of the LM helper ``name`` at a reduced Qwen2.5 shape; ``kw``
+    carries the device."""
+    from repro_torch.configs import ARCHS, reduce_for_smoke
+    from repro_torch.nn import attention, layers, mlp
+
+    cfg = reduce_for_smoke(ARCHS["qwen2.5-14b"])
+    gen = torch.Generator().manual_seed(0)
+    d, v = cfg.d_model, cfg.padded_vocab()
+    return {
+        "normal_init": lambda: layers.normal_init(gen, (d, d), 0.02, **kw),
+        "init_embedding": lambda: layers.init_embedding(gen, v, d, **kw),
+        "init_lm_head": lambda: layers.init_lm_head(gen, d, v, **kw),
+        "init_rms_norm": lambda: layers.init_rms_norm(d, **kw),
+        "rope_freqs": lambda: layers.rope_freqs(16, 1e4, **kw),
+        "vocab_mask": lambda: layers.vocab_mask(v, cfg.vocab_size, **kw),
+        "init_mlp": lambda: mlp.init_mlp(gen, d, cfg.d_ff, 2, **kw),
+        "init_attention": lambda: attention.init_attention(gen, cfg, 1, **kw),
+        "init_decode_cache": lambda: attention.init_decode_cache(
+            cfg, 1, 8, 1, **kw),
+    }[name]()
+
+
+@pytest.mark.parametrize("name", [
+    "normal_init", "init_embedding", "init_lm_head", "init_rms_norm",
+    "rope_freqs", "vocab_mask", "init_mlp", "init_attention",
+    "init_decode_cache"])
+def test_lm_helpers_default_to_cuda_and_raise(no_cuda, name):
+    """The LM layers' public constructors build on the card unless the
+    caller passes device="cpu": without a card the default raises, and
+    "cpu" builds CPU tensors."""
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _lm_helper_call(name)
+    out = _lm_helper_call(name, device="cpu")
+    leaves = list(out.values()) if isinstance(out, dict) else [out]
+    assert leaves and all(t.device.type == "cpu" for t in leaves)
