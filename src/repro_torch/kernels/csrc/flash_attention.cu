@@ -56,21 +56,24 @@
 // mma.sync without a copy pipeline (every kv tile is loaded, then used,
 // behind a barrier) stays well short of it; wgmma, TMA and a ring of kv
 // tiles are later work.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "flash_common.cuh"
 
 #include <cmath>
-#include <cstdint>
-#include <cstring>
 
 namespace {
 
-constexpr int kBQ = 64;        // q rows a CTA
-constexpr int kBK = 64;        // keys a kv tile
-constexpr int kThreads = 256;  // 16 row groups x 16 column lanes
-constexpr int kMaxD = 128;     // 2 float4 output column groups a lane
-constexpr int kPld = kBK + 4;  // row stride of the p tile
-constexpr float kNegInf = -1e30f;
+using flash::kMaxD;
+using flash::kMaxDTiles;
+using flash::kMaxKSteps;
+using flash::kNegInf;
+using flash::kPld;
+using flash::ldmatrix_x4_trans;
+using flash::mma_bf16;
+using flash::pack_bf16;
+
+constexpr int kBQ = flash::kTile;  // q rows a CTA
+constexpr int kBK = flash::kTile;  // keys a kv tile
+constexpr int kThreads = 256;      // 16 row groups x 16 column lanes
 
 template <class T>
 struct Args {
@@ -82,21 +85,6 @@ struct Args {
   int s, skv, d, group, causal;
   float sqrt_d;  // float(sqrt(d)): the TPU kernel divides by it
 };
-
-// Rows [r0, r0 + 64) of a (rows, d) fp32 matrix into a (64, d + 4) tile;
-// rows at or past n_rows are zero (finite scores, zero values).
-__device__ __forceinline__ void load_tile(const float* src, int r0,
-                                          int n_rows, int d, float* dst) {
-  const int chunks = d / 4, ld = d + 4;
-  for (int e = threadIdx.x; e < kBQ * chunks; e += kThreads) {
-    const int r = e / chunks, c = (e - r * chunks) * 4;
-    const float4 val = r0 + r < n_rows
-                           ? *reinterpret_cast<const float4*>(
-                                 src + (size_t)(r0 + r) * d + c)
-                           : make_float4(0.f, 0.f, 0.f, 0.f);
-    *reinterpret_cast<float4*>(dst + r * ld + c) = val;
-  }
-}
 
 __device__ __forceinline__ float half_warp_max(float x) {
 #pragma unroll
@@ -128,7 +116,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fp32_kernel(
   const float* k = a.k + kv_off;
   const float* v = a.v + kv_off;
 
-  load_tile(a.q + (size_t)bh * a.s * d, q0, a.s, d, qs);
+  flash::load_tile_f32<kThreads>(a.q + (size_t)bh * a.s * d, q0, a.s, d, qs);
 
   float m[4], l[4], acc[4][8];
 #pragma unroll
@@ -144,8 +132,8 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fp32_kernel(
   for (int kt = 0; kt < n_kv; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();  // the last tile's p . v is done with ps and vs
-    load_tile(k, k0, a.skv, d, ks);
-    load_tile(v, k0, a.skv, d, vs);
+    flash::load_tile_f32<kThreads>(k, k0, a.skv, d, ks);
+    flash::load_tile_f32<kThreads>(v, k0, a.skv, d, vs);
     __syncthreads();
 
     // scores: rows ty*4 + i, keys tx + 16 j
@@ -251,55 +239,6 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fp32_kernel(
 // Tensor-core path: bf16 q / k / v, mma.sync m16n8k16 (bf16 x bf16 -> fp32)
 constexpr int kMmaWarps = 4;                  // 16 q rows a warp
 constexpr int kMmaThreads = 32 * kMmaWarps;
-constexpr int kMaxKSteps = kMaxD / 16;        // q . k^T: 16 dims a step
-constexpr int kMaxDTiles = kMaxD / 8;         // p . v: 8 output dims a tile
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4],
-                                         const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8x8 b16 matrices, rows k..k+15 of a row-major tile (k along the
-// rows) at two 8-column blocks, as the B fragments of two n-tiles,
-// transposed on the way (ldmatrix .trans). Lanes 0-15 address the rows of
-// the first block, lanes 16-31 those of the second.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* smem_row) {
-  const unsigned addr =
-      static_cast<unsigned>(__cvta_generic_to_shared(smem_row));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  uint32_t u;
-  memcpy(&u, &v, 4);
-  return u;
-}
-
-// Rows [r0, r0 + 64) of a (rows, d) bf16 matrix into a (64, dp + 8) bf16
-// tile; columns d..dp and rows at or past n_rows are zero.
-__device__ __forceinline__ void load_tile_bf16(const __nv_bfloat16* src,
-                                               int r0, int n_rows, int d,
-                                               int dp, __nv_bfloat16* dst) {
-  const int chunks = dp / 8, ld = dp + 8;
-  for (int e = threadIdx.x; e < kBQ * chunks; e += kMmaThreads) {
-    const int r = e / chunks, c = (e - r * chunks) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < n_rows && c < d)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * d + c);
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
-  }
-}
 
 template <bool kLse>
 __global__ void __launch_bounds__(kMmaThreads)
@@ -318,7 +257,8 @@ __global__ void __launch_bounds__(kMmaThreads)
   const __nv_bfloat16* k = a.k + kv_off;
   const __nv_bfloat16* v = a.v + kv_off;
 
-  load_tile_bf16(a.q + (size_t)bh * a.s * d, q0, a.s, d, dp, qs);
+  flash::load_tile_bf16<kMmaThreads>(a.q + (size_t)bh * a.s * d, q0, a.s, d,
+                                     dp, qs);
   __syncthreads();
   // this warp's 16 q rows as A fragments, kept for the whole kv loop
   uint32_t qa[kMaxKSteps][4];
@@ -345,8 +285,8 @@ __global__ void __launch_bounds__(kMmaThreads)
   for (int kt = 0; kt < n_kv; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();  // every warp is done with the last k / v tile
-    load_tile_bf16(k, k0, a.skv, d, dp, ks);
-    load_tile_bf16(v, k0, a.skv, d, dp, vs);
+    flash::load_tile_bf16<kMmaThreads>(k, k0, a.skv, d, dp, ks);
+    flash::load_tile_bf16<kMmaThreads>(v, k0, a.skv, d, dp, vs);
     __syncthreads();
 
     // scores: 8 n-tiles of 8 keys; s[j][0..1] row g, s[j][2..3] row g + 8,

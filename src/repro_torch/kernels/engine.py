@@ -1,6 +1,6 @@
 """Build, bind and launch the hand-written CUDA kernels.
 
-Sixteen kernels from ten sources under ``csrc/``: the stream engines of
+Eighteen kernels from eleven sources under ``csrc/``: the stream engines of
 the three dense-snapshot families (``gcrn_engine.cu``, ``evolve_engine.cu``,
 ``stacked_engine.cu``), of the event-driven TGN (``tgn_engine.cu``) and of
 the static GCN (``static_engine.cu``), all level v3; the paged variants of
@@ -9,9 +9,10 @@ the same source compiled with its paging flag, the t-1 state staged
 through a ring of td-wide windows); the V2 fused steps (``gcrn_step.cu``,
 ``stacked_step.cu``); the ELL SpMM of the message-passing stage
 (``ell_spmm.cu``, ``impl="pallas"``); the fused GRU and LSTM cells
-(``fused_rnn.cu``); and the LM scaffold's flash attention forward, with
-and without the logsumexp rows (``flash_attention.cu``; its wrappers and
-plain versions are in kernels/flash_attention.py). Each source is
+(``fused_rnn.cu``); and the LM scaffold's flash attention: the forward,
+with and without the logsumexp rows (``flash_attention.cu``), and the
+backward's dK / dV and dQ passes (``flash_attention_bwd.cu``); their
+wrappers and plain versions are in kernels/flash_attention.py. Each source is
 compiled by ``nvcc`` at first use into a shared library with a plain C
 interface, keyed by a hash of the sources and flags, under
 ``build/repro_torch/`` at the checkout root (``REPRO_TORCH_BUILD_DIR``
@@ -25,6 +26,12 @@ Each wrapper takes packed tensors (kernels/ops.py packs them):
   the kernel on the current stream and counts the launch in ``LAUNCHES``;
   a build or launch error raises, and nothing falls back to the plain path;
 * any other device raises.
+
+No kernel has a gradient of its own (as the JAX package's Pallas kernels,
+which ``jax.grad`` refuses): every wrapper, on either device, raises where
+autograd is on and a float input requires grad (``refuse_grad``); the
+plain and ``force_ref`` paths stay differentiable. Only the flash
+attention has a backward, as kernels of its own (``flash_mha``).
 
 A stream engine's shared memory is estimated here (``smem_bytes``, equal to
 each library's own ``<name>_smem_bytes``) and a launch over the card's
@@ -55,14 +62,16 @@ KERNELS = ("gcrn_engine", "evolve_engine", "stacked_engine", "tgn_engine",
            "static_engine", "gcrn_step", "stacked_step", "ell_spmm",
            "gcrn_engine_paged", "evolve_engine_paged", "stacked_engine_paged",
            "tgn_engine_paged", "fused_gru", "fused_lstm", "flash_attention",
-           "flash_fwd")
+           "flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
 #: the source (``csrc/<source>.cu``, one library) of each kernel
 SOURCE = {**{name: name for name in KERNELS[:8]},
           **{f"{family}_engine_paged": f"{family}_engine"
              for family in ("gcrn", "evolve", "stacked", "tgn")},
           "fused_gru": "fused_rnn", "fused_lstm": "fused_rnn",
           "flash_attention": "flash_attention",
-          "flash_fwd": "flash_attention"}
+          "flash_fwd": "flash_attention",
+          "flash_bwd_dkv": "flash_attention_bwd",
+          "flash_bwd_dq": "flash_attention_bwd"}
 
 #: the kernels' register micro-tile: each thread owns this many node rows
 #: (and, in the evolve kernel, this many columns of W). The kernels take
@@ -174,6 +183,8 @@ _SIGNATURES = {
     "fused_lstm": (8, 4, 2),
     "flash_attention": (5, 7, 0),
     "flash_fwd": (5, 7, 0),
+    "flash_bwd_dkv": (8, 7, 0),
+    "flash_bwd_dq": (7, 7, 0),
 }
 
 
@@ -354,6 +365,19 @@ def _launch(name: str, lib, *args) -> None:
     LAUNCHES[name] += 1
 
 
+def refuse_grad(name: str, *inputs) -> None:
+    """Raise where autograd would record a call of kernel ``name``: the
+    kernel writes its outputs through a raw pointer, so they would carry no
+    gradient (a silent zero). Inputs that are not tensors are skipped."""
+    if torch.is_grad_enabled() and any(
+            torch.is_tensor(t) and t.is_floating_point() and t.requires_grad
+            for t in inputs):
+        raise NotImplementedError(
+            f"{name}: the kernel has no gradient (an input requires grad); "
+            "run it under torch.no_grad(), or take the plain path "
+            "(force_ref=True, impl='xla')")
+
+
 def _device_kind(name: str, t: torch.Tensor) -> str:
     if t.device.type in ("cpu", "cuda"):
         return t.device.type
@@ -450,6 +474,8 @@ def gcrn_engine(idx, coef, eidx, x, rowg, mask, h0, c0, wx, wh, b, emsg=None):
     rowg (B, T, n) int32 (G drops), mask (B, T, n), h0/c0 (B, G, H),
     wx (din, 4H), wh (H, 4H), b (4H,), emsg (B, T, e, din) or None; all
     float tensors float32, H a multiple of 4. Returns (outs (B, T, n, H), hT, cT)."""
+    refuse_grad("gcrn_engine", idx, coef, eidx, x, rowg, mask, h0, c0, wx,
+                wh, b, emsg)
     name = "gcrn_engine"
     _check_budget("gcrn", "vmem", None, smem_bytes(
         name, k=idx.shape[-1], din=x.shape[-1], H=h0.shape[-1]))
@@ -466,6 +492,8 @@ def gcrn_engine_paged(idx, coef, eidx, x, rowg, mask, h0, c0, wx, wh, b,
     gathered rows reach the tile pass through a ``depth``-deep ring of
     td-wide column windows. Same arguments and results, bit-identical on
     the card."""
+    refuse_grad("gcrn_engine_paged", idx, coef, eidx, x, rowg, mask, h0,
+                c0, wx, wh, b, emsg)
     name = "gcrn_engine_paged"
     _check_ring(name, td, depth)
     _check_budget("gcrn", "hbm_paged", td, smem_bytes(
@@ -567,6 +595,8 @@ def evolve_engine(idx, coef, x, mask, live, w0, bg, gwx, gwh, gb, eagg=None):
     mask (B, T, n), live (B, T) int32, w0 (B, L, D, D), bg (L, D),
     gwx/gwh (L, D, 3D), gb (L, 3D), eagg (B, T, L, n, D) or None; D a
     multiple of ``ROW_ALIGN``. Returns (outs (B, T, n, D), wT (B, L, D, D))."""
+    refuse_grad("evolve_engine", idx, coef, x, mask, live, w0, bg, gwx,
+                gwh, gb, eagg)
     name = "evolve_engine"
     _check_budget("evolve", "vmem", None, smem_bytes(
         name, k=idx.shape[-1], D=w0.shape[2]))
@@ -582,6 +612,8 @@ def evolve_engine_paged(idx, coef, x, mask, live, w0, bg, gwx, gwh, gb,
     """``evolve_engine`` with W paged (hbm_paged): each W_l moves through a
     ``depth``-deep ring of (D, td) column windows and no D x D buffer sits in
     shared memory. Same arguments and results, bit-identical on the card."""
+    refuse_grad("evolve_engine_paged", idx, coef, x, mask, live, w0, bg,
+                gwx, gwh, gb, eagg)
     name = "evolve_engine_paged"
     _check_ring(name, td, depth)
     _check_budget("evolve", "hbm_paged", td, smem_bytes(
@@ -666,6 +698,8 @@ def stacked_engine(idx, coef, eidx, x, rowg, mask, h0, wg, bg, wx, wh, b,
     h0 (B, G, H), wg (din, dmid), bg (dmid,), wx (dmid, 3H), wh (H, 3H),
     b (3H,), emsg (B, T, e, din) or None; all float tensors float32, H a
     multiple of 4. Returns (outs (B, T, n, H), hT (B, G, H))."""
+    refuse_grad("stacked_engine", idx, coef, eidx, x, rowg, mask, h0, wg,
+                bg, wx, wh, b, emsg)
     name = "stacked_engine"
     _check_budget("stacked", "vmem", None, smem_bytes(
         name, k=idx.shape[-1], din=x.shape[-1], dmid=wg.shape[-1],
@@ -682,6 +716,8 @@ def stacked_engine_paged(idx, coef, eidx, x, rowg, mask, h0, wg, bg, wx, wh,
     """``stacked_engine`` with its t-1 state paged (hbm_paged): a tile's own
     rows reach it through a ``depth``-deep ring of td-wide column windows.
     Same arguments and results, bit-identical on the card."""
+    refuse_grad("stacked_engine_paged", idx, coef, eidx, x, rowg, mask, h0,
+                wg, bg, wx, wh, b, emsg)
     name = "stacked_engine_paged"
     _check_ring(name, td, depth)
     _check_budget("stacked", "hbm_paged", td, smem_bytes(
@@ -797,6 +833,8 @@ def tgn_engine(gidx, coef, ts, x, rowg, mask, mem0, freq, w_in, wx, wh, b):
     rowg (B, T, n) int32 (G drops), mask (B, T, n), mem0 (B, G, H),
     freq (H,), w_in (din, H), wx/wh (H, 3H), b (3H,); all float tensors
     float32, H a multiple of 4. Returns (outs (B, T, n, H), memT (B, G, H))."""
+    refuse_grad("tgn_engine", gidx, coef, ts, x, rowg, mask, mem0, freq,
+                w_in, wx, wh, b)
     name = "tgn_engine"
     _check_budget("tgn", "vmem", None, smem_bytes(
         name, k=gidx.shape[-1], din=x.shape[-1], H=mem0.shape[-1]))
@@ -815,6 +853,8 @@ def tgn_engine_paged(idx, coef, ts, x, rowg, mask, mem0, freq, w_in, wx, wh,
     ``depth``-deep ring of td-wide column windows. Otherwise the arguments
     and results of ``tgn_engine``, bit-identical on the card under the
     event contract."""
+    refuse_grad("tgn_engine_paged", idx, coef, ts, x, rowg, mask, mem0,
+                freq, w_in, wx, wh, b)
     name = "tgn_engine_paged"
     _check_ring(name, td, depth)
     _check_budget("tgn", "hbm_paged", td, smem_bytes(
@@ -855,6 +895,7 @@ def static_engine(idx, coef, x, mask, w, bg, eagg=None):
     mask (B, 1, n), w (L, D, D) and bg (L, D) shared by the slots,
     eagg (B, 1, L, n, D) or None; float tensors float32. Returns
     outs (B, 1, n, D)."""
+    refuse_grad("static_engine", idx, coef, x, mask, w, bg, eagg)
     name = "static_engine"
     _check_static_t(idx)
     if _device_kind(name, x) == "cpu":
@@ -911,6 +952,7 @@ def prepare(name: str, *args, **kwargs) -> Prepared:
     """Check, allocate and marshal one launch of the per-step kernel
     ``name`` ("gcrn_step", "stacked_step", "ell_spmm", "fused_gru" or
     "fused_lstm") on CUDA tensors, with that wrapper's arguments."""
+    refuse_grad(name, *args, *kwargs.values())
     return _PREPARE[name](*args, **kwargs)
 
 
@@ -925,6 +967,7 @@ def gcrn_step(idx, coef, eidx, x, h, c, wx, wh, b, emsg=None):
     idx/eidx (n, k) int32, coef (n, k), x (n, din), h/c (n, H),
     wx (din, 4H), wh (H, 4H), b (4H,), emsg (e, din) or None; float tensors
     float32. Returns (h', c'), each (n, H), unmasked."""
+    refuse_grad("gcrn_step", idx, coef, eidx, x, h, c, wx, wh, b, emsg)
     if _device_kind("gcrn_step", x) == "cpu":
         return gcrn_step_plain(idx, coef, eidx, x, h, c, wx, wh, b, emsg)
     return launch(_prepare_gcrn_step(idx, coef, eidx, x, h, c, wx, wh, b,
@@ -976,6 +1019,7 @@ def stacked_step(idx, coef, eidx, x, h, wg, bg, wx, wh, b, emsg=None):
     wg (din, dmid), bg (dmid,), wx (dmid, 3H), wh (H, 3H), b (3H,),
     emsg (e, din) or None; float tensors float32. Returns h' (n, H),
     unmasked."""
+    refuse_grad("stacked_step", idx, coef, eidx, x, h, wg, bg, wx, wh, b, emsg)
     if _device_kind("stacked_step", x) == "cpu":
         return stacked_step_plain(idx, coef, eidx, x, h, wg, bg, wx, wh, b,
                                   emsg)
@@ -1027,6 +1071,7 @@ def ell_spmm(idx, coef, eidx, x, emsg=None):
     idx/eidx (..., n, k) int32, coef (..., n, k), x (..., nx, d),
     emsg (..., e, d) or None; the leading axes are shared (at most 65535
     graphs); float tensors float32. Returns (..., n, d)."""
+    refuse_grad("ell_spmm", idx, coef, eidx, x, emsg)
     if _device_kind("ell_spmm", x) == "cpu":
         return ell_spmm_plain(idx, coef, eidx, x, emsg)
     return launch(_prepare_ell_spmm(idx, coef, eidx, x, emsg))
@@ -1082,6 +1127,7 @@ def fused_gru(x, h, wx, wh, b, *, tb: int = 128):
 
     x (Bs, din), h (Bs, H), wx (din, 3H), wh (H, 3H), b (3H,), float32;
     Bs a multiple of tb. Returns h' (Bs, H)."""
+    refuse_grad("fused_gru", x, h, wx, wh, b)
     _check_tb("fused_gru", x.shape[0], tb)
     if _device_kind("fused_gru", x) == "cpu":
         return fused_gru_plain(x, h, wx, wh, b)
@@ -1119,6 +1165,7 @@ def fused_lstm(x, h, c, wx, wh, b, *, tb: int = 128):
 
     x (Bs, din), h/c (Bs, H), wx (din, 4H), wh (H, 4H), b (4H,), float32;
     Bs a multiple of tb. Returns (h', c'), each (Bs, H)."""
+    refuse_grad("fused_lstm", x, h, c, wx, wh, b)
     _check_tb("fused_lstm", x.shape[0], tb)
     if _device_kind("fused_lstm", x) == "cpu":
         return fused_lstm_plain(x, h, c, wx, wh, b)

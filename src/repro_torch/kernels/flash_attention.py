@@ -1,28 +1,40 @@
-"""Flash attention forward: the wrappers of ``csrc/flash_attention.cu`` and
-their plain PyTorch versions, side by side.
+"""Flash attention: the wrappers of ``csrc/flash_attention.cu`` (forward)
+and ``csrc/flash_attention_bwd.cu`` (backward) and their plain PyTorch
+versions, side by side.
 
 The counterpart of ``repro.kernels.flash_attention``:
 
 * ``flash_attention`` -- ``flash_attention_pallas`` (no logsumexp);
 * ``flash_fwd`` -- ``_flash_fwd``, the forward that also returns the
   logsumexp rows, which ``flash_mha`` (the model's entry) reaches;
-* ``flash_mha`` -- ``flash_mha``'s primal. Its backward kernels are not
-  ported yet (ROADMAP queue 2 #14), so it refuses inputs that need a
-  gradient instead of differentiating the plain version.
+* ``flash_bwd_dkv`` / ``flash_bwd_dq`` -- ``_flash_dkv_kernel`` /
+  ``_flash_dq_kernel``, and ``flash_bwd`` -- ``_flash_bwd``, which runs
+  both after computing delta = rowsum(dO o);
+* ``flash_mha`` -- ``flash_mha``, differentiable: a
+  ``torch.autograd.Function`` whose forward is ``flash_fwd`` and whose
+  backward is ``flash_bwd``.
+
+The kernel wrappers themselves record no gradient and refuse inputs that
+require one where autograd is on (``engine.refuse_grad``), as every kernel
+of the port; ``flash_mha`` is the differentiable entry.
 
 Layout: q (B*Hq, S, d), k / v (B*Hkv, Skv, d), q heads kv-head-major so
 q head ``bh`` reads kv head ``bh // group``. Scores and the accumulator
 are fp32; p is rounded to the value type before the p.v product; the
-output has q's type, the logsumexp is fp32 (B*Hq, S).
+output has q's type, the logsumexp is fp32 (B*Hq, S). The backward takes
+dO (and gives dQ) like q, dK / dV like k / v, lse and delta (B*Hq, S)
+fp32; it rounds p to dO's type before p^T.dO and dS to the inputs' type
+before dS^T.q and dS.k, with fp32 accumulators, as the TPU kernels.
 
 A CPU tensor runs the plain version; a CUDA tensor launches the kernel
 (built by ``engine.build``, counted in ``engine.LAUNCHES``) or raises.
 ``bq`` / ``bk`` are validated as the JAX package validates them
 (``min(bq, S)`` must divide S and ``min(bk, Skv)`` Skv), on both entry
 points and both devices: the JAX ``_flash_fwd`` omits that check and
-leaves the tail rows unwritten (ROADMAP queue 3). The kernel runs its own
-64 x 64 tiles, the plain version ``bk``-wide kv tiles; masking, not the
-tile, decides what a row sees.
+leaves the tail rows unwritten (ROADMAP queue 3), and so does its
+``_flash_bwd``, whose grid is ``s // bq`` too: the backward validates them
+the same way. The kernels run their own 64 x 64 tiles, the plain versions
+``bk``-wide kv tiles; masking, not the tile, decides what a row sees.
 """
 from __future__ import annotations
 
@@ -145,6 +157,7 @@ def flash_fwd(q, k, v, causal: bool = True, bq: int = 512, bk: int = 512,
     (B*Hkv, Skv, d), float32 or bfloat16. Returns (o (B*Hq, S, d) in q's
     type, lse (B*Hq, S) float32)."""
     name = "flash_fwd"
+    engine.refuse_grad(name, q, k, v)
     _validate(name, q, k, v, bq, bk, group)
     if engine._device_kind(name, q) == "cpu":
         return flash_fwd_plain(q, k, v, causal, bq, bk, group)
@@ -156,6 +169,7 @@ def flash_attention(q, k, v, *, causal: bool = True, bq: int = 512,
     """Attention forward: q (B*Hq, S, d), k / v (B*Hkv, Skv, d), float32 or
     bfloat16. Returns o (B*Hq, S, d) in q's type."""
     name = "flash_attention"
+    engine.refuse_grad(name, q, k, v)
     _validate(name, q, k, v, bq, bk, group)
     if engine._device_kind(name, q) == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, bq=bq, bk=bk,
@@ -163,14 +177,166 @@ def flash_attention(q, k, v, *, causal: bool = True, bq: int = 512,
     return _flash_cuda(name, q, k, v, causal, group, lse=False)
 
 
+def _validate_bwd(name: str, q, k, v, do, lse, delta, bq: int, bk: int,
+                  group: int):
+    """``_validate`` plus the backward's own inputs: dO like q, lse and
+    delta (BH, S) float32."""
+    tiles = _validate(name, q, k, v, bq, bk, group)
+    if do.shape != q.shape or do.dtype != q.dtype:
+        raise ValueError(f"{name}: dO must be {tuple(q.shape)} {q.dtype} "
+                         f"like q, got {tuple(do.shape)} {do.dtype}")
+    for key, t in (("lse", lse), ("delta", delta)):
+        if t.shape != q.shape[:2] or t.dtype != torch.float32:
+            raise ValueError(f"{name}: {key} must be {tuple(q.shape[:2])} "
+                             f"float32, got {tuple(t.shape)} {t.dtype}")
+    return tiles
+
+
+def _bwd_tiles(q, k, v, do, lse, delta, causal: bool, bk: int, group: int):
+    """The backward's tile arithmetic, in plain PyTorch: for each
+    ``bk``-wide kv tile (k0, p, dS) over a kv head's ``group`` q heads as one
+    block of group * S rows, p = exp(scale q.k^T - lse) (0 where masked) and
+    dS = p (dO.v^T - delta) scale, fp32."""
+    bh, s, d = q.shape
+    bhkv, skv = k.shape[:2]
+    scale = 1.0 / math.sqrt(d)
+    qf = q.float().reshape(bhkv, group * s, d)
+    dof = do.float().reshape(bhkv, group * s, d)
+    lse = lse.reshape(bhkv, group * s, 1)
+    delta = delta.reshape(bhkv, group * s, 1)
+    qpos = torch.arange(s, device=q.device).repeat(group)
+    for k0 in range(0, skv, bk):
+        if causal and k0 > s - 1:
+            break  # every row's keys end before this tile
+        sc = torch.matmul(qf, k[:, k0:k0 + bk].float().transpose(1, 2))
+        sc = sc * scale
+        if causal:
+            kpos = torch.arange(k0, k0 + bk, device=q.device)
+            sc = torch.where(qpos[:, None] >= kpos[None, :], sc, NEG_INF)
+        p = torch.exp(sc - lse)
+        dp = torch.matmul(dof, v[:, k0:k0 + bk].float().transpose(1, 2))
+        yield k0, p, p * (dp - delta) * scale
+
+
+def flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal: bool = True,
+                        bq: int = 512, bk: int = 512, group: int = 1):
+    """The dK / dV kernel's function in plain PyTorch: dV = sum of
+    round(p)^T dO, dK = sum of round(dS)^T q over a kv head's group, per
+    ``bk``-wide kv tile. Returns (dk, dv) in k's type."""
+    bq, bk = _validate_bwd("flash_bwd_dkv", q, k, v, do, lse, delta, bq, bk,
+                           group)
+    bhkv, skv, d = k.shape
+    qf = q.float().reshape(bhkv, -1, d)
+    dof = do.float().reshape(bhkv, -1, d)
+    dk = torch.zeros((bhkv, skv, d), device=q.device)
+    dv = torch.zeros((bhkv, skv, d), device=q.device)
+    for k0, p, ds in _bwd_tiles(q, k, v, do, lse, delta, causal, bk, group):
+        dv[:, k0:k0 + bk] = torch.matmul(
+            p.to(do.dtype).float().transpose(1, 2), dof)
+        dk[:, k0:k0 + bk] = torch.matmul(
+            ds.to(q.dtype).float().transpose(1, 2), qf)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_bwd_dq_plain(q, k, v, do, lse, delta, causal: bool = True,
+                       bq: int = 512, bk: int = 512, group: int = 1):
+    """The dQ kernel's function in plain PyTorch: dQ = sum of round(dS) k
+    over ``bk``-wide kv tiles. Returns dq in q's type."""
+    bq, bk = _validate_bwd("flash_bwd_dq", q, k, v, do, lse, delta, bq, bk,
+                           group)
+    bh, s, d = q.shape
+    bhkv = k.shape[0]
+    dq = torch.zeros((bhkv, group * s, d), device=q.device)
+    for k0, _, ds in _bwd_tiles(q, k, v, do, lse, delta, causal, bk, group):
+        dq += torch.matmul(ds.to(k.dtype).float(), k[:, k0:k0 + bk].float())
+    return dq.reshape(bh, s, d).to(q.dtype)
+
+
+def _bwd_cuda(name: str, q, k, v, do, lse, delta, causal: bool, group: int):
+    """Check CUDA tensors, allocate the outputs and launch kernel
+    ``name``."""
+    f32 = torch.float32
+    engine._check(name, q.device, q=(q, q.dtype), k=(k, q.dtype),
+                  v=(v, q.dtype), do=(do, q.dtype), lse=(lse, f32),
+                  delta=(delta, f32))
+    for key, t in (("q", q), ("k", k), ("v", v), ("do", do)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {key} must start on a 16-byte "
+                             "boundary (the kernel loads float4 / 8 x bf16)")
+    lib = engine._library(name)
+    bh, s, d = q.shape
+    outs = ((torch.empty_like(q),) if name == "flash_bwd_dq"
+            else (torch.empty_like(k), torch.empty_like(v)))
+    with torch.cuda.device(q.device):
+        engine._launch(name, lib, *map(engine._ptr, (q, k, v, do, lse, delta,
+                                                     *outs)),
+                       bh, s, k.shape[1], d, group, int(bool(causal)),
+                       DTYPE_CODES[q.dtype], engine._stream_ptr())
+    return outs
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True,
+                  bq: int = 512, bk: int = 512, group: int = 1):
+    """The backward's dK / dV pass: q / dO (B*Hq, S, d), k / v (B*Hkv, Skv,
+    d), lse / delta (B*Hq, S) float32. Returns (dk, dv) in k's type."""
+    name = "flash_bwd_dkv"
+    engine.refuse_grad(name, q, k, v, do, lse, delta)
+    _validate_bwd(name, q, k, v, do, lse, delta, bq, bk, group)
+    if engine._device_kind(name, q) == "cpu":
+        return flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal, bq, bk,
+                                   group)
+    return _bwd_cuda(name, q, k, v, do, lse, delta, causal, group)
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = True,
+                 bq: int = 512, bk: int = 512, group: int = 1):
+    """The backward's dQ pass, on flash_bwd_dkv's inputs. Returns dq in q's
+    type."""
+    name = "flash_bwd_dq"
+    engine.refuse_grad(name, q, k, v, do, lse, delta)
+    _validate_bwd(name, q, k, v, do, lse, delta, bq, bk, group)
+    if engine._device_kind(name, q) == "cpu":
+        return flash_bwd_dq_plain(q, k, v, do, lse, delta, causal, bq, bk,
+                                  group)
+    return _bwd_cuda(name, q, k, v, do, lse, delta, causal, group)[0]
+
+
+def flash_bwd(q, k, v, o, lse, do, causal: bool = True, bq: int = 512,
+              bk: int = 512, group: int = 1):
+    """The attention backward from the forward's (q, k, v, o, lse) and the
+    output cotangent dO: delta = rowsum(dO o) in fp32 (plain torch ops, as
+    the JAX package computes it outside its kernels), then the dK / dV and
+    dQ kernels. Returns (dq, dk, dv)."""
+    delta = (do.float() * o.float()).sum(dim=-1)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal, bq, bk, group)
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, causal, bq, bk, group)
+    return dq, dk, dv
+
+
+class _FlashMHA(torch.autograd.Function):
+    """flash_fwd forward, flash_bwd backward (the JAX custom VJP)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, bq, bk, group):
+        o, lse = flash_fwd(q, k, v, causal, bq, bk, group)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (causal, bq, bk, group)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        # the model's head transposes hand the cotangent over strided
+        dq, dk, dv = flash_bwd(q, k, v, o, lse, do.contiguous(), *ctx.args)
+        return dq, dk, dv, None, None, None, None
+
+
 def flash_mha(q, k, v, causal: bool = True, bq: int = 512, bk: int = 512,
               group: int = 1):
-    """The model's attention entry: ``flash_fwd(...)[0]``, forward only."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "flash_mha: no gradient in the port yet (backward kernels: "
-            "ROADMAP queue 2 #14)")
-    return flash_fwd(q, k, v, causal, bq, bk, group)[0]
+    """Differentiable flash attention (the model's entry): o of
+    ``flash_fwd``; its backward runs ``flash_bwd``. Shapes as
+    ``flash_fwd``."""
+    return _FlashMHA.apply(q, k, v, causal, bq, bk, group)
 
 
 def flops_bytes(b: int, hq: int, hkv: int, s: int, d: int, *,

@@ -1,5 +1,5 @@
-"""Generic LM-family model at inference (the counterpart of
-``repro.models.lm``): prefill and KV-cache decode on the dense,
+"""Generic LM-family model (the counterpart of ``repro.models.lm``):
+prefill, KV-cache decode and the training loss on the dense,
 attention-only wiring.
 
 Layers are stored STACKED per period position, in the JAX pytree layout:
@@ -8,9 +8,13 @@ carry a leading layer axis, so the weights cross between the packages
 structurally (``params.lm_params_from_jax``). The JAX package's scanned and
 unrolled forward paths are one Python loop over the layers here.
 
-Not ported yet (ROADMAP queue 1 item 15): the MoE and Mamba2 mixers
-(``init_params`` refuses those architectures), training (``train=True``,
-``loss_fn``, ``chunked_ce_loss``), and sharding.
+Training (``loss_fn``): ``backbone(train=True)`` recomputes each layer in
+the backward when ``rt.remat`` (``torch.utils.checkpoint``, the JAX
+package's ``jax.checkpoint``: only the layer boundaries are kept), and
+``chunked_ce_loss`` recomputes each ``rt.loss_chunk`` chunk's logits, so
+(B, S, V) never exists. Not ported yet (ROADMAP queue 1 item 15): the MoE
+and Mamba2 mixers (``init_params`` refuses those architectures), and
+sharding.
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ from dataclasses import dataclass
 from typing import Any, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ops import resolve_device
@@ -25,6 +30,7 @@ from repro_torch.nn import attention as ATT
 from repro_torch.nn import mlp as MLP
 from repro_torch.nn.layers import (
     ACT_DTYPE,
+    bf16_cotangent,
     embed_lookup,
     init_embedding,
     init_lm_head,
@@ -46,7 +52,7 @@ class RuntimeConfig:
     scan_layers: bool = True    # False -> unrolled (dry-run accounting)
     remat: bool = True          # per-layer rematerialization for train
     attn_chunk: int = 2048      # q-chunk for long-sequence attention
-    attn_impl: str = "xla"      # "flash" = the flash kernel (forward only)
+    attn_impl: str = "xla"      # "flash" = the flash kernels
     flash_bq: int = 512         # flash q tile
     flash_bk: int = 512         # flash kv tile
     moe_impl: str = "auto"      # "dense" | "ep" | "auto"
@@ -171,6 +177,17 @@ def _stack(trees: list):
 # ------------------------------------------------------------ forward ----
 
 
+def _layer_slices(stacked, nb: int) -> list:
+    """The ``nb`` per-layer trees of a stacked tree, each leaf cut once by
+    ``torch.unbind``: under autograd its backward stacks the layers' grads
+    once, where indexing ``a[b]`` would write a zero tensor of the whole
+    stacked leaf for every slice."""
+    if isinstance(stacked, dict):
+        per_key = {k: _layer_slices(v, nb) for k, v in stacked.items()}
+        return [{k: per_key[k][b] for k in stacked} for b in range(nb)]
+    return list(torch.unbind(stacked, 0))
+
+
 def iter_layers(params: dict, cfg: ModelConfig,
                 caches: Optional[list] = None):
     """The layers in order, as ``backbone`` walks them: (period position,
@@ -178,14 +195,16 @@ def iter_layers(params: dict, cfg: ModelConfig,
     its stacked leaves."""
     kinds = cfg.layer_kinds()
     period = cfg.scan_period()
-    for b in range(cfg.n_layers // period):
+    nb = cfg.n_layers // period
+    layers = [_layer_slices(params["blocks"][pos], nb)
+              for pos in range(period)]
+    cache_layers = (None if caches is None else
+                    [_layer_slices(caches[pos], nb) for pos in range(period)])
+    for b in range(nb):
         for pos in range(period):
             _, mlp = kinds[b * period + pos]
-            pl = _tree_map(lambda a, b=b: a[b], params["blocks"][pos])
-            cache = None
-            if caches is not None:
-                cache = _tree_map(lambda a, b=b: a[b], caches[pos])
-            yield pos, mlp, pl, cache
+            cache = None if caches is None else cache_layers[pos][b]
+            yield pos, mlp, layers[pos][b], cache
 
 
 def attention_sublayer(pl: dict, cfg: ModelConfig, rt: RuntimeConfig,
@@ -214,16 +233,18 @@ def backbone(params: dict, cfg: ModelConfig, rt: RuntimeConfig,
              x: torch.Tensor, positions, caches: Optional[list] = None,
              train: bool = False):
     """x: (B, S, D) -> (B, S, D); threads per-layer caches when decoding.
-    Inference only: ``train=True`` is not ported yet."""
-    if train:
-        raise NotImplementedError(f"backbone(train=True): training is "
-                                  f"{_NOT_PORTED}")
+    ``train`` with ``rt.remat``: each layer is recomputed in the backward,
+    so only the layer boundaries are kept."""
     _check_ported(cfg)
     period = cfg.scan_period()
     x = x.to(ACT_DTYPE)
     collected: dict[int, list] = {pos: [] for pos in range(period)}
     for pos, mlp, pl, cache in iter_layers(params, cfg, caches):
-        x, new_cache = layer_apply(pl, cfg, rt, mlp, x, positions, cache)
+        if train and rt.remat:
+            x, new_cache = checkpoint(layer_apply, pl, cfg, rt, mlp, x,
+                                      positions, cache, use_reentrant=False)
+        else:
+            x, new_cache = layer_apply(pl, cfg, rt, mlp, x, positions, cache)
         if caches is not None:
             collected[pos].append(new_cache)
     if caches is None:
@@ -250,13 +271,52 @@ def logits_fn(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return logits + vocab_mask(w.shape[1], cfg.vocab_size, x.device)
 
 
-def loss_fn(params, cfg: ModelConfig, rt: RuntimeConfig, batch: dict):
-    raise NotImplementedError(f"loss_fn: training is {_NOT_PORTED}")
-
-
 def chunked_ce_loss(params, cfg: ModelConfig, rt: RuntimeConfig, x, targets,
-                    mask=None):
-    raise NotImplementedError(f"chunked_ce_loss: training is {_NOT_PORTED}")
+                    mask=None) -> torch.Tensor:
+    """Mean cross-entropy over (B, S) without materializing (B, S, V): the
+    logits of ``rt.loss_chunk`` positions at a time, each chunk recomputed
+    in the backward (its residual is the x chunk)."""
+    b, s, d = x.shape
+    w = _head_weight(params, cfg)
+    vmask = vocab_mask(w.shape[1], cfg.vocab_size, x.device)
+    c = min(rt.loss_chunk, s)
+    if s % c:
+        raise ValueError(f"chunked_ce_loss: S={s} is not a multiple of "
+                         f"loss_chunk={c}")
+    mk = (torch.ones((b, s), device=x.device) if mask is None
+          else mask.float())
+
+    def one(xi, ti, mi):
+        lg = torch.einsum("bcd,dv->bcv", xi, w.to(ACT_DTYPE)).float() + vmask
+        lse = torch.logsumexp(lg, dim=-1)
+        gold = torch.gather(lg, -1, ti.long()[..., None])[..., 0]
+        return ((lse - gold) * mi).sum()
+
+    total = 0.0
+    for i in range(0, s, c):
+        chunk = (x[:, i:i + c], targets[:, i:i + c], mk[:, i:i + c])
+        total = total + (checkpoint(one, *chunk, use_reentrant=False)
+                         if torch.is_grad_enabled() else one(*chunk))
+    return total / torch.clamp_min(mk.sum(), 1.0)
+
+
+def loss_fn(params, cfg: ModelConfig, rt: RuntimeConfig, batch: dict, *,
+            device="cuda") -> torch.Tensor:
+    """The training loss of one batch ({"tokens" or "embeds", "targets"[,
+    "mask"]}): the backbone with ``train=True``, the final norm, then the
+    chunked cross-entropy; differentiable in ``params``. ``rt.bwd_bf16``
+    rounds the loss head's cotangent to bf16 before it enters the
+    backbone's backward. On the card unless ``device="cpu"``."""
+    dev = _batch_device(params, batch, device)
+    x = _inputs_to_stream(params, cfg, batch)
+    b, s = x.shape[0], x.shape[1]
+    positions = torch.arange(s, device=dev).expand(b, s)
+    h, _ = backbone(params, cfg, rt, x, positions, train=True)
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    if rt.bwd_bf16:
+        h = bf16_cotangent(h)
+    return chunked_ce_loss(params, cfg, rt, h, batch["targets"],
+                           batch.get("mask"))
 
 
 def _batch_device(params: dict, batch: dict, device) -> torch.device:

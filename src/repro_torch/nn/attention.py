@@ -22,6 +22,7 @@ import math
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import flash_mha
@@ -105,15 +106,25 @@ def full_attention(q, k, v, *, causal: bool, q_offset: int = 0):
 
 
 def chunked_attention(q, k, v, *, causal: bool, chunk: int = 2048):
-    """A loop over query chunks; each chunk attends the full masked KV."""
+    """A loop over query chunks; each chunk attends the full masked KV.
+    Under autograd each chunk is recomputed in the backward (the JAX
+    package's ``jax.checkpoint``), so only one chunk's probabilities live
+    at a time."""
     b, s, hq, hd = q.shape
     if s <= chunk:
         return full_attention(q, k, v, causal=causal)
     if s % chunk:
         raise ValueError(f"chunked_attention: S={s} is not a multiple of "
                          f"chunk={chunk}")
-    outs = [full_attention(q[:, i:i + chunk], k, v, causal=causal,
-                           q_offset=i) for i in range(0, s, chunk)]
+
+    def one(qi, i):
+        return full_attention(qi, k, v, causal=causal, q_offset=i)
+
+    if torch.is_grad_enabled():
+        outs = [checkpoint(one, q[:, i:i + chunk], i, use_reentrant=False)
+                for i in range(0, s, chunk)]
+    else:
+        outs = [one(q[:, i:i + chunk], i) for i in range(0, s, chunk)]
     return torch.cat(outs, dim=1)
 
 

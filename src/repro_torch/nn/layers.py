@@ -4,9 +4,10 @@ The counterpart of ``repro.nn.layers``. Init functions return plain
 tensors (the JAX package's logical-axis trees are for sharding, which the
 port does not do on one card), on the card unless the caller passes
 ``device="cpu"`` (or ``"meta"`` for the layout alone). Compute follows
-the bf16-activations / fp32-norms-and-softmax convention. The JAX package's experiment switches
-``set_lowmem_norm`` (off by default) and ``bf16_cotangent`` (training
-only) are not ported yet (ROADMAP queue 1 item 15).
+the bf16-activations / fp32-norms-and-softmax convention, with the JAX
+package's two switches: ``set_lowmem_norm`` (off by default; on, norms
+and RoPE touch the wide tensor only in its own type) and ``bf16_cotangent`` (the
+training loss's ``rt.bwd_bf16``).
 """
 from __future__ import annotations
 
@@ -33,11 +34,46 @@ def normal_init(generator, shape, scale: float, *, device="cuda",
     return w.to(dtype)
 
 
+#: the low-memory norm switch (per process, off by default): the norms and
+#: RoPE touch the wide (B, S, ...) tensor only in its own dtype
+LOWMEM_NORM = False
+
+
+def set_lowmem_norm(v: bool) -> None:
+    global LOWMEM_NORM
+    LOWMEM_NORM = bool(v)
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
-    """fp32 statistics, the result cast back to ``x.dtype``."""
+    """fp32 statistics, the result cast back to ``x.dtype``; under
+    ``LOWMEM_NORM`` the normalisation itself runs in ``x.dtype``."""
     xf32 = x.float()
     var = torch.mean(xf32 * xf32, dim=-1, keepdim=True)
+    if LOWMEM_NORM:
+        inv = torch.rsqrt(var + eps).to(x.dtype)
+        return x * inv * scale.to(x.dtype)
     return ((xf32 * torch.rsqrt(var + eps)) * scale.float()).to(x.dtype)
+
+
+class _Bf16Cotangent(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.dtype = x.dtype
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        # demote to bf16, then to the primal dtype if that is narrower
+        g = g.to(torch.bfloat16)
+        return g if ctx.dtype == torch.bfloat16 else g.to(ctx.dtype)
+
+
+def bf16_cotangent(x: torch.Tensor) -> torch.Tensor:
+    """Identity whose backward rounds the cotangent through bf16: at the
+    backbone -> loss boundary it demotes the backward residual-stream chain
+    from the fp32 the loss head promotes to, to bf16. Parameter gradients
+    keep their dtype."""
+    return _Bf16Cotangent.apply(x)
 
 
 def init_rms_norm(d: int, *, device="cuda", dtype=torch.float32):
@@ -53,14 +89,16 @@ def rope_freqs(head_dim: int, theta: float, device="cuda") -> torch.Tensor:
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """Split-halves RoPE. x: (..., S, H, hd); positions: broadcastable to
-    (..., S). The trig and the rotation run in fp32; the result is cast
-    back to ``x.dtype``."""
+    (..., S). The trig runs in fp32; the rotation in fp32 too, or in
+    ``x.dtype`` under ``LOWMEM_NORM``; the result is cast back to
+    ``x.dtype``."""
     hd = x.shape[-1]
     freqs = rope_freqs(hd, theta, x.device)                  # (hd/2,)
     ang = positions[..., None].to(torch.float32) * freqs     # (..., S, hd/2)
-    cos = torch.cos(ang)[..., None, :]                       # (..., S, 1, hd/2)
-    sin = torch.sin(ang)[..., None, :]
-    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    wide = x.dtype if LOWMEM_NORM else torch.float32
+    cos = torch.cos(ang)[..., None, :].to(wide)              # (..., S, 1, hd/2)
+    sin = torch.sin(ang)[..., None, :].to(wide)
+    x1, x2 = torch.chunk(x.to(wide), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
 

@@ -16,6 +16,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.dgnn import DGNNConfig
 from repro_torch.core.dataflow import build_model
 from repro_torch.models.lm import RuntimeConfig, init_params
+from repro_torch.optim import tree_leaves
 
 
 def _convert(ref, src, path: str, leaf=None):
@@ -97,3 +98,46 @@ def lm_params_from_jax(cfg: ModelConfig, rt: RuntimeConfig,
     built on the ``meta`` device (no allocation, at any width)."""
     return _convert(init_params(cfg, rt, device="meta"), params_np, "",
                     _lm_leaf)
+
+
+def _moment(a, shape, path: str):
+    """One moment leaf: an array (fp32 / bf16) or an int8 {"q", "scale"}
+    dict, as tensors on the CPU."""
+    if isinstance(a, dict):
+        if set(a) != {"q", "scale"}:
+            raise ValueError(f"{path}: expected keys ['q', 'scale'], got "
+                             f"{sorted(a)}")
+        q, scale = np.asarray(a["q"]), np.asarray(a["scale"])
+        if q.dtype != np.int8 or q.shape != (tuple(shape) or (1,)):
+            raise ValueError(f"{path}: q {q.dtype} {q.shape}, expected int8 "
+                             f"{tuple(shape)}")
+        return {"q": torch.from_numpy(q.copy()),
+                "scale": _tensor(scale)}
+    a = np.asarray(a)
+    if a.shape != tuple(shape):
+        raise ValueError(f"{path}: shape {a.shape}, expected {tuple(shape)}")
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int16)
+                                .copy()).view(torch.bfloat16)
+    return _tensor(a)
+
+
+def opt_state_from_jax(params_np, opt_np) -> dict:
+    """A JAX optimizer state (``repro.optim.init_opt_state`` or a step's
+    result, numpy leaves: float32 / bfloat16 arrays, or int8 {"q", "scale"}
+    dicts) as the port's (``repro_torch.optim``) on the CPU: the flat "m"
+    and "v" lists, checked leaf by leaf against the shapes of ``params_np``
+    (the parameters, numpy, in the JAX package's order of leaves), and the
+    step as a host int32 scalar."""
+    shapes = [np.shape(a) for a in tree_leaves(params_np)]
+    out = {}
+    for key in ("m", "v"):
+        got = opt_np[key]
+        if len(got) != len(shapes):
+            raise ValueError(f"opt[{key!r}]: {len(got)} leaves, the "
+                             f"parameters {len(shapes)}")
+        out[key] = [_moment(a, s, f"opt[{key!r}][{i}]")
+                    for i, (a, s) in enumerate(zip(got, shapes))]
+    out["step"] = torch.tensor(int(np.asarray(opt_np["step"])),
+                               dtype=torch.int32)
+    return out

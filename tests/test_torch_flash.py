@@ -11,8 +11,9 @@ only in fp32 summation order, which can move a bf16 output by one ulp,
 7.8e-3 at |o| < 2). Distinct K / V per head with group > 1, so a wrong
 q-head -> kv-head map fails. Both entry points refuse a tail (a tile that
 does not divide the sequence), which the JAX ``_flash_fwd`` would leave
-unwritten; ``flash_mha`` refuses inputs that need a gradient (the backward
-kernels are not ported yet); ``flops_bytes`` is the JAX package's count.
+unwritten; ``flash_mha`` differentiates (its backward is held against the
+JAX package's in tests/test_torch_flash_bwd.py); ``flops_bytes`` is the
+JAX package's count.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -127,10 +128,18 @@ def test_head_dim_limit(d, ok):
 
 
 def test_flash_mha_refuses_a_gradient():
+    """No longer: flash_mha differentiates (flash_fwd, then flash_bwd).
+    Its gradients are those of autograd through the plain forward, and
+    under no_grad it runs as before."""
     q, k, v = _t(_qkv(6, 4, 32, 16, 2))
     q.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2 #14"):
-        tfa.flash_mha(q, k, v, True, 32, 32, 2)
+    o = tfa.flash_mha(q, k, v, True, 32, 32, 2)
+    assert o.grad_fn is not None
+    do = torch.ones_like(o)
+    (got,) = torch.autograd.grad(o, q, do)
+    o_plain, _ = tfa.flash_fwd_plain(q, k, v, True, 32, 32, 2)
+    (want,) = torch.autograd.grad(o_plain, q, do)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5, rtol=0)
     with torch.no_grad():
         assert tfa.flash_mha(q, k, v, True, 32, 32, 2).shape == q.shape
 

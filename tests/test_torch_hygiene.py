@@ -243,3 +243,119 @@ def test_lm_helpers_default_to_cuda_and_raise(no_cuda, name):
     out = _lm_helper_call(name, device="cpu")
     leaves = list(out.values()) if isinstance(out, dict) else [out]
     assert leaves and all(t.device.type == "cpu" for t in leaves)
+
+
+# ------------------------------------ no kernel drops a gradient ----
+# A kernel writes its outputs through a raw pointer, so on the card its
+# result has no grad_fn: every wrapper (and ``engine.prepare``) refuses an
+# input that requires grad where autograd is on, on the CPU too, as the
+# JAX package's Pallas kernels refuse ``jax.grad``. The plain (force-ref)
+# paths and ``flash_mha`` stay differentiable.
+
+def _grad_case(name):
+    """(the wrapper ``name``, its arguments, its keyword arguments, a
+    differentiable call of the same function) on small CPU tensors, one
+    float input requiring grad."""
+    from repro_torch.kernels import flash_attention as fa
+
+    z = lambda *s: torch.zeros(s, requires_grad=True)
+    i = lambda *s: torch.zeros(s, dtype=torch.int32)
+    n, k, d, h = 8, 2, 4, 8
+    if name in ("gcrn_step", "stacked_step", "ell_spmm"):
+        lanes = (i(n, k), torch.ones(n, k), i(n, k))
+        args = {"ell_spmm": (*lanes, z(n, d)),
+                "gcrn_step": (*lanes, z(n, d), z(n, h), z(n, h),
+                              z(d, 4 * h), z(h, 4 * h), z(4 * h)),
+                "stacked_step": (*lanes, z(n, d), z(n, h), z(d, h), z(h),
+                                 z(h, 3 * h), z(h, 3 * h), z(3 * h))}[name]
+        ref = {"ell_spmm": ops.ell_spmm, "gcrn_step": ops.dgnn_fused_step,
+               "stacked_step": ops.stacked_fused_step}[name]
+        return (getattr(engine, name), args, {},
+                lambda: ref(*args, force_ref=True))
+    if name in ("fused_gru", "fused_lstm"):
+        g = 3 if name == "fused_gru" else 4
+        c = (z(16, 8),) if name == "fused_lstm" else ()
+        args = (z(16, 4), z(16, 8), *c, z(4, g * 8), z(8, g * 8), z(g * 8))
+        return (getattr(engine, name), args, {"tb": 8},
+                lambda: getattr(ops, name)(*args, tb=8, force_ref=True,
+                                           device="cpu"))
+    if name in ("flash_attention", "flash_fwd"):
+        args = (z(4, 32, 16), z(2, 32, 16), z(2, 32, 16))
+        kw = dict(causal=True, bq=32, bk=32, group=2)
+        return getattr(fa, name), args, kw, lambda: fa.flash_mha(*args, **kw)
+    if name.startswith("flash_bwd"):
+        lse = torch.zeros((4, 32))
+        args = (z(4, 32, 16), z(2, 32, 16), z(2, 32, 16), z(4, 32, 16), lse,
+                lse, True, 32, 32, 2)
+        return (getattr(fa, name), args, {},
+                lambda: getattr(fa, f"{name}_plain")(*args))
+    family = name.removesuffix("_paged").removesuffix("_engine")
+    family = "static_gcn" if family == "static" else family
+    args, _, _ = harness.stream_kernel_case(family, seed=1, B=2)
+    args = ops.to_device(tuple(args), "cpu")
+    weight = next(a for a in reversed(args)
+                  if torch.is_tensor(a) and a.is_floating_point())
+    weight.requires_grad_(True)
+    paged = name.endswith("_paged")
+    plan = (dict(state_residency="hbm_paged", td=8, buffer_depth=2)
+            if paged else {})
+    packed = ops.pack(family, *args,
+                      residency="hbm_paged" if paged else "vmem")
+    return (getattr(engine, name), packed,
+            dict(td=8, depth=2) if paged else {},
+            lambda: ops.stream_steps_batched(family, *args, force_ref=True,
+                                             device="cpu", **plan))
+
+
+@pytest.mark.parametrize("name", [
+    *engine.KERNELS, *(f"prepare:{n}" for n in (
+        "gcrn_step", "stacked_step", "ell_spmm", "fused_gru", "fused_lstm"))])
+def test_kernel_wrappers_refuse_an_input_that_requires_grad(name):
+    prepared = name.startswith("prepare:")
+    name = name.removeprefix("prepare:")
+    wrapper, args, kw, _ = _grad_case(name)
+    engine.reset_launches()
+    with pytest.raises(NotImplementedError, match="no gradient"):
+        if prepared:
+            engine.prepare(name, *args, **kw)
+        else:
+            wrapper(*args, **kw)
+    assert not any(engine.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("name", engine.KERNELS)
+def test_kernel_wrappers_run_under_no_grad_and_the_plain_path_differentiates(
+        name):
+    wrapper, args, kw, plain = _grad_case(name)
+    with torch.no_grad():
+        wrapper(*args, **kw)
+    out = plain()
+    first = out[0] if isinstance(out, (tuple, list)) else out
+    assert first.requires_grad and first.grad_fn is not None
+
+
+@pytest.mark.parametrize("entry", ["loss_fn", "train", "launch.train",
+                                   "synthetic_lm_batches"])
+def test_training_entry_points_default_to_cuda_and_raise(no_cuda, entry):
+    from repro_torch.configs import ARCHS, reduce_for_smoke
+    from repro_torch.data import synthetic_lm_batches
+    from repro_torch.launch import train as launch
+    from repro_torch.models import RuntimeConfig, init_params, loss_fn
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainLoopConfig, train
+
+    cfg, rt = reduce_for_smoke(ARCHS["phi3-mini-3.8b"]), RuntimeConfig()
+    params = init_params(cfg, rt, device="cpu")
+    tokens = torch.zeros((1, 4), dtype=torch.int32)
+    batch = {"tokens": tokens, "targets": tokens}
+    call = {"loss_fn": lambda: loss_fn(params, cfg, rt, batch),
+            "train": lambda: train(lambda p, b: loss_fn(p, cfg, rt, b,
+                                                        device="cpu"),
+                                   params, [batch], AdamWConfig(),
+                                   TrainLoopConfig(total_steps=1)),
+            "launch.train": lambda: launch.main(["--arch", "phi3-mini-3.8b",
+                                                 "--steps", "1"]),
+            "synthetic_lm_batches": lambda: next(synthetic_lm_batches(
+                cfg, 1, 4))}[entry]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()
