@@ -13,8 +13,10 @@ Phases (any failure exits non-zero):
      a. narrow odd widths with partial node tiles, ragged with a length-0
         row, with and without edge messages / the static edge term, the
         paged engines at ring depths 1, 2 and 4 (also bit-for-bit against
-        the resident engine), the GRU / LSTM cells with a partial row tile
-        (<= 1e-4: fp32 with TF32 off, only the order of summation differs);
+        the resident engine), the GRU / LSTM cells at their kernel's edges
+        (a partial row tile and unit slice, din 13 and an x 4 bytes off a
+        16-byte boundary on the 4-byte staging, din = H = 512) (<= 1e-4:
+        fp32 with TF32 off, only the order of summation differs);
      b. the five stream engines at full width (BC-Alpha, n_pad 640,
         G 3468): a T = 8, B = 2 ragged case (<= 1e-4) and the main path's
         own shapes (all 137 steps, 176 TGN event batches or 137 static
@@ -27,10 +29,13 @@ Phases (any failure exits non-zero):
         main path hands them at full width, recorded from one run of a path
         that launches each, every step of the stream (<= 1e-4); the GRU /
         LSTM cells at benchmarks/kernel_bench.py's shape (640 rows, 128
-        wide, tb 128);
+        wide, tb 128; their grid, from the library, fills the card), then
+        at three larger shapes;
      each timed with CUDA events beside its bound, the ELL SpMM beside
      torch.sparse.mm of the same matrix, the cells beside torch.gru_cell /
-     torch.lstm_cell;
+     torch.lstm_cell (medians of 9 samples taken in turns, and from CUDA
+     graphs of 20 calls, the larger shapes from graphs only; the graph
+     time over the serial K rows beside the tb-row kernel's);
   4. main path: every level of GCRN-M2, EvolveGCN-O, the stacked
      GCN -> GRU, TGN and the static GCN through BoosterSession (run on the
      whole BC-Alpha stream, run_batched over windows: ragged at v3, equal at
@@ -195,6 +200,26 @@ CAPACITY_T = 16
 # the GRU / LSTM cells' shape (benchmarks/kernel_bench.py): rows, input and
 # hidden width, row tile
 RNN_ROWS, RNN_DIN, RNN_H, RNN_TB = 640, 128, 128, 128
+# the cells' narrow cases (rows, din, H, tb): 96 rows at tb 48 and 32,
+# 40 rows (a partial 32-row tile), a partial 8-unit slice (H 20 and 18),
+# din 13 and H 18 (4-byte staging: rows not 16-byte aligned), din 16
+# (16-byte staging), and a wide case whose K loop runs 16 chunks
+RNN_NARROW = ((96, 13, 24, 48), (96, 13, 24, 32), (40, 13, 24, 8),
+              (40, 16, 20, 8), (40, 16, 18, 8), (256, 512, 512, 128))
+# the cells' timing: the median of RNN_SAMPLES samples, kernel and torch's
+# cell in turns, each sample RNN_CALLS back-to-back calls (CUDA events
+# around host-dispatched calls, and around one replay of a CUDA graph that
+# holds RNN_CALLS calls)
+RNN_SAMPLES, RNN_CALLS = 9, 20
+# the cells' earlier tb-row kernels (one CTA a tb-row tile walking 32-row
+# sub-tiles; PERF.md's kernel table, rows 10-11 in brackets, NVIDIA H100
+# 80GB HBM3, 700.00 W): ms a launch at the shape above, and the serial K
+# rows a CTA walked, for the cost a K row
+RNN_TB_ROW_MS = {"fused_gru": 0.1869, "fused_lstm": 0.2596}
+RNN_TB_ROW_K_ROWS = RNN_TB // 32 * (RNN_DIN + RNN_H)
+# larger cells (rows, din, H), checked and timed from CUDA graphs beside
+# torch's cells: a deeper K, more rows, a wider H
+RNN_LARGER = ((640, 896, 128), (2560, 128, 128), (640, 128, 512))
 # the LM serving path: Qwen2.5-14B at full width and depth, bf16 weights;
 # a prefill of LM_BATCH prompts of LM_SEQ tokens, then generate with
 # LM_PROMPT-token prompts, LM_NEW new tokens and a cache of LM_SKV
@@ -309,6 +334,44 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def interleaved_ms(fns, calls: int, samples: int) -> list:
+    """Median ms a call of each of ``fns``: ``samples`` rounds, each timing
+    ``calls`` back-to-back calls of every fn in turn with CUDA events (one
+    warm-up call of each first), so all of them see the same clocks."""
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    times = [[] for _ in fns]
+    for _ in range(samples):
+        for t, fn in zip(times, fns):
+            start.record()
+            for _ in range(calls):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+            t.append(start.elapsed_time(end) / calls)
+    return [float(np.median(t)) for t in times]
+
+
+def graph_of(make_call, calls: int):
+    """A CUDA graph of ``calls`` calls of the function ``make_call()``
+    returns, made on the capturing stream (a prepared launch binds the
+    stream current at ``prepare``), after a warm-up on that stream."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        make_call()()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        fn = make_call()
+        for _ in range(calls):
+            fn()
+    torch.cuda.synchronize()
+    return graph
 
 
 def flat(r) -> list:
@@ -711,40 +774,81 @@ def torch_cell(cell: str, inp):
     return lambda: torch.lstm_cell(x, (h, c), wx.T, wh.T, b, zero)
 
 
+def rnn_graph_ms(cell: str, inp):
+    """ms a call of the cell kernel and of torch's cell at ``inp``, each
+    from a CUDA graph of RNN_CALLS calls (the card's time without host
+    dispatch): the median of RNN_SAMPLES replays, the two in turns."""
+    def kernel_call():
+        p = engine.prepare(cell, *inp, tb=RNN_TB)
+        return lambda: engine.launch(p)
+
+    graphs = [graph_of(kernel_call, RNN_CALLS),
+              graph_of(lambda: torch_cell(cell, inp), RNN_CALLS)]
+    return tuple(t / RNN_CALLS for t in interleaved_ms(
+        [g.replay for g in graphs], 1, RNN_SAMPLES))
+
+
 def check_rnn_cell(cell: str, inp):
     """A GRU / LSTM cell kernel vs its plain version at the benchmark's
-    shape (<= 1e-4), timed as bare launches beside its bound, the plain
-    version and torch.gru_cell / torch.lstm_cell; its record."""
+    shape (<= 1e-4), timed beside its bound, the plain version and
+    torch.gru_cell / torch.lstm_cell: bare launches and torch's calls in
+    turns (median of RNN_SAMPLES), then both from CUDA graphs; its grid
+    (from the library) fills the card. Then the same check and graph
+    timing at RNN_LARGER. Returns its record."""
     wrapper, plain = getattr(engine, cell), getattr(engine, f"{cell}_plain")
     got, want = wrapper(*inp, tb=RNN_TB), plain(*inp)
     lib = torch_cell(cell, inp)
     lib_err = max_err(lib(), want)
     torch.cuda.synchronize()
     err = max_err(got, want)
-    log(f"{cell}: rows={inp[0].shape[0]} din={inp[0].shape[1]} "
-        f"H={inp[1].shape[1]} tb={RNN_TB} max_abs_err={err:.3e} "
-        f"(tol {TOL_KERNEL}); torch {cell.removeprefix('fused_')}_cell vs "
-        f"plain {lib_err:.3e}")
+    rows, din = inp[0].shape
+    H = inp[1].shape[1]
+    torch_name = f"torch {cell.removeprefix('fused_')}_cell"
+    log(f"{cell}: rows={rows} din={din} H={H} tb={RNN_TB} "
+        f"max_abs_err={err:.3e} (tol {TOL_KERNEL}); {torch_name} vs plain "
+        f"{lib_err:.3e}")
     check(np.isfinite(err) and err <= TOL_KERNEL, cell)
     prepared = engine.prepare(cell, *inp, tb=RNN_TB)
-    ms = cuda_ms(lambda: [engine.launch(prepared) for _ in range(20)],
-                 reps=5) / 20
+    ms, lib_ms = interleaved_ms([lambda: engine.launch(prepared), lib],
+                                RNN_CALLS, RNN_SAMPLES)
+    graph_ms, lib_graph_ms = rnn_graph_ms(cell, inp)
     plain_ms = cuda_ms(lambda: plain(*inp), reps=20)
-    lib_ms = cuda_ms(lambda: [lib() for _ in range(20)], reps=5) / 20
     flops, byts = rnn_cost(cell, inp)
     bound_ms, bound_by = bound(flops, byts)
-    log(f"{cell}: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, "
-        f"{lib_ms:.4f} ms torch {cell.removeprefix('fused_')}_cell, bound "
-        f"{bound_ms:.5f} ms ({flops:.3e} flop, {byts:.3e} B)")
+    ctas = engine.library_ctas(cell, rows, H)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    log(f"{cell}: {ms:.4f} ms kernel, {lib_ms:.4f} ms {torch_name} "
+        f"(median of {RNN_SAMPLES}, {RNN_CALLS} calls a sample, in turns); "
+        f"from a CUDA graph {graph_ms:.4f} ms kernel, {lib_graph_ms:.4f} ms "
+        f"{torch_name}; {plain_ms:.4f} ms plain; bound {bound_ms:.5f} ms "
+        f"({flops:.3e} flop, {byts:.3e} B); {ctas} CTAs on {sms} SMs")
+    check(ctas >= sms, f"{cell}: {ctas} CTAs fill {sms} SMs")
+    log(f"{cell}: graph time a launch over its {din + H} serial K rows, "
+        f"{graph_ms * 1e6 / (din + H):.1f} ns a K row (launch, first chunk "
+        "and epilogue included: an upper bound); the tb-row kernel "
+        f"{RNN_TB_ROW_MS[cell] * 1e6 / RNN_TB_ROW_K_ROWS:.1f} ns "
+        f"({RNN_TB_ROW_MS[cell]} ms, PERF.md, over {RNN_TB_ROW_K_ROWS} K "
+        "rows a CTA)")
+    for shape in RNN_LARGER:
+        big = rnn_inputs(cell, *shape, SEED + 2)
+        big_err = max_err(wrapper(*big, tb=RNN_TB), plain(*big))
+        k_ms, t_ms = rnn_graph_ms(cell, big)
+        log(f"{cell}: rows={shape[0]} din={shape[1]} H={shape[2]} "
+            f"max_abs_err={big_err:.3e} (tol {TOL_KERNEL}); from a CUDA "
+            f"graph {k_ms:.4f} ms kernel, {t_ms:.4f} ms {torch_name}")
+        check(np.isfinite(big_err) and big_err <= TOL_KERNEL,
+              f"{cell} rows={shape[0]} din={shape[1]} H={shape[2]}")
     return record(cell, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                  bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
+                  bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
+                  graph_ms=graph_ms, library_graph_ms=lib_graph_ms)
 
 
 def smem_check(main_inp, paged_main_inp):
     """engine.smem_bytes (the estimate the wrappers refuse launches by)
     equals each library's own <name>_smem_bytes, at the main path's widths
     (resident, and paged at every depth), at the capacity path's D = 256,
-    and for the cells."""
+    and for the cells (also at din 13, H 24 and din = H = 1024: the same
+    bytes)."""
     dims = {}
     g = main_inp["gcrn"]
     dims["gcrn_engine"] = dict(k=g[0].shape[-1], din=g[3].shape[-1],
@@ -770,6 +874,9 @@ def smem_check(main_inp, paged_main_inp):
             base["n"] = n
         cases += [(name, dict(base, td=PAGED_TD, depth=d))
                   for d in engine.RING_DEPTHS]
+    cases += [(cell, dict(din=din, H=H))
+              for cell in ("fused_gru", "fused_lstm")
+              for din, H in ((13, 24), (1024, 1024))]
     k = dims["evolve_engine"]["k"]
     cases += [("evolve_engine", dict(k=k, D=CAPACITY_HIDDEN)),
               ("evolve_engine_paged", dict(k=k, D=CAPACITY_HIDDEN,
@@ -964,16 +1071,24 @@ def small_shapes_check():
         check(np.isfinite(err) and err <= TOL_KERNEL, family)
         if family in PAGED:
             paged_small_check(family, full, lens, got, want, label)
-    # the GRU / LSTM cells: odd widths, a 48-row tile (a partial 32-row
-    # sub-tile) and a 32-row one
+    # the GRU / LSTM cells at their edges (RNN_NARROW), then with x 4 bytes
+    # past a 16-byte boundary (din 16: the 4-byte staging)
     for cell in ("fused_gru", "fused_lstm"):
-        inp = rnn_inputs(cell, 96, 13, 24, SEED)
-        for tb in (48, 32):
-            got = getattr(ops, cell)(*inp, tb=tb)
-            err = max_err(got, getattr(ops, cell)(*inp, force_ref=True))
-            log(f"{cell}: rows=96 din=13 H=24 tb={tb} max_abs_err={err:.3e} "
-                f"(tol {TOL_KERNEL})")
-            check(np.isfinite(err) and err <= TOL_KERNEL, f"{cell} tb={tb}")
+        for rows, din_c, h_c, tb in RNN_NARROW:
+            inp = rnn_inputs(cell, rows, din_c, h_c, SEED)
+            cases = [("", inp)]
+            if (rows, din_c, h_c) == (40, 16, 20):
+                x_off = torch.empty(rows * din_c + 1, device="cuda")[1:]
+                x_off.copy_(inp[0].flatten())
+                cases.append((" x offset 4 B", (x_off.view(rows, din_c),
+                                                *inp[1:])))
+            for label, args in cases:
+                got = getattr(ops, cell)(*args, tb=tb)
+                err = max_err(got, getattr(ops, cell)(*args, force_ref=True))
+                log(f"{cell}: rows={rows} din={din_c} H={h_c} tb={tb}{label} "
+                    f"max_abs_err={err:.3e} (tol {TOL_KERNEL})")
+                check(np.isfinite(err) and err <= TOL_KERNEL,
+                      f"{cell} rows={rows} din={din_c} H={h_c}{label}")
     cu = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()
     g = [cu(a[0, 0]) for a in (idx, coef, eidx)]
     xs, hs, cs = cu(x[0, 0]), cu(f32(n, h)), cu(f32(n, h))

@@ -77,6 +77,12 @@ def lstm_apply_gates(gates: torch.Tensor, c: torch.Tensor):
     return h_new, c_new
 
 
+def lstm_cell(params: dict, x: torch.Tensor, h: torch.Tensor,
+              c: torch.Tensor, *, fused: bool = True):
+    """One LSTM step: (h', c')."""
+    return lstm_apply_gates(lstm_gates(params, x, h, fused=fused), c)
+
+
 def matrix_gru(params: dict, w: torch.Tensor, *,
                fused: bool = True) -> torch.Tensor:
     """EvolveGCN-O weight evolution: W^t = GRU(input=W^{t-1},

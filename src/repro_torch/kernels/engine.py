@@ -179,8 +179,8 @@ _SIGNATURES = {
     "evolve_engine_paged": (13, 8, 4),
     "stacked_engine_paged": (15, 11, 6),
     "tgn_engine_paged": (14, 9, 6),
-    "fused_gru": (6, 4, 2),
-    "fused_lstm": (8, 4, 2),
+    "fused_gru": (6, 3, 2),
+    "fused_lstm": (8, 3, 2),
     "flash_attention": (5, 7, 0),
     "flash_fwd": (5, 7, 0),
     "flash_bwd_dkv": (8, 7, 0),
@@ -294,8 +294,9 @@ _SMEM = {
     "tgn_engine_paged": (("k", "din", "H", "n", "td", "depth"),
                          lambda k, din, H, n, td, depth: _tile(din + 2 * H)
                          + _ell(k, 3) + _ring(depth, n, td)),
-    "fused_gru": (("din", "H"), lambda din, H: _tile(din + H)),
-    "fused_lstm": (("din", "H"), lambda din, H: _tile(din + H)),
+    # a fixed ring of staged chunks, whatever din and H
+    "fused_gru": (("din", "H"), lambda din, H: 29696),
+    "fused_lstm": (("din", "H"), lambda din, H: 33792),
 }
 
 
@@ -315,6 +316,15 @@ def library_smem_bytes(name: str, **dims) -> int:
     args, _ = _SMEM[name]
     return int(getattr(_library(name), f"{name}_smem_bytes")(
         *(dims[a] for a in args)))
+
+
+def library_ctas(name: str, Bs: int, H: int) -> int:
+    """CTAs of one GRU / LSTM cell launch over ``Bs`` rows and ``H``
+    hidden units, from the grid its launcher builds (the library's
+    ``<name>_ctas``; needs the card)."""
+    fn = getattr(_library(name), f"{name}_ctas")
+    fn.argtypes, fn.restype = [ctypes.c_int] * 2, ctypes.c_int
+    return int(fn(Bs, H))
 
 
 def _check_budget(family: str, residency: str, td, smem: int) -> None:
@@ -1107,7 +1117,10 @@ def _prepare_ell_spmm(idx, coef, eidx, x, emsg=None) -> Prepared:
 
 # ------------------------------------------------------ fused RNN cells ----
 # Per-call kernels like the V2 steps: ``prepare("fused_gru", ...)`` /
-# ``launch`` split them for timing bare launches.
+# ``launch`` split them for timing bare launches. The grid is the kernel's
+# own (a CTA a tile of rows and hidden units, all gates; ``library_ctas``);
+# ``tb``, the TPU kernel's row tile, only sets which batches are taken, as
+# the JAX kernel asserts.
 
 def _check_tb(name: str, Bs: int, tb) -> None:
     """The TPU kernel's row tile: a positive divisor of the batch."""
@@ -1122,8 +1135,8 @@ def fused_gru_plain(x, h, wx, wh, b):
 
 
 def fused_gru(x, h, wx, wh, b, *, tb: int = 128):
-    """GRU cell over Bs rows, one CTA per tb-row tile: gx = x @ wx + b,
-    gh = h @ wh (r | z | n), h' = (1 - z) n + z h.
+    """GRU cell over Bs rows: gx = x @ wx + b, gh = h @ wh (r | z | n),
+    h' = (1 - z) n + z h.
 
     x (Bs, din), h (Bs, H), wx (din, 3H), wh (H, 3H), b (3H,), float32;
     Bs a multiple of tb. Returns h' (Bs, H)."""
@@ -1145,11 +1158,10 @@ def _prepare_fused_gru(x, h, wx, wh, b, *, tb: int = 128) -> Prepared:
             or wh.shape != (H, 3 * H) or b.shape != (3 * H,)):
         raise ValueError(f"{name}: inconsistent shapes")
     lib = _library(name)
-    _check_smem(name, smem_bytes(name, din=din, H=H), f"din={din}, H={H}")
     out = torch.empty((Bs, H), dtype=f32, device=x.device)
     with torch.cuda.device(x.device):
         args = (_ptr(x), _ptr(h), _ptr(wx), _ptr(wh), _ptr(b), _ptr(out), Bs,
-                din, H, tb, _stream_ptr())
+                din, H, _stream_ptr())
     return Prepared(name, lib, args, out, (x, h, wx, wh, b))
 
 
@@ -1159,9 +1171,8 @@ def fused_lstm_plain(x, h, c, wx, wh, b):
 
 
 def fused_lstm(x, h, c, wx, wh, b, *, tb: int = 128):
-    """LSTM cell over Bs rows, one CTA per tb-row tile: gates = x @ wx +
-    h @ wh + b (i | f | g | o), c' = sig(f) c + sig(i) tanh(g),
-    h' = sig(o) tanh(c').
+    """LSTM cell over Bs rows: gates = x @ wx + h @ wh + b (i | f | g | o),
+    c' = sig(f) c + sig(i) tanh(g), h' = sig(o) tanh(c').
 
     x (Bs, din), h/c (Bs, H), wx (din, 4H), wh (H, 4H), b (4H,), float32;
     Bs a multiple of tb. Returns (h', c'), each (Bs, H)."""
@@ -1183,12 +1194,11 @@ def _prepare_fused_lstm(x, h, c, wx, wh, b, *, tb: int = 128) -> Prepared:
             or wh.shape != (H, 4 * H) or b.shape != (4 * H,)):
         raise ValueError(f"{name}: inconsistent shapes")
     lib = _library(name)
-    _check_smem(name, smem_bytes(name, din=din, H=H), f"din={din}, H={H}")
     h_out = torch.empty((Bs, H), dtype=f32, device=x.device)
     c_out = torch.empty_like(h_out)
     with torch.cuda.device(x.device):
         args = (_ptr(x), _ptr(h), _ptr(c), _ptr(wx), _ptr(wh), _ptr(b),
-                _ptr(h_out), _ptr(c_out), Bs, din, H, tb, _stream_ptr())
+                _ptr(h_out), _ptr(c_out), Bs, din, H, _stream_ptr())
     return Prepared(name, lib, args, (h_out, c_out), (x, h, c, wx, wh, b))
 
 

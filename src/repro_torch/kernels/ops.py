@@ -172,7 +172,8 @@ def fused_gru(x, h, wx, wh, b, *, tb: int = 128, force_ref: bool = False,
               device="cuda"):
     """GRU cell: gx = x @ wx + b, gh = h @ wh (r | z | n gates),
     h' = (1 - z) n + z h, on ``device``; x (Bs, din), h (Bs, H), Bs a
-    multiple of the row tile ``tb`` (one CTA a tile)."""
+    multiple of the row tile ``tb`` (the JAX kernel's grid; the CUDA
+    kernel's grid is its own)."""
     x, h, wx, wh, b = to_device((x, h, wx, wh, b), resolve_device(device))
     if force_ref:
         return _ref.fused_gru(x, h, wx, wh, b)

@@ -5,7 +5,11 @@ kernel wrappers' plain versions) against the JAX package's Pallas kernels
 ``fused_gru_pallas`` / ``fused_lstm_pallas`` in interpret mode, at
 tests/test_kernels.py's shapes, on the same numpy inputs made from a seed:
 within 2e-4, that test's tolerance. Both refuse a batch that is not a
-multiple of the row tile ``tb``.
+multiple of the row tile ``tb``. The same at the CUDA kernel's edges (a
+partial 32-row tile, a partial 8-unit slice, a K that is no multiple of 4),
+and its shared memory does not grow with din or H.
+
+``core/rnn.lstm_cell`` against the JAX one, fused and not, within 1e-6.
 
 PyTorch's ``torch.gru_cell`` / ``torch.lstm_cell`` with the weights
 transposed and a zero hidden bias compute the same function (gate orders
@@ -17,7 +21,9 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import rnn as jrnn
 from repro.kernels import ops as jops
+from repro_torch.core import rnn as trnn
 from repro_torch.kernels import engine, ref
 from repro_torch.kernels import ops as tops
 
@@ -55,6 +61,62 @@ def test_fused_lstm_matches_the_pallas_kernel(b, din, h):
     want = jops.fused_lstm(*args, tb=128)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=2e-4,
+                                   rtol=0)
+
+
+# (Bs, din, H, tb): the CUDA kernel's 32-row tile and 8-unit slice end
+# part-way (40 rows, H 20 and 18), din 13 stages 4-byte copies, din 16
+# 16-byte ones
+@pytest.mark.parametrize("b,din,h,tb", [(40, 13, 24, 8), (40, 16, 20, 8),
+                                        (96, 13, 18, 48)])
+@pytest.mark.parametrize("cell", ["fused_gru", "fused_lstm"])
+def test_edge_shapes_match_the_pallas_kernel(cell, b, din, h, tb):
+    gates = 3 if cell == "fused_gru" else 4
+    args = _inputs(5, b, din, h, gates, with_c=cell == "fused_lstm")
+    got = getattr(tops, cell)(*args, tb=tb, device="cpu")
+    want = getattr(jops, cell)(*args, tb=tb)
+    if cell == "fused_gru":
+        got, want = (got,), (want,)
+    for g, w in zip(got, want, strict=True):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=2e-4,
+                                   rtol=0)
+
+
+@pytest.mark.parametrize("cell", ["fused_gru", "fused_lstm"])
+def test_cell_shared_memory_does_not_grow_with_the_widths(cell):
+    """The cells stage fixed chunks through a fixed ring: the same bytes
+    at any din and H, within a CTA's share of the card (the library's own
+    figure at both widths: the card test below and chip_smoke.py)."""
+    narrow = engine.smem_bytes(cell, din=13, H=24)
+    assert narrow == engine.smem_bytes(cell, din=1024, H=1024)
+    assert 0 < narrow <= engine.SMEM_LIMIT
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", ["fused_gru", "fused_lstm"])
+def test_cell_library_shared_memory_and_grid_on_card(cell):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the cell kernel's library is built "
+                    "with nvcc (python3 chip_smoke.py runs it)")
+    for din, h in ((13, 24), (1024, 1024)):
+        assert engine.library_smem_bytes(cell, din=din, H=h) == \
+            engine.smem_bytes(cell, din=din, H=h)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert engine.library_ctas(cell, 640, 128) >= sms
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_lstm_cell_matches_jax(fused):
+    rng = np.random.default_rng(6)
+    f32 = lambda *s: (rng.normal(size=s) * 0.3).astype(np.float32)
+    din, h = 12, 20
+    params = {"wx": f32(din, 4 * h), "wh": f32(h, 4 * h), "b": f32(4 * h)}
+    x, hs, cs = f32(7, din), f32(7, h), f32(7, h)
+    got = trnn.lstm_cell({k: torch.from_numpy(v) for k, v in params.items()},
+                         *_t((x, hs, cs)), fused=fused)
+    want = jrnn.lstm_cell(params, x, hs, cs, fused=fused)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-6,
                                    rtol=0)
 
 
