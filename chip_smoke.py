@@ -60,13 +60,18 @@ Then the LM serving path, Qwen2.5-14B at full width and depth (48 layers,
 d_model 5120, 40 / 8 heads, head_dim 128, d_ff 13824, vocab 152064, QKV
 bias) with random bf16 weights drawn on the card from the seed:
   3d. both flash kernels (flash_attention, flash_fwd) against their plain
-     versions: narrow cases (head_dim 16 / 80 / 96 / 128, S 128 / 384,
-     causal and not, group 1 / 4 / 5, fp32 <= 1e-4 and bf16 <= 2e-2, lse
-     <= 1e-4), the refusals (a tail, head_dim 136), then the q / k / v of
-     layer 0 and the last layer of one prefill (B 2, S 2048), timed with
-     CUDA events beside the bound, the plain version and
+     versions: narrow cases (head_dim 16 / 80 / 96 / 128, S 64 / 128 /
+     200 / 384: partial 128-row tiles, causal and not, group 1 / 4 / 5;
+     every head_dim 8..128; Skv unlike S; fp32 <= 1e-4 and bf16 <= 2e-2,
+     lse <= 1e-4), the refusals (a tail, head_dim 136), then the q / k /
+     v of layer 0 and the last layer of one prefill (B 2, S 2048), timed
+     beside the bound, the plain version and
      F.scaled_dot_product_attention (enable_gqa), which the port never
-     calls;
+     calls: the kernel and SDPA in turns on CUDA events and from CUDA
+     graphs, each with its TFLOP/s and share of the bound; flash_fwd also
+     on phi3-mini-3.8b's training shape (q (64, 2048, 96), group 1); the
+     bf16 launch the library builds (tiles, ring, shared memory, grid)
+     equal to engine.flash_config at both shapes;
   4. (a) prefill_step with attn_impl="flash" on 2 prompts of 2048 random
      tokens: flash_fwd launched exactly once a layer and nothing else;
      each layer's attention sublayer, teacher-forced, within 3e-2 of
@@ -243,8 +248,20 @@ TOL_DRIFT = 0.12
 # order of summation; bf16 by one or two bf16 ulps at |o| <= 3
 TOL_FLASH = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 TOL_LSE = 1e-4
-# the flash kernels' narrow cases (bq = bk = 128)
-FLASH_HD, FLASH_S, FLASH_GROUPS = (16, 80, 96, 128), (128, 384), (1, 4, 5)
+# the flash kernels' narrow cases (bq = bk = 128, or S where 128 does not
+# divide it: min(bq, S) must divide S): S 64 and 200 leave the bf16
+# kernel's 128-row q tile and 128-key kv tile partial
+FLASH_HD, FLASH_S, FLASH_GROUPS = (16, 80, 96, 128), (64, 128, 200, 384), \
+    (1, 4, 5)
+# and beside them (head_dim, S, Skv, causal, group): every head_dim the
+# kernels take, and Skv unlike S
+FLASH_EDGE = tuple((d, 200, 200, True, 4) for d in range(8, 129, 8)) + tuple(
+    (d, s, skv, causal, 1) for d in (96, 128)
+    for s, skv in ((200, 384), (384, 200)) for causal in (True, False))
+# flash_fwd's timing: the median of FLASH_SAMPLES samples, the kernel and
+# SDPA in turns, each sample FLASH_CALLS back-to-back calls (CUDA events),
+# and the same from CUDA graphs of FLASH_CALLS calls
+FLASH_SAMPLES, FLASH_CALLS = 9, 10
 # the flash backward kernels' narrow cases (default bq = bk = 512: S 200
 # is not a multiple of the kernels' 64-row tile) and their tolerance, of
 # max |plain| (the sums run in another order; bf16 rounds p and dS at values
@@ -1423,50 +1440,57 @@ def busy_share(cfg, level, params, n_global, stream, plan_kw=None):
 
 # ------------------------------------------------- the LM serving path ----
 
-def flash_case(seed, bh, s, d, group, dtype):
+def flash_case(seed, bh, s, d, group, dtype, skv=None):
     """Random CUDA q / k / v of one flash call (numpy, from ``seed``):
-    unit-normal, distinct K / V per kv head."""
+    unit-normal, distinct K / V per kv head; Skv = S unless given."""
     rng = np.random.default_rng(seed)
     t = lambda *shape: torch.from_numpy(rng.normal(size=shape).astype(
         np.float32)).to(dtype).cuda()
-    return t(bh, s, d), t(bh // group, s, d), t(bh // group, s, d)
+    skv = s if skv is None else skv
+    return t(bh, s, d), t(bh // group, skv, d), t(bh // group, skv, d)
+
+
+def narrow_tile(s: int) -> int:
+    """bq = bk of a narrow flash case: 128 where min(128, S) divides S,
+    else S."""
+    return 128 if s % min(128, s) == 0 else s
 
 
 def flash_small_check():
     """Both flash kernels against their plain versions on narrow cases:
-    head_dim 16 / 80 / 96 / 128, S 128 and 384 with bq = bk = 128, causal
-    and not, group 1 / 4 / 5 (B 2, 2 kv heads), fp32 and bf16; o within
-    TOL_FLASH[dtype], lse within TOL_LSE; flash_attention's o equal to
-    flash_fwd's bit for bit (one kernel template). Then the refusals on
-    CUDA tensors: a tail and a head_dim over the limit, launching
-    nothing. Returns the largest errors by dtype."""
+    head_dim 16 / 80 / 96 / 128, S 64 / 128 / 200 / 384 (narrow_tile),
+    causal and not, group 1 / 4 / 5 (B 2, 2 kv heads), and FLASH_EDGE,
+    fp32 and bf16; o within TOL_FLASH[dtype], lse within TOL_LSE;
+    flash_attention's o equal to flash_fwd's bit for bit (one kernel
+    template). Then the refusals on CUDA tensors: a tail and a head_dim
+    over the limit, launching nothing. Returns the largest errors by
+    dtype."""
+    cases = [(d, s, s, causal, group) for d in FLASH_HD for s in FLASH_S
+             for causal in (True, False) for group in FLASH_GROUPS]
+    cases += FLASH_EDGE
     worst = {dt: 0.0 for dt in TOL_FLASH}
     lse_worst, n = 0.0, 0
     for dtype in TOL_FLASH:
-        for d in FLASH_HD:
-            for s in FLASH_S:
-                for causal in (True, False):
-                    for group in FLASH_GROUPS:
-                        n += 1
-                        q, k, v = flash_case(n, 2 * 2 * group, s, d, group,
-                                             dtype)
-                        args = (q, k, v, causal, 128, 128, group)
-                        o, lse = fa.flash_fwd(*args)
-                        o2 = fa.flash_attention(q, k, v, causal=causal,
-                                                bq=128, bk=128, group=group)
-                        o_p, lse_p = fa.flash_fwd_plain(*args)
-                        torch.cuda.synchronize()
-                        err = max_err(o.float(), o_p.float())
-                        err_lse = max_err(lse, lse_p)
-                        label = (f"flash d={d} S={s} causal={causal} "
-                                 f"group={group} {dtype}")
-                        check(np.isfinite(err) and err <= TOL_FLASH[dtype]
-                              and err_lse <= TOL_LSE,
-                              f"{label}: o {err:.3e}, lse {err_lse:.3e}")
-                        check(torch.equal(o, o2), f"{label}: flash_attention"
-                              " o equals flash_fwd o")
-                        worst[dtype] = max(worst[dtype], err)
-                        lse_worst = max(lse_worst, err_lse)
+        for d, s, skv, causal, group in cases:
+            n += 1
+            q, k, v = flash_case(n, 2 * 2 * group, s, d, group, dtype, skv)
+            args = (q, k, v, causal, narrow_tile(s), narrow_tile(skv), group)
+            o, lse = fa.flash_fwd(*args)
+            o2 = fa.flash_attention(q, k, v, causal=causal, bq=args[4],
+                                    bk=args[5], group=group)
+            o_p, lse_p = fa.flash_fwd_plain(*args)
+            torch.cuda.synchronize()
+            err = max_err(o.float(), o_p.float())
+            err_lse = max_err(lse, lse_p)
+            label = (f"flash d={d} S={s} Skv={skv} causal={causal} "
+                     f"group={group} {dtype}")
+            check(np.isfinite(err) and err <= TOL_FLASH[dtype]
+                  and err_lse <= TOL_LSE,
+                  f"{label}: o {err:.3e}, lse {err_lse:.3e}")
+            check(torch.equal(o, o2), f"{label}: flash_attention o equals "
+                  "flash_fwd o")
+            worst[dtype] = max(worst[dtype], err)
+            lse_worst = max(lse_worst, err_lse)
     for dtype, err in worst.items():
         log(f"flash narrow cases {dtype}: {n // 2} cases, max_abs_err o "
             f"{err:.3e} (tol {TOL_FLASH[dtype]}); flash_attention o equal "
@@ -1562,11 +1586,66 @@ def sdpa_call(q, k, v, group, causal):
                                                   enable_gqa=True)
 
 
+def flash_timings(label, run, q, k, v, causal, group):
+    """ms a call of ``run`` (a flash kernel on q / k / v) and of SDPA on the
+    same inputs, in turns: on CUDA events (FLASH_SAMPLES samples of
+    FLASH_CALLS calls) and from CUDA graphs of FLASH_CALLS calls; each
+    logged with its TFLOP/s and share of the bound. Returns (ms, SDPA ms,
+    graph ms, SDPA graph ms, bound ms, bound by)."""
+    sdpa = sdpa_call(q, k, v, group, causal)
+    ms, lib_ms = interleaved_ms([run, sdpa], FLASH_CALLS, FLASH_SAMPLES)
+    graphs = [graph_of(lambda: run, FLASH_CALLS),
+              graph_of(lambda: sdpa, FLASH_CALLS)]
+    graph_ms, lib_graph_ms = (t / FLASH_CALLS for t in interleaved_ms(
+        [g.replay for g in graphs], 1, FLASH_SAMPLES))
+    flops, byts = flash_cost(q, k, causal)
+    t_ops, t_bytes = flops / PEAK_BF16 * 1e3, byts / PEAK_BYTES * 1e3
+    bound_ms = max(t_ops, t_bytes)
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    rate = lambda t: (f"{t:.4f} ms ({flops / t / 1e9:.1f} TFLOP/s, "
+                      f"{bound_ms / t:.3f} of the bound)")
+    log(f"{label}: q {tuple(q.shape)} k {tuple(k.shape)} causal={causal} "
+        f"group={group}; kernel {rate(ms)}, SDPA {rate(lib_ms)} (median of "
+        f"{FLASH_SAMPLES}, {FLASH_CALLS} calls a sample, in turns); from a "
+        f"CUDA graph kernel {rate(graph_ms)}, SDPA {rate(lib_graph_ms)}; "
+        f"kernel / SDPA {ms / lib_ms:.2f} (graph {graph_ms / lib_graph_ms:.2f})"
+        f"; bound {bound_ms:.4f} ms ({by}: {flops:.3e} flop, {byts:.3e} B)")
+    return ms, lib_ms, graph_ms, lib_graph_ms, bound_ms, by
+
+
+def flash_train_shape():
+    """q / k / v at phi3-mini-3.8b's training shape (TRAIN_BATCH x
+    TRAIN_SEQ; 32 heads of 96, group 1: the bf16 kernel holds d 96 as 128
+    columns), from the seed; (q, k, v, group)."""
+    cfg = ARCHS[TRAIN_ARCH]
+    group = cfg.n_heads // cfg.n_kv_heads
+    q, k, v = flash_case(SEED + 5, TRAIN_BATCH * cfg.n_heads, TRAIN_SEQ,
+                         cfg.resolved_head_dim, group, torch.bfloat16)
+    return q, k, v, group
+
+
+def check_flash_config(*qs):
+    """The bf16 launch the library's launcher builds for both flash entry
+    points (tiles, ring, threads, shared memory, grid) equals
+    engine.flash_config at each q of ``qs``, and fits the card's shared
+    memory."""
+    for q in qs:
+        bh, s, d = q.shape
+        lib = engine.library_flash_config(bh, s)
+        want = engine.flash_config(bh, s, d)
+        log(f"flash launch at q {tuple(q.shape)}: {lib}")
+        check(lib == want, f"the flash library's launch {lib} equals "
+              f"engine.flash_config {want}")
+        check(lib["smem"] <= engine.SMEM_LIMIT, "flash shared memory")
+
+
 def check_flash_kernel(name, calls):
     """A flash kernel on the prefill's own q / k / v (layer 0 and the last
     layer) against its plain version (<= TOL_FLASH bf16, lse <= TOL_LSE),
-    timed with CUDA events beside its bound, the plain version and SDPA;
-    its record (times of the last layer's call)."""
+    timed beside its bound, the plain version and SDPA (flash_timings);
+    flash_fwd also at phi3's training shape, and the launch at both shapes
+    held to engine.flash_config; its record (times of the last layer's
+    call)."""
     err, err_lse = 0.0, 0.0
     for layer, (q, k, v, causal, bq, bk, group) in sorted(calls.items()):
         if name == "flash_fwd":
@@ -1593,22 +1672,37 @@ def check_flash_kernel(name, calls):
     else:
         run = lambda: fa.flash_attention(q, k, v, causal=causal, bq=bq,
                                          bk=bk, group=group)
-    ms = cuda_ms(run, reps=10)
+    ms, lib_ms, graph_ms, lib_graph_ms, bound_ms, by = flash_timings(
+        f"{name} layer {max(calls)}", run, q, k, v, causal, group)
     plain_ms = cuda_ms(lambda: fa.flash_fwd_plain(q, k, v, causal, bq, bk,
                                                   group), reps=3)
-    lib_ms = cuda_ms(sdpa_call(q, k, v, group, causal), reps=10)
-    flops, byts = flash_cost(q, k, causal)
-    t_ops, t_bytes = flops / PEAK_BF16 * 1e3, byts / PEAK_BYTES * 1e3
-    bound_ms = max(t_ops, t_bytes)
-    log(f"{name}: {ms:.4f} ms kernel ({flops / ms / 1e9:.1f} TFLOP/s), "
-        f"{plain_ms:.4f} ms plain, {lib_ms:.4f} ms SDPA, bound "
-        f"{bound_ms:.4f} ms ({'operations' if t_ops >= t_bytes else 'bytes'}"
-        f": {flops:.3e} flop, {byts:.3e} B)")
+    log(f"{name}: {plain_ms:.4f} ms plain")
+    extra = {}
+    if name == "flash_fwd":
+        tq, tk, tv, tgroup = flash_train_shape()
+        o, lse = fa.flash_fwd(tq, tk, tv, True, bq, bk, tgroup)
+        o_p, lse_p = fa.flash_fwd_plain(tq, tk, tv, True, bq, bk, tgroup)
+        torch.cuda.synchronize()
+        e, e_lse = max_err(o.float(), o_p.float()), max_err(lse, lse_p)
+        log(f"{name}: {TRAIN_ARCH}'s training shape max_abs_err o {e:.3e}, "
+            f"lse {e_lse:.3e}")
+        check(np.isfinite(e) and e <= TOL_FLASH[torch.bfloat16]
+              and e_lse <= TOL_LSE, f"{name} at the training shape")
+        t = flash_timings(f"{name} {TRAIN_ARCH} training shape",
+                          lambda: fa.flash_fwd(tq, tk, tv, True, bq, bk,
+                                               tgroup),
+                          tq, tk, tv, True, tgroup)
+        extra = {"train_shape": list(tq.shape), "train_shape_ms": t[0],
+                 "train_shape_library_ms": t[1],
+                 "train_shape_graph_ms": t[2],
+                 "train_shape_library_graph_ms": t[3],
+                 "train_shape_bound_ms": t[4]}
+        check_flash_config(q, tq)
     return record(name, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                  bound_ms=bound_ms,
-                  bound_by="operations" if t_ops >= t_bytes else "bytes",
-                  library_ms=lib_ms, lse_max_abs_err=err_lse,
-                  shape=list(q.shape), kv_shape=list(k.shape))
+                  bound_ms=bound_ms, bound_by=by, library_ms=lib_ms,
+                  graph_ms=graph_ms, library_graph_ms=lib_graph_ms,
+                  lse_max_abs_err=err_lse, shape=list(q.shape),
+                  kv_shape=list(k.shape), **extra)
 
 
 def logits_err(got, want, vocab):

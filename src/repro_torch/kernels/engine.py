@@ -87,6 +87,12 @@ TILE_STRIDE = TILE_ROWS + 4
 #: mbarrier for each of the deepest ring's slots
 RING_DEPTHS = (1, 2, 4)
 RING_BAR_BYTES = 8 * max(RING_DEPTHS)
+#: the bf16 flash forward's launch (``flash_attention.cu``): q rows a CTA
+#: (two consumer warpgroups of 64 rows), keys a kv tile, slots of its k / v
+#: ring, threads a CTA (a producer warpgroup and the two consumers) and
+#: head_dim as its tiles hold it (two 64-column swizzle atoms)
+FLASH_Q_ROWS, FLASH_KV_ROWS, FLASH_STAGES = 128, 128, 2
+FLASH_THREADS, FLASH_HEAD_DIM = 384, 128
 
 #: launches per kernel since the last ``reset_launches()``; only a real
 #: kernel launch counts, never the plain path
@@ -325,6 +331,35 @@ def library_ctas(name: str, Bs: int, H: int) -> int:
     fn = getattr(_library(name), f"{name}_ctas")
     fn.argtypes, fn.restype = [ctypes.c_int] * 2, ctypes.c_int
     return int(fn(Bs, H))
+
+
+def flash_config(bh: int, s: int, d: int) -> dict:
+    """The bf16 flash forward's launch for q (bh, s, d): its tiles, ring,
+    threads, dynamic shared memory (1024 bytes of alignment slack, the q
+    tile, the ring's k and v tiles, an mbarrier for q and four a slot) and
+    grid (q heads, q tiles). It equals the launcher's own
+    (``library_flash_config``, on the card)."""
+    if d % 8 or not 0 < d <= FLASH_HEAD_DIM:
+        raise ValueError(f"flash: head_dim {d} must be a multiple of 8 up to "
+                         f"{FLASH_HEAD_DIM}")
+    tiles = 2 * FLASH_HEAD_DIM * (FLASH_Q_ROWS
+                                  + 2 * FLASH_STAGES * FLASH_KV_ROWS)
+    return {"q_rows": FLASH_Q_ROWS, "kv_rows": FLASH_KV_ROWS,
+            "stages": FLASH_STAGES, "threads": FLASH_THREADS,
+            "smem": 1024 + tiles + 8 * (1 + 4 * FLASH_STAGES),
+            "grid": (bh, -(-s // FLASH_Q_ROWS))}
+
+
+def library_flash_config(bh: int, s: int) -> dict:
+    """``flash_config`` as the library's launcher builds it for both entry
+    points (its ``flash_fwd_config``; needs the card)."""
+    fn = _library("flash_fwd").flash_fwd_config
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 7)()
+    fn(bh, s, out)
+    return {"q_rows": out[0], "kv_rows": out[1], "stages": out[2],
+            "threads": out[3], "smem": out[4], "grid": (out[5], out[6])}
 
 
 def _check_budget(family: str, residency: str, td, smem: int) -> None:

@@ -33,8 +33,9 @@ A CPU tensor runs the plain version; a CUDA tensor launches the kernel
 points and both devices: the JAX ``_flash_fwd`` omits that check and
 leaves the tail rows unwritten (ROADMAP queue 3), and so does its
 ``_flash_bwd``, whose grid is ``s // bq`` too: the backward validates them
-the same way. The kernels run their own 64 x 64 tiles, the plain versions
-``bk``-wide kv tiles; masking, not the tile, decides what a row sees.
+the same way. The kernels run their own tiles (the bf16 forward 128 q rows
+x 128 keys, the others 64 x 64), the plain versions ``bk``-wide kv tiles;
+masking, not the tile, decides what a row sees.
 """
 from __future__ import annotations
 
@@ -137,7 +138,7 @@ def _flash_cuda(name: str, q, k, v, causal: bool, group: int, lse: bool):
     for key, t in (("q", q), ("k", k), ("v", v)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {key} must start on a 16-byte "
-                             "boundary (the kernel loads float4 / 4 x bf16)")
+                             "boundary (the kernel loads float4 / by TMA)")
     lib = engine._library(name)
     bh, s, d = q.shape
     o = torch.empty_like(q)

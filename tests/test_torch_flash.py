@@ -13,7 +13,8 @@ q-head -> kv-head map fails. Both entry points refuse a tail (a tile that
 does not divide the sequence), which the JAX ``_flash_fwd`` would leave
 unwritten; ``flash_mha`` differentiates (its backward is held against the
 JAX package's in tests/test_torch_flash_bwd.py); ``flops_bytes`` is the
-JAX package's count.
+JAX package's count; ``engine.flash_config``, the mirror of the bf16
+kernel's launch, fits the card's shared memory at every head_dim.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -153,6 +154,43 @@ def test_flops_bytes_is_the_jax_count(shape, kw):
     assert tfa.flops_bytes(*shape, **kw) == jfa.flops_bytes(*shape, **kw)
 
 
+# ----------------------------------- the bf16 kernel's launch, mirrored ----
+
+@pytest.mark.parametrize("d", range(8, 129, 8))
+def test_flash_config_fits_shared_memory(d):
+    """engine.flash_config, the mirror of the bf16 launcher's own
+    (chip_smoke.py holds the two equal on the card): the q tile and the
+    ring's k / v tiles, head_dim held as two 64-column atoms, and the
+    mbarriers fit the card's 227 KB for every head_dim the kernel takes;
+    the grid is (q heads, q tiles)."""
+    cfg = engine.flash_config(8, 200, d)
+    assert cfg["smem"] <= engine.SMEM_LIMIT
+    assert cfg["smem"] >= 2 * engine.FLASH_HEAD_DIM * (
+        cfg["q_rows"] + 2 * cfg["stages"] * cfg["kv_rows"])
+    assert cfg["stages"] >= 2 and cfg["threads"] == 3 * 128
+    assert cfg["grid"] == (8, 2)  # 200 rows: a full and a partial q tile
+
+
+@pytest.mark.parametrize("arch,bh", [("qwen2.5-14b", 80),
+                                     ("phi3-mini-3.8b", 64)])
+def test_flash_config_grid_at_the_lm_shapes(arch, bh):
+    """The grid at the LM paths' shapes (B 2 x S 2048: Qwen2.5-14B's 40 q
+    heads of 128, phi3-mini-3.8b's 32 of 96): one CTA a q head and
+    128-row q tile."""
+    from repro_torch.configs import ARCHS
+    cfg = ARCHS[arch]
+    assert 2 * cfg.n_heads == bh
+    launch = engine.flash_config(bh, 2048, cfg.resolved_head_dim)
+    assert launch["grid"] == (bh, 2048 // 128)
+    assert launch["q_rows"] == launch["kv_rows"] == 128
+
+
+@pytest.mark.parametrize("d", [0, 12, 136])
+def test_flash_config_refuses_a_head_dim(d):
+    with pytest.raises(ValueError, match="multiple of 8 up to 128"):
+        engine.flash_config(8, 128, d)
+
+
 # ------------------------------------------------ the kernel on the card ----
 
 @pytest.fixture
@@ -168,12 +206,16 @@ def cuda():
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("causal", [True, False])
-def test_kernel_matches_plain_on_card(cuda, dtype, tol, causal):
-    q, k, v = (t.to(cuda) for t in _t(_qkv(7, 10, 384, 96, 5), dtype))
+@pytest.mark.parametrize("s,d,tile", [(384, 96, 128), (200, 128, 200),
+                                      (200, 96, 512)])
+def test_kernel_matches_plain_on_card(cuda, dtype, tol, causal, s, d, tile):
+    """S 200 leaves the bf16 kernel's 128-row q tile and 128-key kv tile
+    partial; d 96 pads to its 128 columns."""
+    q, k, v = (t.to(cuda) for t in _t(_qkv(7, 10, s, d, 5), dtype))
     before = engine.LAUNCHES["flash_fwd"]
-    o, lse = tfa.flash_fwd(q, k, v, causal, 128, 128, 5)
+    o, lse = tfa.flash_fwd(q, k, v, causal, tile, tile, 5)
     assert engine.LAUNCHES["flash_fwd"] == before + 1
-    o_p, lse_p = tfa.flash_fwd_plain(q, k, v, causal, 128, 128, 5)
+    o_p, lse_p = tfa.flash_fwd_plain(q, k, v, causal, tile, tile, 5)
     torch.cuda.synchronize()
     assert float((o.float() - o_p.float()).abs().max()) <= tol
     assert float((lse - lse_p).abs().max()) <= 1e-4
