@@ -89,13 +89,18 @@ bias) with random bf16 weights drawn on the card from the seed:
   5. the device's busy share of one prefill and of one decode step.
 Then, with the serving weights freed, the LM training path:
   3e. both flash backward kernels (flash_bwd_dkv, flash_bwd_dq) against
-     their plain versions: narrow cases (head_dim 32 / 96 / 128, S 128 and
-     200 with the default bq = bk = 512, causal and not, group 1 / 4 / 5,
-     fp32 <= 1e-4 and bf16 <= 2e-2 of max |plain|), a tail refused, then
+     their plain versions: narrow cases (head_dim 32 / 96 / 128, S 64 / 128
+     / 200 with the default bq = bk = 512: partial 128-row tiles, causal
+     and not, group 1 / 4 / 5; every head_dim 8..128; Skv unlike S; fp32
+     <= 1e-4 and bf16 <= 2e-2 of max |plain|), a tail refused, then
      Qwen2.5-14B's layer shape (q (80, 2048, 128), k / v (16, 2048, 128),
-     bf16, causal, dO from the seed), timed beside the bound, the plain
-     versions and SDPA's backward ((forward + backward) - forward,
-     enable_gqa), which the port never calls;
+     bf16, causal, dO from the seed) and phi3-mini-3.8b's training shape
+     (q / k / v (64, 2048, 96), group 1): against the plain versions, two
+     calls bit for bit equal (no atomics), the bf16 launches the library
+     builds equal to engine.flash_bwd_config, then dkv, dq and SDPA's
+     backward alone (enable_gqa, retain_graph; the port never calls it)
+     timed in turns on CUDA events and from CUDA graphs, each with its
+     TFLOP/s and share of the bound; the plain versions timed at Qwen's;
   4. (c) phi3-mini-3.8b at full width and depth (32 layers, d_model 3072,
      32 heads of 96, d_ff 8192, vocab 32064), fp32 parameters and AdamW
      moments on the card, attn_impl="flash", remat: ``train`` runs 3 steps
@@ -262,11 +267,16 @@ FLASH_EDGE = tuple((d, 200, 200, True, 4) for d in range(8, 129, 8)) + tuple(
 # SDPA in turns, each sample FLASH_CALLS back-to-back calls (CUDA events),
 # and the same from CUDA graphs of FLASH_CALLS calls
 FLASH_SAMPLES, FLASH_CALLS = 9, 10
-# the flash backward kernels' narrow cases (default bq = bk = 512: S 200
-# is not a multiple of the kernels' 64-row tile) and their tolerance, of
-# max |plain| (the sums run in another order; bf16 rounds p and dS at values
-# that differ by it)
-FLASH_BWD_HD, FLASH_BWD_S = (32, 96, 128), (128, 200)
+# the flash backward kernels' narrow cases (default bq = bk = 512: S 64
+# and 200 leave the bf16 kernels' 128-row tiles partial, S 200 their 64-row
+# streamed tiles too) and their tolerance, of max |plain| (the sums run in
+# another order; bf16 rounds p and dS at values that differ by it)
+FLASH_BWD_HD, FLASH_BWD_S = (32, 96, 128), (64, 128, 200)
+# and beside them (head_dim, S, Skv, causal, group): every head_dim the
+# kernels take, and Skv unlike S
+FLASH_BWD_EDGE = tuple((d, 200, 200, True, 4) for d in range(8, 129, 8)) \
+    + tuple((d, s, skv, causal, 1) for d in (96, 128)
+            for s, skv in ((200, 384), (384, 200)) for causal in (True, False))
 TOL_FLASH_BWD = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # the LM training path: phi3-mini-3.8b at full width and depth, fp32
 # parameters and AdamW moments, flash attention, per-layer remat, on
@@ -373,11 +383,12 @@ def interleaved_ms(fns, calls: int, samples: int) -> list:
     return [float(np.median(t)) for t in times]
 
 
-def graph_of(make_call, calls: int):
+def graph_of(make_call, calls: int, side=None):
     """A CUDA graph of ``calls`` calls of the function ``make_call()``
-    returns, made on the capturing stream (a prepared launch binds the
-    stream current at ``prepare``), after a warm-up on that stream."""
-    side = torch.cuda.Stream()
+    returns, made on the capturing stream ``side`` (a new one unless given;
+    a prepared launch binds the stream current at ``prepare``), after a
+    warm-up on that stream."""
+    side = torch.cuda.Stream() if side is None else side
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         make_call()()
@@ -1917,11 +1928,12 @@ def busy_share_fn(fn):
 
 # -------------------------------------------------- the LM training path ----
 
-def flash_bwd_inputs(seed, bh, s, d, group, dtype, causal):
+def flash_bwd_inputs(seed, bh, s, d, group, dtype, causal, skv=None):
     """One backward call's CUDA inputs from ``seed``: q / k / v / dO
-    unit-normal (distinct K / V per kv head), o and lse from flash_fwd,
-    delta = rowsum(dO o); the argument tuple of flash_bwd_dkv / _dq."""
-    q, k, v = flash_case(seed, bh, s, d, group, dtype)
+    unit-normal (distinct K / V per kv head; Skv = S unless given), o and
+    lse from flash_fwd, delta = rowsum(dO o); the argument tuple of
+    flash_bwd_dkv / _dq."""
+    q, k, v = flash_case(seed, bh, s, d, group, dtype, skv)
     do = flash_case(seed + 7919, bh, s, d, 1, dtype)[0]
     with torch.no_grad():
         o, lse = fa.flash_fwd(q, k, v, causal, 512, 512, group)
@@ -1943,23 +1955,25 @@ def bwd_errs(args):
 
 def flash_bwd_small_check():
     """Both backward kernels against their plain versions on narrow cases:
-    head_dim 32 / 96 / 128, S 128 and 200 (a partial 64-row tile) with the
-    default bq = bk = 512, causal and not, group 1 / 4 / 5 (2 kv heads),
-    fp32 and bf16, each within TOL_FLASH_BWD of max |plain|; then a tail
-    refused on CUDA tensors, launching nothing."""
+    head_dim 32 / 96 / 128, S 64 / 128 / 200 with the default bq = bk =
+    512, causal and not, group 1 / 4 / 5 (2 kv heads), and FLASH_BWD_EDGE
+    (every head_dim 8..128; Skv unlike S), fp32 and bf16, each within
+    TOL_FLASH_BWD of max |plain|; then a tail refused on CUDA tensors,
+    launching nothing."""
+    cases = [(d, s, s, causal, group) for d in FLASH_BWD_HD
+             for s in FLASH_BWD_S for causal in (True, False)
+             for group in FLASH_GROUPS]
+    cases += FLASH_BWD_EDGE
     worst, n = {dt: 0.0 for dt in TOL_FLASH_BWD}, 0
     for dtype in TOL_FLASH_BWD:
-        for d in FLASH_BWD_HD:
-            for s in FLASH_BWD_S:
-                for causal in (True, False):
-                    for group in FLASH_GROUPS:
-                        n += 1
-                        rel, _ = bwd_errs(flash_bwd_inputs(
-                            100 + n, 2 * group, s, d, group, dtype, causal))
-                        check(np.isfinite(rel) and rel <= TOL_FLASH_BWD[dtype],
-                              f"flash bwd d={d} S={s} causal={causal} "
-                              f"group={group} {dtype}: {rel:.3e}")
-                        worst[dtype] = max(worst[dtype], rel)
+        for d, s, skv, causal, group in cases:
+            n += 1
+            rel, _ = bwd_errs(flash_bwd_inputs(100 + n, 2 * group, s, d,
+                                               group, dtype, causal, skv))
+            check(np.isfinite(rel) and rel <= TOL_FLASH_BWD[dtype],
+                  f"flash bwd d={d} S={s} Skv={skv} causal={causal} "
+                  f"group={group} {dtype}: {rel:.3e}")
+            worst[dtype] = max(worst[dtype], rel)
     for dtype, err in worst.items():
         log(f"flash bwd narrow cases {dtype}: {n // 2} cases, max |diff| / "
             f"max |plain| {err:.3e} (tol {TOL_FLASH_BWD[dtype]})")
@@ -1987,58 +2001,159 @@ def flash_bwd_cost(q, k, causal, per_pair):
     return flops, reads + writes
 
 
-def sdpa_bwd_ms(q, k, v, do, group, causal):
-    """SDPA's backward with enable_gqa on the same q / k / v / dO: (forward
-    + backward) minus forward, each timed with CUDA events (yardstick
-    only; the port never calls it)."""
+def sdpa_bwd_call(q, k, v, do, group, causal, stream):
+    """SDPA's backward alone with enable_gqa on the same q / k / v / dO:
+    the forward runs once on ``stream`` (so autograd runs the backward
+    there too), and the returned call reruns its backward
+    (retain_graph); yardstick only, the port never calls it."""
     s, d = q.shape[1:]
     q4, do4 = q.view(-1, group, s, d), do.view(-1, group, s, d)
     k4, v4 = k.view(-1, 1, k.shape[1], d), v.view(-1, 1, v.shape[1], d)
     leaves = [t.detach().requires_grad_(True) for t in (q4, k4, v4)]
-    fwd = lambda: F.scaled_dot_product_attention(*leaves, is_causal=causal,
-                                                 enable_gqa=True)
-    both = lambda: torch.autograd.grad(fwd(), leaves, do4)
-    return cuda_ms(both, reps=10) - cuda_ms(fwd, reps=10)
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        out = F.scaled_dot_product_attention(*leaves, is_causal=causal,
+                                             enable_gqa=True)
+    torch.cuda.current_stream().wait_stream(stream)
+    return lambda: torch.autograd.grad(out, leaves, do4, retain_graph=True)
+
+
+def check_flash_bwd_launch(q, k, group):
+    """The bf16 launches the library builds for both passes (tiles, ring,
+    threads, shared memory, grid) equal engine.flash_bwd_config at q / k's
+    shape and fit the card's shared memory."""
+    bh, s, d = q.shape
+    for kind in engine.FLASH_BWD_KINDS:
+        lib = engine.library_flash_bwd_config(bh, s, group, kind,
+                                              skv=k.shape[1])
+        want = engine.flash_bwd_config(bh, s, d, group, kind, skv=k.shape[1])
+        log(f"flash bwd {kind} launch at q {tuple(q.shape)} group {group}: "
+            f"{lib}")
+        check(lib == want, f"the flash bwd library's {kind} launch {lib} "
+              f"equals engine.flash_bwd_config {want}")
+        check(lib["smem"] <= engine.SMEM_LIMIT, "flash bwd shared memory")
+
+
+def flash_bwd_shape_check(label, args):
+    """Both backward kernels on one shape's inputs: against their plain
+    versions (TOL_FLASH_BWD bf16 of max |plain|), two calls bit for bit
+    equal (every output written once: no atomics), the launches held to
+    engine.flash_bwd_config; then dkv, dq and SDPA's backward timed in
+    turns on CUDA events (FLASH_SAMPLES samples of FLASH_CALLS calls) and
+    from CUDA graphs of FLASH_CALLS calls, each logged with its TFLOP/s
+    and share of the bound. Returns {name: fields of its record}."""
+    q, k, v, do = args[:4]
+    group = args[-1]
+    rel, errs = bwd_errs(args)
+    log(f"flash bwd {label}: q {tuple(q.shape)} k {tuple(k.shape)} bf16 "
+        f"causal={args[6]} group={group}: max |diff| / max |plain| "
+        f"{rel:.3e} (tol {TOL_FLASH_BWD[torch.bfloat16]}), max |diff| {errs}")
+    check(np.isfinite(rel) and rel <= TOL_FLASH_BWD[torch.bfloat16],
+          f"flash bwd at {label}")
+    first = (fa.flash_bwd_dq(*args), *fa.flash_bwd_dkv(*args))
+    again = (fa.flash_bwd_dq(*args), *fa.flash_bwd_dkv(*args))
+    same = all(torch.equal(a, b) for a, b in zip(first, again))
+    log(f"flash bwd {label}: two calls bit for bit equal (dq, dk, dv): "
+        f"{same}")
+    check(same, f"flash bwd at {label} repeats bit for bit")
+    del first, again
+    check_flash_bwd_launch(q, k, group)
+
+    side = torch.cuda.Stream()
+    sdpa = sdpa_bwd_call(q, k, v, do, group, args[6], side)
+    calls = {"flash_bwd_dkv": lambda: fa.flash_bwd_dkv(*args),
+             "flash_bwd_dq": lambda: fa.flash_bwd_dq(*args)}
+    ms = interleaved_ms([*calls.values(), sdpa], FLASH_CALLS, FLASH_SAMPLES)
+    graphs = [graph_of(lambda fn=fn: fn, FLASH_CALLS) for fn in calls.values()]
+    try:
+        graphs.append(graph_of(lambda: sdpa, FLASH_CALLS, side=side))
+    except RuntimeError as e:
+        torch.cuda.synchronize()
+        log(f"flash bwd {label}: SDPA's backward does not capture in a CUDA "
+            f"graph ({type(e).__name__}: {str(e).splitlines()[0]})")
+    graph_ms = [t / FLASH_CALLS for t in interleaved_ms(
+        [g.replay for g in graphs], 1, FLASH_SAMPLES)]
+    lib_ms = ms[2]
+    lib_graph_ms = graph_ms[2] if len(graph_ms) == 3 else None
+    out, bounds = {}, {}
+    for i, (name, per_pair) in enumerate((("flash_bwd_dkv", 8),
+                                          ("flash_bwd_dq", 6))):
+        flops, byts = flash_bwd_cost(q, k, args[6], per_pair)
+        t_ops, t_bytes = flops / PEAK_BF16 * 1e3, byts / PEAK_BYTES * 1e3
+        bound_ms = max(t_ops, t_bytes)
+        bounds[name] = bound_ms
+        rate = lambda t: (f"{t:.4f} ms ({flops / t / 1e9:.1f} TFLOP/s, "
+                          f"{bound_ms / t:.3f} of the bound)")
+        log(f"{name} {label}: kernel {rate(ms[i])} (median of "
+            f"{FLASH_SAMPLES}, {FLASH_CALLS} calls a sample, in turns with "
+            f"the other pass and SDPA's backward), from a CUDA graph "
+            f"{rate(graph_ms[i])}; bound {bound_ms:.4f} ms "
+            f"({'operations' if t_ops >= t_bytes else 'bytes'}: "
+            f"{flops:.3e} flop, {byts:.3e} B)")
+        out[name] = {"ms": ms[i], "graph_ms": graph_ms[i],
+                     "bound_ms": bound_ms,
+                     "bound_by": "operations" if t_ops >= t_bytes
+                     else "bytes",
+                     "max_abs_err": max(errs["dk"], errs["dv"])
+                     if name == "flash_bwd_dkv" else errs["dq"]}
+    both, both_graph = ms[0] + ms[1], graph_ms[0] + graph_ms[1]
+    sdpa_graph = (f"{lib_graph_ms:.4f} ms" if lib_graph_ms is not None
+                  else "not captured")
+    log(f"flash bwd {label}: SDPA's backward (both passes, enable_gqa) "
+        f"{lib_ms:.4f} ms events, {sdpa_graph} from a graph; dkv + dq "
+        f"{both:.4f} ms = {both / lib_ms:.2f}x SDPA's backward (graph "
+        + (f"{both_graph / lib_graph_ms:.2f}x" if lib_graph_ms else "n/a")
+        + f"); both passes at {sum(bounds.values()) / both:.3f} of their "
+        "summed bound")
+    for rec in out.values():
+        rec.update(library_ms=lib_ms, library_graph_ms=lib_graph_ms)
+    return out
 
 
 def check_flash_bwd_kernels():
     """Both backward kernels at Qwen2.5-14B's layer shape (the serving
     path's flash shape: q (80, 2048, 128), k / v (16, 2048, 128), bf16,
-    causal; dO from the seed) against their plain versions, timed with
-    CUDA events beside their bounds, the plain versions and SDPA's
-    backward; their records."""
+    causal; dO from the seed) and at phi3-mini-3.8b's training shape (q /
+    k / v (64, 2048, 96), group 1) through flash_bwd_shape_check, the
+    plain versions timed at both; their records (Qwen's times, phi3's as
+    train_shape_*)."""
     cfg = ARCHS[LM_ARCH]
     hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     group = hq // hkv
     args = flash_bwd_inputs(SEED + 5, LM_BATCH * hq, LM_SEQ, d, group,
                             torch.bfloat16, True)
-    q, k, v, do = args[:4]
-    rel, errs = bwd_errs(args)
-    log(f"flash bwd at the path's shape q {tuple(q.shape)} k "
-        f"{tuple(k.shape)} bf16 causal group={group}: max |diff| / max "
-        f"|plain| {rel:.3e} (tol {TOL_FLASH_BWD[torch.bfloat16]}), max "
-        f"|diff| {errs}")
-    check(np.isfinite(rel) and rel <= TOL_FLASH_BWD[torch.bfloat16],
-          "flash bwd at the path's shape")
-    lib_ms = sdpa_bwd_ms(q, k, v, do, group, True)
+    q, k = args[:2]
+
+    def plain_ms(label, args):
+        ms = {name: cuda_ms(lambda: getattr(fa, f"{name}_plain")(*args),
+                            reps=3) for name in ("flash_bwd_dkv", "flash_bwd_dq")}
+        log(f"flash bwd plain versions at {label}: "
+            + ", ".join(f"{name} {t:.4f} ms" for name, t in ms.items()))
+        return ms
+
+    fields = flash_bwd_shape_check("Qwen2.5-14B layer shape", args)
+    plain = plain_ms("Qwen2.5-14B's layer shape", args)
+    del args
+    tcfg = ARCHS[TRAIN_ARCH]
+    targs = flash_bwd_inputs(SEED + 6, TRAIN_BATCH * tcfg.n_heads, TRAIN_SEQ,
+                             tcfg.resolved_head_dim,
+                             tcfg.n_heads // tcfg.n_kv_heads, torch.bfloat16,
+                             True)
+    tfields = flash_bwd_shape_check(f"{TRAIN_ARCH} training shape", targs)
+    tplain = plain_ms(f"{TRAIN_ARCH}'s training shape", targs)
     out = []
-    for name, per_pair, err in (("flash_bwd_dkv", 8,
-                                 max(errs["dk"], errs["dv"])),
-                                ("flash_bwd_dq", 6, errs["dq"])):
-        ms = cuda_ms(lambda: getattr(fa, name)(*args), reps=10)
-        plain_ms = cuda_ms(lambda: getattr(fa, f"{name}_plain")(*args),
-                           reps=3)
-        flops, byts = flash_bwd_cost(q, k, True, per_pair)
-        t_ops, t_bytes = flops / PEAK_BF16 * 1e3, byts / PEAK_BYTES * 1e3
-        by = "operations" if t_ops >= t_bytes else "bytes"
-        log(f"{name}: {ms:.4f} ms kernel ({flops / ms / 1e9:.1f} TFLOP/s), "
-            f"{plain_ms:.4f} ms plain, {lib_ms:.4f} ms SDPA backward (both "
-            f"passes), bound {max(t_ops, t_bytes):.4f} ms ({by}: "
-            f"{flops:.3e} flop, {byts:.3e} B)")
-        out.append(record(name, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                          bound_ms=max(t_ops, t_bytes), bound_by=by,
-                          library_ms=lib_ms, shape=list(q.shape),
-                          kv_shape=list(k.shape)))
+    for name, f in fields.items():
+        t = tfields[name]
+        out.append(record(
+            name, plain_ms=plain[name], shape=list(q.shape),
+            kv_shape=list(k.shape), **f,
+            train_shape=list(targs[0].shape), train_shape_ms=t["ms"],
+            train_shape_graph_ms=t["graph_ms"],
+            train_shape_library_ms=t["library_ms"],
+            train_shape_library_graph_ms=t["library_graph_ms"],
+            train_shape_bound_ms=t["bound_ms"],
+            train_shape_plain_ms=tplain[name],
+            train_shape_max_abs_err=t["max_abs_err"]))
     return out
 
 
@@ -2391,7 +2506,8 @@ def main() -> int:
             if "Compiling entry function" in line:
                 # the kernel, and its template flag (Lb1: the paged variant)
                 log(f"  {name}: {line.split(chr(39))[1]}")
-            elif "registers" in line or "spill" in line:
+            elif ("registers" in line or "spill" in line
+                  or "(C75" in line):  # ptxas: serialised wgmmas
                 log(f"  {name}: {line.strip()}")
 
     np_stream, n_global = bc_alpha()

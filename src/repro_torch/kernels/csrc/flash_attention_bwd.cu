@@ -20,62 +20,76 @@
 //   dK = sum of round(dS)^T . q;  dQ = round(dS) . k
 // where round is the rounding to the inputs' type (bf16; none for fp32),
 // the TPU kernels' rounding points; accumulators fp32, outputs in the
-// inputs' type. expf and IEEE arithmetic: no fast math.
+// inputs' type.
 //
-// Design. Two kernels, as the TPU has two passes, so that no output is
-// summed across CTAs: no atomics, and the result is the same on every run.
-// * flash_bwd_dkv: one CTA per (kv head, 64-row kv tile). K and V stay in
-//   shared memory; a loop inside the CTA runs over the group's q heads and
-//   their 64-row q tiles (from the diagonal on when causal), which the TPU
-//   grid's folded (group, q tile) axis ran in order. dK and dV accumulate
-//   in registers (fp32) and are written once.
-// * flash_bwd_dq: one CTA per (q head, 64-row q tile), q and dO in shared
-//   memory, a loop over the kv tiles up to the diagonal; dQ accumulates in
-//   registers.
+// Two kernels, as the TPU has two passes, so that every output is written
+// once by one CTA: no atomics, and the result is the same on every run.
 // Each recomputes p and dS for its tile pairs (the price of two passes).
-// Two instantiations by type, as the forward:
-// * bf16 (the LM path): tensor cores, 4 warps of 16 rows (kv rows in
-//   dkv, q rows in dq); mma.sync m16n8k16 for the four products, with the
-//   score and dP accumulators turned straight into the A fragments of the
-//   p / dS products (the layouts match) and the B operands of those
-//   products by ldmatrix .trans; four (64, d) bf16 tiles in shared memory
-//   (rows padded by 8: no bank conflicts), 70 KB at d = 128.
-// * fp32: CUDA cores, 256 threads, each 4 rows x 4 tile columns of p / dS
-//   (through shared memory) and 4 rows x 8 output columns; 167 KB (dkv)
-//   and 149 KB (dq) at d = 128.
-// A partial tile (rows past S or Skv) is zero-filled and masked; head_dim
-// is any multiple of 8 up to 128 (padded to 16 with zero columns for the
-// tensor cores).
 //
 // What bounds it. At the kernels' own count, per (q, k) pair the dkv pass
 // does 8 d flops (q.k, dO.v, p^T.dO, dS^T.q) and the dq pass 6 d (q.k,
 // dO.v, dS.k). At Qwen2.5-14B's layer shape (q (80, 2048, 128), k / v
 // (16, 2048, 128), bf16, causal: 80 x 2048 x 2049 / 2 pairs) that is
 // 171.9 and 128.9 GFLOP against ~100 MB each: bound by operations, 0.174
-// and 0.130 ms at the card's 989 TFLOP/s bf16 dense. mma.sync with no copy
-// pipeline (every tile is loaded, then used, behind a barrier) stays well
-// short of it; wgmma, TMA and a ring of tiles are later work.
+// and 0.130 ms at the card's 989 TFLOP/s bf16 dense. So the bf16 kernels
+// are built, as the forward (flash_attention.cu), to keep the tensor cores
+// fed, on the helpers of hopper_common.cuh:
+//
+// * A CTA is three warpgroups. Warpgroup 0 is the producer (setmaxnreg
+//   24): one thread loads the CTA's fixed tiles once and then streams
+//   64-row tiles through a ring of 3 slots with TMA (128-byte swizzle;
+//   rows past S / Skv and columns past d arrive as zeros), a full and an
+//   empty mbarrier a slot. Warpgroups 1 and 2 are consumers (setmaxnreg
+//   240) of 64 of the CTA's 128 rows each; they run unpaired (named
+//   barriers that made them take turns to issue cost 2-3 %). The scale
+//   folds into one FFMA before exp2 on the MUFU unit (lse pre-multiplied
+//   by log2(e)); masks only on causal diagonal and ragged tiles.
+// * flash_bwd_dkv: one CTA per (kv head, 128-row kv tile), kv tile 0 (the
+//   longest when causal) first. K and V load once; the ring streams the
+//   group's (q head, 64-row q tile) pairs (from the diagonal on when
+//   causal), which the TPU grid's folded (group, q tile) axis ran in
+//   order, q and dO by TMA and their lse / delta rows by a second producer
+//   warp with ordinary loads (a (BH, S) fp32 row is 16-byte aligned only
+//   where S % 4 == 0; rows past S get lse +inf, so p = 0). A consumer
+//   computes S^T = K . q^T and dP^T = V . dO^T by wgmma m64n64k16 from
+//   shared memory (both K-major), p^T and dS^T in registers, then
+//   dV += round(p^T) . dO and dK += round(dS^T) . q by wgmma m64n128k16
+//   with A from registers (the accumulators' layout is the A fragment's)
+//   and dO / q read MN-major from the same slot. dK and dV (64 + 64 fp32 a
+//   thread) stay in registers for the whole loop; at the end they go, in
+//   bf16, through the consumer's own rows of the K and V tiles and a TMA
+//   store (rows past Skv, columns past d not written).
+// * flash_bwd_dq: one CTA per (q head, 128-row q tile), the longest q
+//   tiles first. q and dO load once; the ring streams 64-key k / v tiles
+//   up to the diagonal. A consumer computes S = q . K^T and dP = dO . V^T
+//   (m64n64k16, shared memory), dS in registers with its rows' lse and
+//   delta held in registers, then dQ += round(dS) . K (m64n128k16, A from
+//   registers, K read MN-major); dQ leaves through the consumer's rows of
+//   the q tile and a TMA store.
+// The 64-row streamed tile keeps a consumer at 64 + 64 (dK, dV, or dQ and
+// headroom) + 32 + 32 (S, dP) fp32 registers a thread at d 128. head_dim
+// is held as 128 columns (two swizzle atoms; a second atom only where
+// d > 64); ceil(d / 16), the k-steps of S and dP, is a template argument
+// (a branch between one accumulator's wgmmas makes ptxas serialise them),
+// and so is N, the columns of the dK / dV / dQ products and accumulators:
+// d rounded up to 64, 96 or 128 (d 96, phi3's, pays no padded columns),
+// the ones past d unstored.
+// * fp32: CUDA cores, 256 threads, each 4 rows x 4 tile columns of p / dS
+//   (through shared memory) and 4 rows x 8 output columns; 64-row tiles,
+//   167 KB (dkv) and 149 KB (dq) at d = 128; expf and IEEE arithmetic.
 #include "flash_common.cuh"
+#include "hopper_common.cuh"
 
 #include <cmath>
 
 namespace {
 
 using flash::kMaxD;
-using flash::kMaxDTiles;
-using flash::kMaxKSteps;
 using flash::kPld;
 using flash::kTile;
-using flash::ld_u32;
-using flash::ldmatrix_x4_trans;
-using flash::load_a_frag;
-using flash::mma_bf16;
 using flash::pack_bf16;
-using flash::padded_d;
 
-constexpr int kThreads = 256;     // fp32: 16 row groups x 16 column lanes
-constexpr int kMmaThreads = 128;  // bf16: 4 warps of 16 rows
-constexpr int kNT = kTile / 8;    // n-tiles of 8 across a 64-wide tile
+constexpr int kThreads = 256;  // fp32: 16 row groups x 16 column lanes
 
 using bf16 = __nv_bfloat16;
 
@@ -295,227 +309,507 @@ __global__ void __launch_bounds__(kThreads) dq_fp32_kernel(Args<float> a) {
   store_acc(dq, a.dq + bh * a.s * d, q0, a.s, ty, tx, d);
 }
 
-// -------------------------------------------------- bf16, tensor cores ----
+// ---------------------------------------------------------------- bf16 ----
 
-// acc[n] (16 rows x 8 n-tiles) += rows . cols^T over the (padded) head
-// dim: A fragments from 16 rows of one tile, B fragments from the 64 rows
-// of another (the n index), both row-major bf16 (64, dp + 8) in shared
-// memory
-__device__ __forceinline__ void mma_rows_cols(float (&acc)[kNT][4],
-                                              const bf16* rows,
-                                              const bf16* cols, int ld,
-                                              int n_ks, int g, int t) {
+// Consumer warpgroups of the dK / dV pass: 2 (128 kv rows a CTA, one CTA
+// an SM) or 1 (64 kv rows, two CTAs an SM: twice the CTAs, so less of the
+// causal imbalance between kv tiles, but q and dO streamed once for 64 kv
+// rows instead of 128). tools/flash_bwd_kv_tile.py builds both and times
+// them on the card.
+#ifndef FLASH_BWD_DKV_WARPGROUPS
+#define FLASH_BWD_DKV_WARPGROUPS 2
+#endif
+
+constexpr int kHD = 128;  // head_dim as held: two 64-column swizzle atoms
+constexpr int kAtoms = kHD / hopper::kAtomCols;
+constexpr int kWgRows = 64;     // rows a consumer warpgroup owns
+constexpr int kTileRows = 64;   // rows of a streamed tile: q / dO or k / v
+constexpr int kStages = 3;      // slots of the ring
+constexpr int kProducerRegs = 24;
+constexpr uint32_t kTileAtomBytes = kTileRows * hopper::kRowBytes;  // 8 KB
+constexpr uint32_t kTileBytes = kAtoms * kTileAtomBytes;
+// a dkv slot's rows of lse (times log2(e)) and delta
+constexpr uint32_t kStatBytes = 2 * kTileRows * sizeof(float);
+// the fixed tiles' barrier, then a full and an empty one a slot
+constexpr int kBarriers = 1 + 2 * kStages;
+constexpr int kEpilogueBar = 1;  // named barriers 1 + consumer
+constexpr float kLog2e = 1.4426950408889634f;
+
+// A pass's CTA: kWgs consumer warpgroups of 64 rows own its fixed tiles
+// (kv rows for dkv, q rows for dq); the producer warpgroup's registers go
+// to them (24 + 240 a thread at one CTA an SM, 24 + 232 at two).
+template <int kWgs>
+struct Cta {
+  static constexpr int kConsumers = kWgs;
+  static constexpr int kRows = kWgs * kWgRows;
+  static constexpr int kThreads = hopper::kWarpgroup * (1 + kWgs);
+  static constexpr int kPerSm = kWgs == 2 ? 1 : 2;
+  static constexpr int kConsumerRegs = kWgs == 2 ? 240 : 232;
+  static constexpr uint32_t kAtomBytes = kRows * hopper::kRowBytes;
+  static constexpr uint32_t kFixedBytes = kAtoms * kAtomBytes;  // a tile
+  // [alignment slack][two fixed tiles][slot 0: two tiles][slot 1]...
+  // ([lse / delta of each slot], dkv)[barriers]: tiles 1024-byte aligned,
+  // as the swizzle needs
+  static constexpr size_t smem(bool dkv) {
+    return 1024 + 2 * kFixedBytes + 2 * kStages * kTileBytes +
+           (dkv ? kStages * kStatBytes : 0) + 8 * kBarriers;
+  }
+};
+using DkvCta = Cta<FLASH_BWD_DKV_WARPGROUPS>;
+using DqCta = Cta<2>;
+
+struct BArgs {
+  const float* lse;    // (bh, s)
+  const float* delta;  // (bh, s)
+  int s, skv, d, group, causal;
+  float scale;       // float(1 / sqrt(d))
+  float scale_log2;  // scale log2(e): exp(x scale - lse) = 2^(x c - lse2)
+};
+
+// What the launcher builds, and the library exports (flash_bwd_config).
+struct BwdConfig {
+  int q_rows, kv_rows, stages, threads, smem, grid_x, grid_y;
+};
+
+BwdConfig bwd_config(bool dkv, int bh, int s, int skv, int group) {
+  if (dkv)
+    return {kTileRows, DkvCta::kRows, kStages, DkvCta::kThreads,
+            (int)DkvCta::smem(true), bh / group,
+            (skv + DkvCta::kRows - 1) / DkvCta::kRows};
+  return {DqCta::kRows, kTileRows, kStages, DqCta::kThreads,
+          (int)DqCta::smem(false), bh, (s + DqCta::kRows - 1) / DqCta::kRows};
+}
+
+// acc = a . b^T over kSteps 16-wide k-steps (a: 64 rows of a tile whose
+// atoms are a_atom bytes apart, b: a 64-row streamed tile, both K-major),
+// committed as one group
+template <int kSteps>
+__device__ __forceinline__ void issue_rows(float (&acc)[32], uint32_t a,
+                                           uint32_t a_atom, uint32_t b) {
 #pragma unroll
-  for (int j = 0; j < kNT; ++j) acc[j][0] = acc[j][1] = acc[j][2] =
-      acc[j][3] = 0.f;
+  for (int kk = 0; kk < kSteps; ++kk)
+    hopper::wgmma_m64n64k16_ss(
+        acc,
+        hopper::desc_b128(a + (kk / 4) * a_atom + (kk % 4) * 32, 16,
+                          hopper::kCoreRowsBytes),
+        hopper::desc_b128(b + (kk / 4) * kTileAtomBytes + (kk % 4) * 32, 16,
+                          hopper::kCoreRowsBytes),
+        kk > 0);
+  hopper::wgmma_commit();
+}
+
+// acc (64 x kN) += a (64 x 64 as the A fragments of 4 k-steps) . x (a
+// 64-row streamed tile read MN-major: its rows along K, its first kN
+// columns along N, the next 64 columns one atom on); not committed
+template <int kN>
+__device__ __forceinline__ void issue_cols(float (&acc)[kN / 2],
+                                           const uint32_t (&a)[4][4],
+                                           uint32_t x) {
 #pragma unroll
-  for (int kk = 0; kk < kMaxKSteps; ++kk) {
-    if (kk >= n_ks) continue;
-    uint32_t a[4];
-    load_a_frag(a, rows, ld, kk * 16, g, t);
-#pragma unroll
-    for (int j = 0; j < kNT; ++j) {
-      const bf16* br = cols + (j * 8 + g) * ld + kk * 16 + 2 * t;
-      mma_bf16(acc[j], a, ld_u32(br), ld_u32(br + 8));
-    }
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t b =
+        hopper::desc_b128(x + kk * 16 * hopper::kRowBytes, kTileAtomBytes,
+                          hopper::kCoreRowsBytes);
+    if constexpr (kN == 128)
+      hopper::wgmma_m64n128k16_rs_tb(acc, a[kk], b, 1);
+    else if constexpr (kN == 96)
+      hopper::wgmma_m64n96k16_rs_tb(acc, a[kk], b, 1);
+    else
+      hopper::wgmma_m64n64k16_rs_tb(acc, a[kk], b, 1);
   }
 }
 
-// x (16 rows x 64 columns, as 8 n-tiles of accumulators) rounded to bf16
-// as the A fragments of 4 k-steps of 16: regs 0 / 1 (rows g / g + 8) hold
-// columns 2t, 2t + 1 of a k-step's first 8, regs 2 / 3 of its second 8
-__device__ __forceinline__ void to_a_frags(uint32_t (&fa)[kNT / 2][4],
-                                           const float (&x)[kNT][4]) {
+// x (a 64 x 64 accumulator: x[4 j + 2 h + e] at row 16 warp + g + 8 h,
+// column 8 j + 2 t + e) rounded to bf16 as the A fragments of 4 k-steps
+// of 16 columns
+__device__ __forceinline__ void pack_frags(uint32_t (&a)[4][4],
+                                           const float (&x)[32]) {
 #pragma unroll
-  for (int j = 0; j < kNT; ++j)
+  for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-    for (int h = 0; h < 2; ++h)
-      fa[j / 2][(j % 2) * 2 + h] = pack_bf16(x[j][2 * h], x[j][2 * h + 1]);
+    for (int r = 0; r < 4; ++r)
+      a[kk][r] = pack_bf16(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
 }
 
-// acc (16 rows x d) += fa (16 x 64, A fragments) . X (64 x d, a row-major
-// bf16 tile in shared memory, read transposed by ldmatrix)
-__device__ __forceinline__ void mma_frags_tile(float (&acc)[kMaxDTiles][4],
-                                               const uint32_t (&fa)[kNT / 2][4],
-                                               const bf16* X, int ld,
-                                               int n_dt, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < kNT / 2; ++kk) {
-    const bf16* xr = X + (kk * 16 + (lane & 15)) * ld + ((lane >> 4) << 3);
-#pragma unroll
-    for (int j = 0; j < kMaxDTiles; j += 2) {
-      if (j >= n_dt) continue;  // n_dt is even: dp is a multiple of 16
-      uint32_t b[4];
-      ldmatrix_x4_trans(b, xr + j * 8);
-      mma_bf16(acc[j], fa[kk], b[0], b[1]);
-      mma_bf16(acc[j + 1], fa[kk], b[2], b[3]);
-    }
-  }
-}
-
-// rows r0 + g + 8h (< n_rows) of a warp's 16-row accumulator into out
-__device__ __forceinline__ void store_frags(const float (&acc)[kMaxDTiles][4],
-                                            bf16* out, int r0, int n_rows,
-                                            int d, int g, int t) {
+// x (64 rows x kN columns of fp32 accumulators) in bf16 into rows 0..63
+// of a 128-byte-swizzled tile at `rows` (atoms `atom` bytes apart), as a
+// TMA load would have written them
+template <int kN>
+__device__ __forceinline__ void stage_out(const float (&x)[kN / 2],
+                                          uint32_t rows, uint32_t atom,
+                                          int warp, int g, int t) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int row = r0 + g + 8 * h;
-    if (row >= n_rows) continue;
-    bf16* orow = out + (size_t)row * d;
+    const int r = 16 * warp + g + 8 * h;
 #pragma unroll
-    for (int j = 0; j < kMaxDTiles; ++j) {
-      if (j * 8 >= d) continue;
-      *reinterpret_cast<uint32_t*>(orow + j * 8 + 2 * t) =
-          pack_bf16(acc[j][2 * h], acc[j][2 * h + 1]);
-    }
+    for (int j = 0; j < kN / 8; ++j)
+      hopper::st_shared_u32(rows + (j / 8) * atom + r * hopper::kRowBytes +
+                                (((j % 8) ^ (r % 8)) << 4) + 4 * t,
+                            pack_bf16(x[4 * j + 2 * h], x[4 * j + 2 * h + 1]));
   }
 }
 
-__global__ void __launch_bounds__(kMmaThreads) dkv_mma_kernel(Args<bf16> a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int d = a.d, dp = padded_d(d), ld = dp + 8;
-  const int n_ks = dp / 16, n_dt = dp / 8;
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // (64, dp + 8) K tile
-  bf16* vs = ks + kTile * ld;                    // V tile
-  bf16* qs = vs + kTile * ld;                    // Q tile
-  bf16* dos = qs + kTile * ld;                   // dO tile
-  float* lse_s = reinterpret_cast<float*>(dos + kTile * ld);
-  float* delta_s = lse_s + kTile;
-  const int bhkv = blockIdx.x, k0 = blockIdx.y * kTile;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const size_t kv_off = (size_t)bhkv * a.skv * d;
-  flash::load_tile_bf16<kMmaThreads>(a.k + kv_off, k0, a.skv, d, dp, ks);
-  flash::load_tile_bf16<kMmaThreads>(a.v + kv_off, k0, a.skv, d, dp, vs);
-  const bf16* kw = ks + warp * 16 * ld;  // this warp's 16 kv rows
-  const bf16* vw = vs + warp * 16 * ld;
+// The CTA's dynamic shared memory from its first 1024-byte boundary (the
+// __align__ of an extern array is not a promise)
+__device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
+  return raw + ((1024u - (hopper::smem_u32(raw) & 1023u)) & 1023u);
+}
 
-  float dk[kMaxDTiles][4], dv[kMaxDTiles][4];
-#pragma unroll
-  for (int j = 0; j < kMaxDTiles; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+// kSteps: the 16-wide k-steps of S^T and dP^T, ceil(d / 16); kN: the
+// columns of dK and dV held, d rounded up to 64, 96 or 128
+template <int kSteps, int kN = kSteps <= 4 ? 64 : kSteps <= 6 ? 96 : 128>
+__global__ void __launch_bounds__(DkvCta::kThreads, DkvCta::kPerSm)
+    dkv_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tq,
+    const __grid_constant__ CUtensorMap tdo,
+    const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv,
+    const __grid_constant__ CUtensorMap tdk,
+    const __grid_constant__ CUtensorMap tdv, BArgs a) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* base = aligned_smem(smem_raw);
+  const uint32_t sk = hopper::smem_u32(base);
+  const uint32_t sv = sk + DkvCta::kFixedBytes;
+  const uint32_t slots = sv + DkvCta::kFixedBytes;  // slot st: q, then dO
+  const uint32_t stats_off =
+      2 * DkvCta::kFixedBytes + 2 * kStages * kTileBytes;
+  const uint32_t bars = sk + stats_off + kStages * kStatBytes;
+  const uint32_t kv_full = bars;
+  auto full = [&](int st) { return bars + 8u * (1 + st); };
+  auto empty = [&](int st) { return bars + 8u * (1 + kStages + st); };
 
-  const int n_q = (a.s + kTile - 1) / kTile;
-  const int qt0 = a.causal ? k0 / kTile : 0;  // earlier q tiles see no key
-  for (int gi = 0; gi < a.group; ++gi) {
-    const size_t bh = (size_t)bhkv * a.group + gi;
-    for (int qt = qt0; qt < n_q; ++qt) {
-      const int q0 = qt * kTile;
-      __syncthreads();  // every warp is done with the last q / dO tile
-      flash::load_tile_bf16<kMmaThreads>(a.q + bh * a.s * d, q0, a.s, d, dp,
-                                         qs);
-      flash::load_tile_bf16<kMmaThreads>(a.dout + bh * a.s * d, q0, a.s, d,
-                                         dp, dos);
-      for (int r = threadIdx.x; r < kTile; r += kMmaThreads) {
-        const bool in = q0 + r < a.s;
-        lse_s[r] = in ? a.lse[bh * a.s + q0 + r] : 0.f;
-        delta_s[r] = in ? a.delta[bh * a.s + q0 + r] : 0.f;
+  const int hk = blockIdx.x;               // kv head
+  const int k0 = blockIdx.y * DkvCta::kRows;    // kv tile 0 first
+  const int n_q = (a.s + kTileRows - 1) / kTileRows;
+  // causal: q tiles before the kv tile's first row see none of its keys
+  const int qt0 = a.causal ? min(k0 / kTileRows, n_q) : 0;
+  const int per_head = n_q - qt0;
+  const int n_it = a.group * per_head;
+  const int n_atoms = (a.d + hopper::kAtomCols - 1) / hopper::kAtomCols;
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / hopper::kWarpgroup, 0);
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(kv_full, 1);
+    for (int st = 0; st < kStages; ++st) {
+      // the TMA thread's arrival with its bytes, and the stats warp's 32
+      hopper::mbar_init(full(st), 1 + 32);
+      hopper::mbar_init(empty(st), DkvCta::kConsumers * hopper::kWarpgroup);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    hopper::setmaxnreg_dec<kProducerRegs>();
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    if (threadIdx.x == 0) {
+      hopper::mbar_expect_tx(kv_full, 2 * n_atoms * DkvCta::kAtomBytes);
+      for (int at = 0; at < n_atoms; ++at) {
+        hopper::tma_load_3d(sk + at * DkvCta::kAtomBytes, &tk, kv_full,
+                            at * hopper::kAtomCols, k0, hk);
+        hopper::tma_load_3d(sv + at * DkvCta::kAtomBytes, &tv, kv_full,
+                            at * hopper::kAtomCols, k0, hk);
       }
-      __syncthreads();
-      // p^T: this warp's kv rows g (h = 0), g + 8 (h = 1) x q columns
-      // j * 8 + 2t + e
-      float pt[kNT][4];
-      mma_rows_cols(pt, kw, qs, ld, n_ks, g, t);
-#pragma unroll
-      for (int j = 0; j < kNT; ++j)
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int qi = j * 8 + 2 * t + e;
-            float& x = pt[j][2 * h + e];
-            x = seen(q0 + qi, k0 + warp * 16 + g + 8 * h, a.s, a.skv,
-                     a.causal)
-                    ? expf(x * a.scale - lse_s[qi])
-                    : 0.f;
-          }
-      uint32_t fa[kNT / 2][4];
-      to_a_frags(fa, pt);  // p rounded to bf16
-      mma_frags_tile(dv, fa, dos, ld, n_dt, lane);
-      // dS^T = p^T (dP^T - delta) scale, with dP^T = V . dO^T
-      float dst[kNT][4];
-      mma_rows_cols(dst, vw, dos, ld, n_ks, g, t);
-#pragma unroll
-      for (int j = 0; j < kNT; ++j)
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int qi = j * 8 + 2 * t + e;
-            dst[j][2 * h + e] = pt[j][2 * h + e] *
-                                (dst[j][2 * h + e] - delta_s[qi]) * a.scale;
-          }
-      to_a_frags(fa, dst);  // dS rounded to bf16
-      mma_frags_tile(dk, fa, qs, ld, n_dt, lane);
+      int bh = hk * a.group, qt = qt0;
+      for (int it = 0; it < n_it; ++it) {
+        const int st = it % kStages;
+        const uint32_t qs = slots + 2 * st * kTileBytes;
+        // passes at once the first round
+        hopper::mbar_wait(empty(st), ((it / kStages) & 1) ^ 1);
+        hopper::mbar_expect_tx(full(st), 2 * n_atoms * kTileAtomBytes);
+        for (int at = 0; at < n_atoms; ++at) {
+          hopper::tma_load_3d(qs + at * kTileAtomBytes, &tq, full(st),
+                              at * hopper::kAtomCols, qt * kTileRows, bh);
+          hopper::tma_load_3d(qs + kTileBytes + at * kTileAtomBytes, &tdo,
+                              full(st), at * hopper::kAtomCols,
+                              qt * kTileRows, bh);
+        }
+        if (++qt == n_q) qt = qt0, ++bh;
+      }
+    } else if (warp == 1) {
+      // the stats warp: each slot's lse (times log2(e); +inf past S, so
+      // p = 0 there) and delta rows
+      int bh = hk * a.group, qt = qt0;
+      for (int it = 0; it < n_it; ++it) {
+        const int st = it % kStages;
+        float* stats = reinterpret_cast<float*>(base + stats_off +
+                                                st * kStatBytes);
+        hopper::mbar_wait(empty(st), ((it / kStages) & 1) ^ 1);
+        for (int r = lane; r < kTileRows; r += 32) {
+          const int row = qt * kTileRows + r;
+          const size_t i = (size_t)bh * a.s + row;
+          stats[r] = row < a.s ? a.lse[i] * kLog2e : INFINITY;
+          stats[kTileRows + r] = row < a.s ? a.delta[i] : 0.f;
+        }
+        hopper::mbar_arrive(full(st));
+        if (++qt == n_q) qt = qt0, ++bh;
+      }
     }
+    return;
   }
-  store_frags(dk, a.dk + kv_off, k0 + warp * 16, a.skv, d, g, t);
-  store_frags(dv, a.dv + kv_off, k0 + warp * 16, a.skv, d, g, t);
+
+  hopper::setmaxnreg_inc<DkvCta::kConsumerRegs>();
+  const int cw = wg - 1;  // kv rows kWgRows cw .. of the kv tile
+  const int tid = threadIdx.x % hopper::kWarpgroup;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;  // fragment row group, column pair
+  const int kv_lo = k0 + kWgRows * cw;
+  // this thread's kv rows: row0 and row0 + 8 (h = 0, 1)
+  const int row0 = kv_lo + 16 * warp + g;
+  const uint32_t k_rows = sk + kWgRows * cw * hopper::kRowBytes;
+  const uint32_t v_rows = sv + kWgRows * cw * hopper::kRowBytes;
+  const float c = a.scale_log2;
+  // pt / dst: S^T and dP^T (then p^T and dS^T), [4 j + 2 h + e] at kv row
+  // row0 + 8 h, q column 8 j + 2 t + e of the q tile; dk / dv [4 j + 2 h +
+  // e] at kv row row0 + 8 h, column 8 j + 2 t + e
+  float pt[32], dst[32], dk[kN / 2], dv[kN / 2];
+  uint32_t pa[4][4], da[4][4];
+#pragma unroll
+  for (int i = 0; i < kN / 2; ++i) dk[i] = dv[i] = 0.f;
+
+  hopper::mbar_wait(kv_full, 0);
+  int qt = qt0;
+  for (int it = 0; it < n_it; ++it) {
+    const int stg = it % kStages;
+    const int q0 = qt * kTileRows;
+    if (++qt == n_q) qt = qt0;
+    const uint32_t qs = slots + 2 * stg * kTileBytes, dos = qs + kTileBytes;
+    const float* lse2 =
+        reinterpret_cast<const float*>(base + stats_off + stg * kStatBytes);
+    const float* delta = lse2 + kTileRows;
+    hopper::reg_fence(dk);
+    hopper::reg_fence(dv);
+    hopper::mbar_wait(full(stg), (it / kStages) & 1);
+    hopper::wgmma_fence();
+    issue_rows<kSteps>(pt, k_rows, DkvCta::kAtomBytes, qs);
+    issue_rows<kSteps>(dst, v_rows, DkvCta::kAtomBytes, dos);
+    hopper::wgmma_wait<1>();  // S^T; dP^T still in flight
+    hopper::reg_fence(pt);
+    // p^T = 2^(S^T c - lse2); a causal tile whose first q row comes before
+    // the warpgroup's last kv row is masked (q < kv)
+    const bool diag = a.causal && q0 < kv_lo + kWgRows - 1;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 l = *reinterpret_cast<const float2*>(lse2 + 8 * j + 2 * t);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        pt[4 * j + 2 * h] = hopper::ex2(fmaf(pt[4 * j + 2 * h], c, -l.x));
+        pt[4 * j + 2 * h + 1] =
+            hopper::ex2(fmaf(pt[4 * j + 2 * h + 1], c, -l.y));
+      }
+    }
+    if (diag) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (q0 + 8 * j + 2 * t + e < row0 + 8 * h)
+              pt[4 * j + 2 * h + e] = 0.f;
+    }
+    hopper::wgmma_wait<0>();
+    hopper::reg_fence(dst);
+    // dS^T = p^T (dP^T - delta) scale
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 dl =
+          *reinterpret_cast<const float2*>(delta + 8 * j + 2 * t);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float* x = &dst[4 * j + 2 * h];
+        x[0] = pt[4 * j + 2 * h] * (x[0] - dl.x) * a.scale;
+        x[1] = pt[4 * j + 2 * h + 1] * (x[1] - dl.y) * a.scale;
+      }
+    }
+    pack_frags(pa, pt);   // p rounded to bf16
+    pack_frags(da, dst);  // dS rounded to bf16
+    hopper::wgmma_fence();
+    issue_cols<kN>(dv, pa, dos);
+    issue_cols<kN>(dk, da, qs);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::reg_fence(dk);
+    hopper::reg_fence(dv);
+    hopper::reg_fence(pa);
+    hopper::reg_fence(da);
+    hopper::mbar_arrive(empty(stg));  // this thread is done with the slot
+  }
+
+  // dK and dV into this warpgroup's own rows of the K and V tiles (only it
+  // read them), then one TMA store an atom of each
+  stage_out<kN>(dk, k_rows, DkvCta::kAtomBytes, warp, g, t);
+  stage_out<kN>(dv, v_rows, DkvCta::kAtomBytes, warp, g, t);
+  hopper::fence_proxy_async_smem();
+  hopper::bar_sync(kEpilogueBar + cw, hopper::kWarpgroup);
+  if (tid == 0) {
+    for (int at = 0; at < n_atoms; ++at) {
+      hopper::tma_store_3d(&tdk, k_rows + at * DkvCta::kAtomBytes,
+                           at * hopper::kAtomCols, kv_lo, hk);
+      hopper::tma_store_3d(&tdv, v_rows + at * DkvCta::kAtomBytes,
+                           at * hopper::kAtomCols, kv_lo, hk);
+    }
+    hopper::tma_store_commit_and_wait_read();
+  }
 }
 
-__global__ void __launch_bounds__(kMmaThreads) dq_mma_kernel(Args<bf16> a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int d = a.d, dp = padded_d(d), ld = dp + 8;
-  const int n_ks = dp / 16, n_dt = dp / 8;
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // (64, dp + 8) Q tile
-  bf16* dos = qs + kTile * ld;                   // dO tile
-  bf16* ks = dos + kTile * ld;                   // K tile
-  bf16* vs = ks + kTile * ld;                    // V tile
-  const size_t bh = blockIdx.x;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;  // longest first
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+template <int kSteps, int kN = kSteps <= 4 ? 64 : kSteps <= 6 ? 96 : 128>
+__global__ void __launch_bounds__(DqCta::kThreads, DqCta::kPerSm)
+    dq_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tq,
+    const __grid_constant__ CUtensorMap tdo,
+    const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv,
+    const __grid_constant__ CUtensorMap tdq, BArgs a) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t sq = hopper::smem_u32(aligned_smem(smem_raw));
+  const uint32_t sdo = sq + DqCta::kFixedBytes;
+  const uint32_t slots = sdo + DqCta::kFixedBytes;  // slot st: k, then v
+  const uint32_t bars = slots + 2 * kStages * kTileBytes;
+  const uint32_t q_full = bars;
+  auto full = [&](int st) { return bars + 8u * (1 + st); };
+  auto empty = [&](int st) { return bars + 8u * (1 + kStages + st); };
+
+  const int bh = blockIdx.x;
+  // the longest q tiles first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * DqCta::kRows;
+  int n_kv = (a.skv + kTileRows - 1) / kTileRows;
+  if (a.causal)
+    n_kv = min(n_kv, (min(q0 + DqCta::kRows, a.s) - 1) / kTileRows + 1);
+  const int n_atoms = (a.d + hopper::kAtomCols - 1) / hopper::kAtomCols;
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / hopper::kWarpgroup, 0);
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int st = 0; st < kStages; ++st) {
+      hopper::mbar_init(full(st), 1);
+      hopper::mbar_init(empty(st), DqCta::kConsumers * hopper::kWarpgroup);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    hopper::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      const int kv = bh / a.group;
+      hopper::mbar_expect_tx(q_full, 2 * n_atoms * DqCta::kAtomBytes);
+      for (int at = 0; at < n_atoms; ++at) {
+        hopper::tma_load_3d(sq + at * DqCta::kAtomBytes, &tq, q_full,
+                            at * hopper::kAtomCols, q0, bh);
+        hopper::tma_load_3d(sdo + at * DqCta::kAtomBytes, &tdo, q_full,
+                            at * hopper::kAtomCols, q0, bh);
+      }
+      for (int kt = 0; kt < n_kv; ++kt) {
+        const int st = kt % kStages;
+        const uint32_t ks = slots + 2 * st * kTileBytes;
+        hopper::mbar_wait(empty(st), ((kt / kStages) & 1) ^ 1);
+        hopper::mbar_expect_tx(full(st), 2 * n_atoms * kTileAtomBytes);
+        for (int at = 0; at < n_atoms; ++at) {
+          hopper::tma_load_3d(ks + at * kTileAtomBytes, &tk, full(st),
+                              at * hopper::kAtomCols, kt * kTileRows, kv);
+          hopper::tma_load_3d(ks + kTileBytes + at * kTileAtomBytes, &tv,
+                              full(st), at * hopper::kAtomCols,
+                              kt * kTileRows, kv);
+        }
+      }
+    }
+    return;
+  }
+
+  hopper::setmaxnreg_inc<DqCta::kConsumerRegs>();
+  const int cw = wg - 1;  // q rows kWgRows cw .. of the q tile
+  const int tid = threadIdx.x % hopper::kWarpgroup;
+  const int warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
-  const size_t kv_off = (bh / a.group) * a.skv * d;
-  flash::load_tile_bf16<kMmaThreads>(a.q + bh * a.s * d, q0, a.s, d, dp, qs);
-  flash::load_tile_bf16<kMmaThreads>(a.dout + bh * a.s * d, q0, a.s, d, dp,
-                                     dos);
-  const bf16* qw = qs + warp * 16 * ld;  // this warp's 16 q rows
-  const bf16* dow = dos + warp * 16 * ld;
-  // rows g (h = 0) and g + 8 (h = 1) of the warp's block
-  float lse[2], delta[2];
+  const int q_lo = q0 + kWgRows * cw;
+  const int row0 = q_lo + 16 * warp + g;  // and row0 + 8 (h = 1)
+  const uint32_t q_rows = sq + kWgRows * cw * hopper::kRowBytes;
+  const uint32_t do_rows = sdo + kWgRows * cw * hopper::kRowBytes;
+  const float c = a.scale_log2;
+  // this thread's rows' lse (times log2(e); +inf past S, so p = 0) and delta
+  float lse2[2], delta[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int row = q0 + warp * 16 + g + 8 * h;
-    lse[h] = row < a.s ? a.lse[bh * a.s + row] : 0.f;
-    delta[h] = row < a.s ? a.delta[bh * a.s + row] : 0.f;
+    const int row = row0 + 8 * h;
+    const size_t i = (size_t)bh * a.s + row;
+    lse2[h] = row < a.s ? a.lse[i] * kLog2e : INFINITY;
+    delta[h] = row < a.s ? a.delta[i] : 0.f;
   }
-  float dq[kMaxDTiles][4];
+  // s / dp: S and dP (then p and dS), [4 j + 2 h + e] at q row row0 + 8 h,
+  // key 8 j + 2 t + e of the kv tile; dq [4 j + 2 h + e] at row0 + 8 h,
+  // column 8 j + 2 t + e
+  float s[32], dp[32], dq[kN / 2];
+  uint32_t da[4][4];
 #pragma unroll
-  for (int j = 0; j < kMaxDTiles; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq[j][e] = 0.f;
+  for (int i = 0; i < kN / 2; ++i) dq[i] = 0.f;
 
-  int n_kv = (a.skv + kTile - 1) / kTile;
-  if (a.causal) n_kv = min(n_kv, (q0 + kTile - 1) / kTile + 1);
+  hopper::mbar_wait(q_full, 0);
   for (int kt = 0; kt < n_kv; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();  // every warp is done with the last K / V tile
-    flash::load_tile_bf16<kMmaThreads>(a.k + kv_off, k0, a.skv, d, dp, ks);
-    flash::load_tile_bf16<kMmaThreads>(a.v + kv_off, k0, a.skv, d, dp, vs);
-    __syncthreads();
-    // p: q rows g + 8h x kv columns j * 8 + 2t + e
-    float p[kNT][4], ds[kNT][4];
-    mma_rows_cols(p, qw, ks, ld, n_ks, g, t);
-    mma_rows_cols(ds, dow, vs, ld, n_ks, g, t);  // dP = dO . V^T
+    const int stg = kt % kStages;
+    const int k0 = kt * kTileRows;
+    const uint32_t ks = slots + 2 * stg * kTileBytes, vs = ks + kTileBytes;
+    hopper::reg_fence(dq);
+    hopper::mbar_wait(full(stg), (kt / kStages) & 1);
+    hopper::wgmma_fence();
+    issue_rows<kSteps>(s, q_rows, DqCta::kAtomBytes, ks);
+    issue_rows<kSteps>(dp, do_rows, DqCta::kAtomBytes, vs);
+    hopper::wgmma_wait<1>();  // S; dP still in flight
+    hopper::reg_fence(s);
 #pragma unroll
-    for (int j = 0; j < kNT; ++j)
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          s[4 * j + 2 * h + e] =
+              hopper::ex2(fmaf(s[4 * j + 2 * h + e], c, -lse2[h]));
+    // masks: the keys past Skv of a ragged last tile, and causal keys past
+    // a row where the tile reaches past the warpgroup's first row
+    if (k0 + kTileRows > a.skv || (a.causal && k0 + kTileRows - 1 > q_lo)) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int key = k0 + 8 * j + 2 * t + e;
+            if (key >= a.skv || (a.causal && key > row0 + 8 * h))
+              s[4 * j + 2 * h + e] = 0.f;
+          }
+    }
+    hopper::wgmma_wait<0>();
+    hopper::reg_fence(dp);
+    // dS = p (dP - delta) scale
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int h = 0; h < 2; ++h)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const int kpos = k0 + j * 8 + 2 * t + e;
-          const float pe =
-              seen(q0 + warp * 16 + g + 8 * h, kpos, a.s, a.skv, a.causal)
-                  ? expf(p[j][2 * h + e] * a.scale - lse[h])
-                  : 0.f;
-          ds[j][2 * h + e] = pe * (ds[j][2 * h + e] - delta[h]) * a.scale;
+          float& x = dp[4 * j + 2 * h + e];
+          x = s[4 * j + 2 * h + e] * (x - delta[h]) * a.scale;
         }
-    uint32_t fa[kNT / 2][4];
-    to_a_frags(fa, ds);  // dS rounded to bf16
-    mma_frags_tile(dq, fa, ks, ld, n_dt, lane);
+    pack_frags(da, dp);  // dS rounded to bf16
+    hopper::wgmma_fence();
+    issue_cols<kN>(dq, da, ks);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::reg_fence(dq);
+    hopper::reg_fence(da);
+    hopper::mbar_arrive(empty(stg));
   }
-  store_frags(dq, a.dq + bh * a.s * d, q0 + warp * 16, a.s, d, g, t);
+
+  // dQ into this warpgroup's own rows of the q tile, then a TMA store
+  stage_out<kN>(dq, q_rows, DqCta::kAtomBytes, warp, g, t);
+  hopper::fence_proxy_async_smem();
+  hopper::bar_sync(kEpilogueBar + cw, hopper::kWarpgroup);
+  if (tid == 0) {
+    for (int at = 0; at < n_atoms; ++at)
+      hopper::tma_store_3d(&tdq, q_rows + at * DqCta::kAtomBytes,
+                           at * hopper::kAtomCols, q_lo, bh);
+    hopper::tma_store_commit_and_wait_read();
+  }
 }
 
 // ------------------------------------------------------------ launch ----
@@ -523,11 +817,6 @@ __global__ void __launch_bounds__(kMmaThreads) dq_mma_kernel(Args<bf16> a) {
 size_t fp32_smem_bytes(int d, bool dkv) {
   const size_t tile = (size_t)kTile * (d + 4), p = (size_t)kTile * kPld;
   return sizeof(float) * (dkv ? 4 * tile + 2 * p + 2 * kTile : 4 * tile + p);
-}
-
-size_t mma_smem_bytes(int d, bool dkv) {
-  return sizeof(bf16) * 4 * (size_t)kTile * (padded_d(d) + 8) +
-         (dkv ? sizeof(float) * 2 * kTile : 0);
 }
 
 template <class T, class Kernel>
@@ -540,6 +829,64 @@ int launch_kernel(Kernel kernel, dim3 grid, int threads, size_t smem,
   return (int)cudaGetLastError();
 }
 
+template <bool kDkv>
+int launch_bf16(const Args<bf16>& a, int bh, void* stream) {
+  const int bhkv = bh / a.group;
+  CUtensorMap tq, tdo, tk, tv, to0, to1;
+  // the fixed tiles' box is the CTA's rows, the streamed tiles' 64, the
+  // outputs' a consumer's 64
+  const int q_box = kDkv ? kTileRows : DqCta::kRows;
+  const int kv_box = kDkv ? DkvCta::kRows : kTileRows;
+  cudaError_t err = hopper::bf16_tile_map(&tq, a.q, a.d, a.s, bh, q_box);
+  if (err == cudaSuccess)
+    err = hopper::bf16_tile_map(&tdo, a.dout, a.d, a.s, bh, q_box);
+  if (err == cudaSuccess)
+    err = hopper::bf16_tile_map(&tk, a.k, a.d, a.skv, bhkv, kv_box);
+  if (err == cudaSuccess)
+    err = hopper::bf16_tile_map(&tv, a.v, a.d, a.skv, bhkv, kv_box);
+  if (err == cudaSuccess)
+    err = kDkv ? hopper::bf16_tile_map(&to0, a.dk, a.d, a.skv, bhkv, kWgRows)
+               : hopper::bf16_tile_map(&to0, a.dq, a.d, a.s, bh, kWgRows);
+  if (err == cudaSuccess && kDkv)
+    err = hopper::bf16_tile_map(&to1, a.dv, a.d, a.skv, bhkv, kWgRows);
+  if (err != cudaSuccess) return (int)err;
+  const BwdConfig cfg = bwd_config(kDkv, bh, a.s, a.skv, a.group);
+  const BArgs b{a.lse,   a.delta, a.s,     a.skv,
+                a.d,     a.group, a.causal, a.scale,
+                (float)((double)a.scale * 1.4426950408889634)};
+  const dim3 grid(cfg.grid_x, cfg.grid_y);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int steps = (a.d + 15) / 16;
+  if (kDkv) {
+    using Kernel = void (*)(const CUtensorMap, const CUtensorMap,
+                            const CUtensorMap, const CUtensorMap,
+                            const CUtensorMap, const CUtensorMap, BArgs);
+    const Kernel by_steps[kHD / 16] = {
+        dkv_wgmma_kernel<1>, dkv_wgmma_kernel<2>, dkv_wgmma_kernel<3>,
+        dkv_wgmma_kernel<4>, dkv_wgmma_kernel<5>, dkv_wgmma_kernel<6>,
+        dkv_wgmma_kernel<7>, dkv_wgmma_kernel<8>};
+    const Kernel kernel = by_steps[steps - 1];
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, cfg.smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<grid, cfg.threads, cfg.smem, st>>>(tq, tdo, tk, tv, to0, to1, b);
+  } else {
+    using Kernel = void (*)(const CUtensorMap, const CUtensorMap,
+                            const CUtensorMap, const CUtensorMap,
+                            const CUtensorMap, BArgs);
+    const Kernel by_steps[kHD / 16] = {
+        dq_wgmma_kernel<1>, dq_wgmma_kernel<2>, dq_wgmma_kernel<3>,
+        dq_wgmma_kernel<4>, dq_wgmma_kernel<5>, dq_wgmma_kernel<6>,
+        dq_wgmma_kernel<7>, dq_wgmma_kernel<8>};
+    const Kernel kernel = by_steps[steps - 1];
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, cfg.smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<grid, cfg.threads, cfg.smem, st>>>(tq, tdo, tk, tv, to0, b);
+  }
+  return (int)cudaGetLastError();
+}
+
 // dtype: 0 float32 (CUDA cores), 1 bfloat16 (tensor cores)
 template <bool kDkv>
 int launch(const void* q, const void* k, const void* v, const void* dout,
@@ -549,10 +896,10 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   if (d <= 0 || d % 8 != 0 || d > kMaxD || group <= 0 || bh % group != 0 ||
       s <= 0 || skv <= 0 || (kDkv ? skv : s) > 65535 * kTile)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid = kDkv ? dim3(bh / group, (skv + kTile - 1) / kTile)
-                         : dim3(bh, (s + kTile - 1) / kTile);
   const float scale = (float)(1.0 / std::sqrt((double)d));
   if (dtype == 0) {
+    const dim3 grid = kDkv ? dim3(bh / group, (skv + kTile - 1) / kTile)
+                           : dim3(bh, (s + kTile - 1) / kTile);
     const Args<float> a{
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const float*>(dout),
@@ -569,8 +916,7 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
         static_cast<const float*>(lse), static_cast<const float*>(delta),
         static_cast<bf16*>(dq), static_cast<bf16*>(dk),
         static_cast<bf16*>(dv), s, skv, d, group, causal, scale};
-    return launch_kernel(kDkv ? dkv_mma_kernel : dq_mma_kernel, grid,
-                         kMmaThreads, mma_smem_bytes(d, kDkv), a, stream);
+    return launch_bf16<kDkv>(a, bh, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -596,6 +942,21 @@ int flash_bwd_dq_launch(const void* q, const void* k, const void* v,
   if (dq == nullptr) return (int)cudaErrorInvalidValue;
   return launch<false>(q, k, v, dout, lse, delta, dq, nullptr, nullptr, bh,
                        s, skv, d, group, causal, dtype, stream);
+}
+
+// The bf16 launch of the dK / dV pass (kind 0) or the dQ pass (kind 1) at
+// (bh, s, skv, group) as its launcher builds it, into out[0..6]: q rows and
+// kv rows (a CTA's fixed tile and the streamed tile), ring slots, threads
+// a CTA, dynamic shared memory bytes, grid x (kv heads or q heads), grid y
+// (kv tiles or q tiles). Returns 0, or cudaErrorInvalidValue.
+int flash_bwd_config(int kind, int bh, int s, int skv, int group, int* out) {
+  if ((kind != 0 && kind != 1) || group <= 0 || bh % group != 0)
+    return (int)cudaErrorInvalidValue;
+  const BwdConfig cfg = bwd_config(kind == 0, bh, s, skv, group);
+  const int vals[7] = {cfg.q_rows, cfg.kv_rows, cfg.stages, cfg.threads,
+                       cfg.smem,   cfg.grid_x,  cfg.grid_y};
+  for (int i = 0; i < 7; ++i) out[i] = vals[i];
+  return 0;
 }
 
 const char* flash_bwd_dkv_error_string(int code) {

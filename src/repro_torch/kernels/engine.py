@@ -93,6 +93,12 @@ RING_BAR_BYTES = 8 * max(RING_DEPTHS)
 #: head_dim as its tiles hold it (two 64-column swizzle atoms)
 FLASH_Q_ROWS, FLASH_KV_ROWS, FLASH_STAGES = 128, 128, 2
 FLASH_THREADS, FLASH_HEAD_DIM = 384, 128
+#: the bf16 flash backward's launches (``flash_attention_bwd.cu``), both
+#: passes: a CTA's fixed rows (kv rows for dK / dV, q rows for dQ; two
+#: consumer warpgroups of 64), the rows of the tiles its ring streams (q /
+#: dO, or k / v) and the ring's slots; threads and head_dim as the forward
+FLASH_BWD_CTA_ROWS, FLASH_BWD_TILE_ROWS, FLASH_BWD_STAGES = 128, 64, 3
+FLASH_BWD_KINDS = ("dkv", "dq")
 
 #: launches per kernel since the last ``reset_launches()``; only a real
 #: kernel launch counts, never the plain path
@@ -358,6 +364,57 @@ def library_flash_config(bh: int, s: int) -> dict:
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * 7)()
     fn(bh, s, out)
+    return {"q_rows": out[0], "kv_rows": out[1], "stages": out[2],
+            "threads": out[3], "smem": out[4], "grid": (out[5], out[6])}
+
+
+def flash_bwd_config(bh: int, s: int, d: int, group: int, kind: str,
+                     skv: int | None = None) -> dict:
+    """The bf16 flash backward's launch of pass ``kind`` ("dkv" or "dq")
+    for q (bh, s, d) and k / v (bh / group, skv, d), skv = s unless given:
+    its tiles (q_rows, kv_rows: the CTA's fixed tile and the streamed one),
+    ring, threads, dynamic shared memory (1024 bytes of alignment slack,
+    the two fixed tiles, each slot's two streamed tiles, dK / dV's slots
+    also their q rows' lse and delta, an mbarrier for the fixed tiles and
+    two a slot) and grid: (kv heads, kv tiles) for dkv, (q heads, q tiles)
+    for dq. It equals the launcher's own (``library_flash_bwd_config``, on
+    the card)."""
+    if kind not in FLASH_BWD_KINDS:
+        raise ValueError(f"flash bwd: kind {kind!r} is not one of "
+                         f"{FLASH_BWD_KINDS}")
+    if d % 8 or not 0 < d <= FLASH_HEAD_DIM:
+        raise ValueError(f"flash bwd: head_dim {d} must be a multiple of 8 "
+                         f"up to {FLASH_HEAD_DIM}")
+    if not (group > 0 and bh % group == 0):
+        raise ValueError(f"flash bwd: {bh} q heads do not split into "
+                         f"groups of {group}")
+    skv = s if skv is None else skv
+    cta, tile, stages = (FLASH_BWD_CTA_ROWS, FLASH_BWD_TILE_ROWS,
+                         FLASH_BWD_STAGES)
+    tiles = 2 * FLASH_HEAD_DIM * (2 * cta + 2 * stages * tile)
+    stats = 2 * 4 * tile * stages if kind == "dkv" else 0
+    smem = 1024 + tiles + stats + 8 * (1 + 2 * stages)
+    if kind == "dkv":
+        rows, grid = (tile, cta), (bh // group, -(-skv // cta))
+    else:
+        rows, grid = (cta, tile), (bh, -(-s // cta))
+    return {"q_rows": rows[0], "kv_rows": rows[1], "stages": stages,
+            "threads": FLASH_THREADS, "smem": smem, "grid": grid}
+
+
+def library_flash_bwd_config(bh: int, s: int, group: int, kind: str,
+                             skv: int | None = None) -> dict:
+    """``flash_bwd_config`` as the library's launcher builds it (its
+    ``flash_bwd_config``; needs the card)."""
+    fn = _library("flash_bwd_dkv").flash_bwd_config
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 7)()
+    code = fn(FLASH_BWD_KINDS.index(kind), bh, s, s if skv is None else skv,
+              group, out)
+    if code:
+        raise ValueError(f"flash_bwd_config refused kind {kind!r}, bh {bh}, "
+                         f"group {group} (cudaError {code})")
     return {"q_rows": out[0], "kv_rows": out[1], "stages": out[2],
             "threads": out[3], "smem": out[4], "grid": (out[5], out[6])}
 

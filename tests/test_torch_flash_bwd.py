@@ -144,3 +144,102 @@ def test_kernel_wrappers_refuse_an_input_that_needs_a_gradient(entry):
         fn(*args, **kw)
     with torch.no_grad():
         fn(*args, **kw)
+
+
+# ------------------------------- the bf16 kernels' launches, mirrored ----
+
+@pytest.mark.parametrize("kind", engine.FLASH_BWD_KINDS)
+@pytest.mark.parametrize("d", range(8, 129, 8))
+def test_flash_bwd_config_fits_shared_memory(d, kind):
+    """engine.flash_bwd_config, the mirror of the bf16 launchers' own
+    (chip_smoke.py holds the two equal on the card): the two fixed tiles
+    and the ring's streamed tiles, head_dim held as two 64-column atoms,
+    dK / dV's lse and delta rows and the mbarriers fit the card's 227 KB
+    for every head_dim the kernels take; three warpgroups a CTA."""
+    cfg = engine.flash_bwd_config(8, 200, d, 4, kind)
+    assert cfg["smem"] <= engine.SMEM_LIMIT
+    fixed, tile = ((cfg["kv_rows"], cfg["q_rows"]) if kind == "dkv"
+                   else (cfg["q_rows"], cfg["kv_rows"]))
+    assert cfg["smem"] >= 2 * engine.FLASH_HEAD_DIM * (
+        2 * fixed + 2 * cfg["stages"] * tile)
+    assert cfg["stages"] >= 2 and cfg["threads"] == 3 * 128
+    # 200 rows: a full and a partial 128-row tile; dkv over 8 / 4 kv heads
+    assert cfg["grid"] == ((2, 2) if kind == "dkv" else (8, 2))
+
+
+@pytest.mark.parametrize("kind", engine.FLASH_BWD_KINDS)
+@pytest.mark.parametrize("arch,bh", [("qwen2.5-14b", 80),
+                                     ("phi3-mini-3.8b", 64)])
+def test_flash_bwd_config_grid_at_the_lm_shapes(arch, bh, kind):
+    """The grids at B 2 x S 2048 (Qwen2.5-14B's 40 / 8 heads of 128,
+    phi3-mini-3.8b's 32 / 32 of 96): dK / dV one CTA a kv head and
+    128-row kv tile, streaming 64-row q tiles; dQ one CTA a q head and
+    128-row q tile, streaming 64-key kv tiles."""
+    from repro_torch.configs import ARCHS
+    cfg = ARCHS[arch]
+    group = cfg.n_heads // cfg.n_kv_heads
+    assert 2 * cfg.n_heads == bh
+    launch = engine.flash_bwd_config(bh, 2048, cfg.resolved_head_dim, group,
+                                     kind)
+    if kind == "dkv":
+        assert launch["grid"] == (bh // group, 2048 // 128)
+        assert (launch["kv_rows"], launch["q_rows"]) == (128, 64)
+    else:
+        assert launch["grid"] == (bh, 2048 // 128)
+        assert (launch["q_rows"], launch["kv_rows"]) == (128, 64)
+
+
+def test_flash_bwd_config_follows_skv():
+    """dK / dV's grid runs over Skv's kv tiles, dQ's over S's q tiles."""
+    assert engine.flash_bwd_config(8, 200, 64, 2, "dkv", skv=384)["grid"] \
+        == (4, 3)
+    assert engine.flash_bwd_config(8, 200, 64, 2, "dq", skv=384)["grid"] \
+        == (8, 2)
+
+
+@pytest.mark.parametrize("d", [0, 12, 136])
+def test_flash_bwd_config_refuses_a_head_dim(d):
+    for kind in engine.FLASH_BWD_KINDS:
+        with pytest.raises(ValueError, match="multiple of 8 up to 128"):
+            engine.flash_bwd_config(8, 128, d, 1, kind)
+
+
+def test_flash_bwd_config_refuses_a_kind_and_a_group():
+    with pytest.raises(ValueError, match="kind"):
+        engine.flash_bwd_config(8, 128, 64, 1, "dqkv")
+    with pytest.raises(ValueError, match="groups of 3"):
+        engine.flash_bwd_config(8, 128, 64, 3, "dq")
+
+
+# ----------------------------------------------- the kernels on the card ----
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the flash backward kernels have no "
+                    "CPU mode (python3 chip_smoke.py runs them)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s,d", [(64, 32), (200, 96), (384, 128)])
+def test_kernels_match_plain_on_card(cuda, causal, s, d):
+    """bf16 within TOL_BF16 of max |plain|: S 64 and 200 leave the
+    kernels' 128-row tiles partial, d 96 pads to 128 columns; two calls
+    give the same bits (no atomics)."""
+    q, k, v, do = (t.to(cuda) for t in _t(_case(60, 10, s, d, 5),
+                                          torch.bfloat16))
+    o, lse = tfa.flash_fwd(q, k, v, causal, s, s, 5)
+    delta = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, do, lse, delta, causal, s, s, 5)
+    got = (tfa.flash_bwd_dq(*args), *tfa.flash_bwd_dkv(*args))
+    again = (tfa.flash_bwd_dq(*args), *tfa.flash_bwd_dkv(*args))
+    want = (tfa.flash_bwd_dq_plain(*args), *tfa.flash_bwd_dkv_plain(*args))
+    torch.cuda.synchronize()
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)
+        w = w.float()
+        assert float((g.float() - w).abs().max()) <= TOL_BF16 * float(
+            w.abs().max())
