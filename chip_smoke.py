@@ -24,7 +24,18 @@ Phases (any failure exits non-zero):
         differences, <= 1e-4 for the static GCN); the four paged engines
         (td 16) on the same inputs at depths 1, 2 and 4, bit-for-bit
         against the resident engine and against their plain versions,
-        each depth timed beside the resident engine;
+        each depth timed beside the resident engine; the two cluster
+        engines (gcrn_engine, evolve_engine: a stream on a thread-block
+        cluster of engine.CLUSTER CTAs) on narrow cases (H 20 / 24 / 128,
+        D 8 / 24 / 128 / 256, n 37 / 40 / 640 / 1000 (GCRN's resident rows
+        in global scratch), with and without edge messages, B 1 / 2 / 17,
+        a length-0 stream and a dead step) against
+        their plain versions (<= 1e-4), paged bit for bit against resident
+        at td 8 / 16 and depths 1 / 2 / 4, two calls bit for bit, the
+        launch the library builds (cluster, CTAs, threads, shared memory,
+        column slices) equal to engine.engine_cluster_config, a B 1 launch
+        one cluster of >= 8 CTAs, and resident and paged d1 / d2 / d4 timed
+        in turns at B 1 and at the V3_WINDOWS batch (B 4);
      c. the three per-step kernels (V2 steps, ELL SpMM) on the inputs the
         main path hands them at full width, recorded from one run of a path
         that launches each, every step of the stream (<= 1e-4); the GRU /
@@ -53,7 +64,8 @@ Phases (any failure exits non-zero):
      after it; each path's results are held against its force-ref run on
      the card (<= 1e-3; <= 1e-4 for the cells).
   5. the device's busy share of one run at baseline, v2 and v3, resident
-     and paged (kernel time over wall time, torch.profiler).
+     and paged (kernel time over wall time, torch.profiler), with the CTAs
+     a GCRN-M2 / EvolveGCN-O v3 launch uses.
   6. a probe of where a live node tile's time goes: gcrn_step on
      synthetic full-width inputs that vary live rows, lanes and widths.
 Then the LM serving path, Qwen2.5-14B at full width and depth (48 layers,
@@ -767,6 +779,239 @@ def check_paged_engine(family, resident_inp, paged_inp, cost, ms_resident):
                                 if lb.startswith("T=8")))
 
 
+# ------------------------------------------------- the cluster engines ----
+# gcrn_engine and evolve_engine, resident and paged, run one stream on a
+# thread-block cluster of engine.CLUSTER CTAs, each owning a slice of the
+# state's columns (hidden units, columns of W_l). Their narrow cases: slices
+# that C does not divide evenly, B past one wave of clusters, a length-0
+# stream and a dead step, against the plain versions (TOL_KERNEL) and bit
+# for bit between residencies and between two calls; and the launch the
+# library builds against engine.engine_cluster_config.
+CLUSTER_TDS = (8, 16)
+
+
+def cluster_rows(rng, B, T, n):
+    """Real rows of each step: ragged counts; every step of stream 1 (of 3
+    or more) empty (a length-0 stream) and step 1 of stream 0 empty."""
+    nr = rng.integers(max(1, n // 4), n + 1, (B, T))
+    if B >= 3:
+        nr[1] = 0
+    if T > 2:
+        nr[0, 1] = 0
+    return nr
+
+
+def cluster_ell(rng, B, T, n, k, nr):
+    """(real-row mask, ELL ids, coefs) of random steps with nr real rows."""
+    rows = np.arange(n) < nr[..., None]
+    idx = (rng.random((B, T, n, k)) * np.maximum(nr, 1)[..., None, None]
+           ).astype(np.int32)
+    coef = (rng.random((B, T, n, k)) * (rng.random((B, T, n, k)) > 0.3)
+            * rows[..., None]).astype(np.float32)
+    return rows, idx, coef
+
+
+def cluster_gcrn_case(seed, B, T, n, k, din, H, G, edges):
+    """Random packed gcrn_engine inputs on the card (numpy, from seed)."""
+    rng = np.random.default_rng(seed)
+    rows, idx, coef = cluster_ell(rng, B, T, n, k, cluster_rows(rng, B, T, n))
+    e = 3 * n
+    eidx = rng.integers(0, e, (B, T, n, k)).astype(np.int32)
+    perm = np.stack([[rng.permutation(G)[:n] for _ in range(T)]
+                     for _ in range(B)])
+    rowg = np.where(rows, perm, G).astype(np.int32)
+    mask = rows.astype(np.float32)
+    f = lambda *sh: (rng.normal(size=sh) * 0.3).astype(np.float32)
+    args = [idx, coef, eidx, f(B, T, n, din) * mask[..., None], rowg, mask,
+            f(B, G, H), f(B, G, H), f(din, 4 * H), f(H, 4 * H), f(4 * H)]
+    if edges:
+        args.append(f(B, T, e, din))
+    return [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in args]
+
+
+def cluster_evolve_case(seed, B, T, n, k, L, D, edges):
+    """Random packed evolve_engine inputs on the card (numpy, from seed);
+    the D-wide weights scaled by 4 / sqrt(D) so their sums stay of order
+    1."""
+    rng = np.random.default_rng(seed)
+    nr = cluster_rows(rng, B, T, n)
+    rows, idx, coef = cluster_ell(rng, B, T, n, k, nr)
+    mask = rows.astype(np.float32)
+    live = (nr > 0).astype(np.int32)
+    f = lambda *sh: (rng.normal(size=sh) * 0.3).astype(np.float32)
+    wide = min(1.0, 4.0 / float(np.sqrt(D)))
+    args = [idx, coef, f(B, T, n, D) * mask[..., None], mask, live,
+            f(B, L, D, D) * wide, f(L, D), f(L, D, 3 * D) * wide,
+            f(L, D, 3 * D) * wide, f(L, 3 * D)]
+    if edges:
+        args.append(f(B, T, L, n, D))
+    return [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in args]
+
+
+def cluster_narrow_cases():
+    """(family, label, args, run resident): GCRN at (H, din, n, k) = (20,
+    12, 40, 5), (24, 13, 37, 5), (128, 64, 640, 27), (128, 64, 1000, 27)
+    (n 1000: the resident CTA's gathered rows do not fit its shared memory
+    and sit in global scratch); EvolveGCN at (D, n, k) = (8, 40, 5), (24,
+    37, 5), (128, 640, 27), (256, 40, 5) (D 256 paged only: the resident CTA
+    is over the card); each with and without edge messages / edge terms, at
+    B 1, 2 and 17 (17 clusters: more than the card holds at once; n 640 and
+    1000 at B 1 and 2 only), 3 steps."""
+    cases = []
+    for B in (1, 2, 17):
+        for H, din, n, k in ((20, 12, 40, 5), (24, 13, 37, 5),
+                             (128, 64, 640, 27), (128, 64, 1000, 27)):
+            if B == 17 and n >= 640:
+                continue
+            for edges in (False, True):
+                cases.append(("gcrn", f"B={B} H={H} din={din} n={n} "
+                              f"edges={edges}",
+                              cluster_gcrn_case(B * 7 + H, B, 3, n, k, din, H,
+                                                2 * n + 9, edges), True))
+        for D, n, k in ((8, 40, 5), (24, 37, 5), (128, 640, 27),
+                        (256, 40, 5)):
+            if B == 17 and n == 640:
+                continue
+            for edges in (False, True):
+                cases.append(("evolve", f"B={B} D={D} n={n} edges={edges}",
+                              cluster_evolve_case(B * 11 + D, B, 3, n, k, 2,
+                                                  D, edges),
+                              engine.smem_bytes("evolve_engine", k=k, L=2, D=D)
+                              <= engine.SMEM_LIMIT))
+    return cases
+
+
+def cluster_dims(family, args) -> dict:
+    """The shared-memory dims of a packed cluster-engine call."""
+    if family == "gcrn":
+        return dict(k=args[0].shape[-1], din=args[3].shape[-1],
+                    H=args[6].shape[-1], n=args[0].shape[2])
+    return dict(k=args[0].shape[-1], L=args[5].shape[1], D=args[5].shape[2])
+
+
+def cluster_paged_dims(family, dims, td, depth) -> dict:
+    d = {key: v for key, v in dims.items()
+         if not (family == "evolve" and key == "L")}
+    return dict(d, td=td, depth=depth)
+
+
+def check_cluster_config(name, B, dims) -> dict:
+    """The library's launch of ``name`` over B streams equals the mirror's
+    (cluster, CTAs, threads, a CTA's shared memory, every CTA's column
+    slice); returns the library's."""
+    want = engine.engine_cluster_config(name, B, **dims)
+    got = engine.library_engine_cluster_config(name, B, **dims)
+    check(all(got[key] == v for key, v in want.items())
+          and engine.library_smem_bytes(name, **dims) == want["smem"],
+          f"{name} B={B} {dims}: library launch {got} == mirror {want}")
+    return got
+
+
+def cluster_case_check(family, label, args, resident, config=True) -> float:
+    """One narrow case: the resident kernel within TOL_KERNEL of its plain
+    version, two calls bit for bit equal, then the paged kernel at td 8 / 16
+    and every ring depth (where its CTA fits) within TOL_KERNEL and bit for
+    bit equal to the resident one (or to itself where there is none); with
+    ``config``, every launch's library config against the mirror. Returns
+    the largest error."""
+    kernel = getattr(engine, f"{family}_engine")
+    paged = getattr(engine, f"{family}_engine_paged")
+    plain = getattr(engine, f"{family}_plain")
+    B, dims = args[0].shape[0], cluster_dims(family, args)
+    want = plain(*args)
+    ref, worst = None, 0.0
+    if resident:
+        if config:
+            check_cluster_config(f"{family}_engine", B, dims)
+        ref, again = kernel(*args), kernel(*args)
+        torch.cuda.synchronize()
+        worst = max_err(ref, want)
+        check(np.isfinite(worst) and worst <= TOL_KERNEL,
+              f"{family}_engine {label}: {worst:.3e} vs plain")
+        check(bitwise(ref, again), f"{family}_engine {label}: two calls")
+    for td in CLUSTER_TDS:
+        for depth in engine.RING_DEPTHS:
+            pd = cluster_paged_dims(family, dims, td, depth)
+            if engine.smem_bytes(f"{family}_engine_paged", **pd) > \
+                    engine.SMEM_LIMIT:
+                continue
+            if config:
+                check_cluster_config(f"{family}_engine_paged", B, pd)
+            got = paged(*args, td=td, depth=depth)
+            torch.cuda.synchronize()
+            err = max_err(got, want)
+            worst = max(worst, err)
+            what = f"{family}_engine_paged {label} td={td} depth={depth}"
+            check(np.isfinite(err) and err <= TOL_KERNEL,
+                  f"{what}: {err:.3e} vs plain")
+            check(bitwise(got, ref if ref is not None else
+                          paged(*args, td=td, depth=depth)),
+                  f"{what}: bit for bit vs "
+                  + ("resident" if ref is not None else "a second call"))
+    return worst
+
+
+def cluster_timings(inputs, label="") -> dict:
+    """ms a call of both cluster engines on the main path's inputs
+    (``inputs``: {(family, B): packed args}, B 1 and 4), resident and paged
+    (td PAGED_TD) at every ring depth, in turns (interleaved_ms: median of
+    5 samples of one call each)."""
+    out = {}
+    for (family, B), args in inputs.items():
+        kernel = getattr(engine, f"{family}_engine")
+        paged = getattr(engine, f"{family}_engine_paged")
+        fns = {"resident": lambda: kernel(*args)}
+        for d in engine.RING_DEPTHS:
+            fns[f"paged d{d}"] = lambda d=d: paged(*args, td=PAGED_TD,
+                                                   depth=d)
+        for key, ms in zip(fns, interleaved_ms(list(fns.values()), 1, 5)):
+            out[(family, B, key)] = ms
+        log(f"{family}_engine{label} B={B} in turns: "
+            + ", ".join(f"{key} {out[(family, B, key)]:.4f} ms"
+                        for key in fns))
+    return out
+
+
+def cluster_engine_checks(main_inputs) -> dict:
+    """The narrow cases, the main path's launch config (B 1 and 4) and the
+    timings in turns; returns {kernel: extra record fields}."""
+    t0 = time.time()
+    worst = {"gcrn": 0.0, "evolve": 0.0}
+    cases = cluster_narrow_cases()
+    for family, label, args, resident in cases:
+        worst[family] = max(worst[family],
+                            cluster_case_check(family, label, args, resident))
+    log(f"cluster engines: {len(cases)} narrow cases (H 20 / 24 / 128, "
+        f"n 37 to 1000, D 8 / 24 / 128 / 256, B 1 / 2 / 17) within "
+        f"{TOL_KERNEL} (largest "
+        f"{worst['gcrn']:.3e} gcrn, {worst['evolve']:.3e} evolve), paged bit "
+        f"for bit at td {CLUSTER_TDS} and depths {engine.RING_DEPTHS}, "
+        f"{time.time() - t0:.1f} s")
+    ms = cluster_timings(main_inputs)
+    extra = {}
+    for family in ("gcrn", "evolve"):
+        for B in (1, 4):
+            dims = cluster_dims(family, main_inputs[(family, B)])
+            for name, d in ((f"{family}_engine", dims),
+                            (f"{family}_engine_paged", cluster_paged_dims(
+                                family, dims, PAGED_TD, 2))):
+                cfg = check_cluster_config(name, B, d)
+                rec = extra.setdefault(name, {})
+                rec[f"b{B}_launch"] = {key: cfg[key] for key in (
+                    "cluster", "ctas", "threads", "smem",
+                    "max_active_clusters")}
+                if B == 1:
+                    check(cfg["cluster"] >= 8 and cfg["ctas"] == cfg["cluster"],
+                          f"{name}: a B 1 launch is one cluster of >= 8 CTAs")
+        for B in (1, 4):
+            extra[f"{family}_engine"][f"b{B}_turns_ms"] = \
+                ms[(family, B, "resident")]
+            extra[f"{family}_engine_paged"][f"b{B}_turns_ms_depth"] = {
+                str(d): ms[(family, B, f"paged d{d}")]
+                for d in engine.RING_DEPTHS}
+    return extra
+
+
 def rnn_inputs(cell: str, rows: int, din: int, h: int, seed: int):
     """Random CUDA inputs of a GRU / LSTM cell (numpy, from ``seed``)."""
     rng = np.random.default_rng(seed)
@@ -880,10 +1125,11 @@ def smem_check(main_inp, paged_main_inp):
     dims = {}
     g = main_inp["gcrn"]
     dims["gcrn_engine"] = dict(k=g[0].shape[-1], din=g[3].shape[-1],
-                               H=g[6].shape[-1])
+                               H=g[6].shape[-1], n=g[0].shape[2])
     dims["gcrn_step"] = dims["gcrn_engine"]
     ev = main_inp["evolve"]
-    dims["evolve_engine"] = dict(k=ev[0].shape[-1], D=ev[5].shape[-1])
+    dims["evolve_engine"] = dict(k=ev[0].shape[-1], L=ev[5].shape[1],
+                                 D=ev[5].shape[-1])
     st = main_inp["stacked"]
     dims["stacked_engine"] = dict(k=st[0].shape[-1], din=st[3].shape[-1],
                                   dmid=st[7].shape[-1], H=st[6].shape[-1])
@@ -906,7 +1152,7 @@ def smem_check(main_inp, paged_main_inp):
               for cell in ("fused_gru", "fused_lstm")
               for din, H in ((13, 24), (1024, 1024))]
     k = dims["evolve_engine"]["k"]
-    cases += [("evolve_engine", dict(k=k, D=CAPACITY_HIDDEN)),
+    cases += [("evolve_engine", dict(k=k, L=2, D=CAPACITY_HIDDEN)),
               ("evolve_engine_paged", dict(k=k, D=CAPACITY_HIDDEN,
                                            td=PAGED_TD, depth=2))]
     for name, d in cases:
@@ -2567,6 +2813,17 @@ def main() -> int:
         records.append(check_paged_engine(
             family, inputs[family], paged_inputs[family], costs[family],
             next(r["ms"] for r in records if r["name"] == ENGINE[family])))
+    # the cluster engines: narrow cases, launch configs, B 1 / 4 in turns
+    cluster_inputs = {}
+    for cfg in (GCRN_M2, EVOLVEGCN):
+        m = models[cfg.name]
+        cluster_inputs[(m.stream_family, 1)] = inputs[m.stream_family][1]
+        cluster_inputs[(m.stream_family, 4)] = kernel_inputs(
+            m, params[cfg.name], batch_of(np_stream, V3_WINDOWS),
+            lengths=[b - a for a, b in V3_WINDOWS])
+    for name, extra in cluster_engine_checks(cluster_inputs).items():
+        next(r for r in records if r["name"] == name).update(extra)
+    del cluster_inputs
     smem_check({f: v[1] for f, v in inputs.items()},
                {f: v[1] for f, v in paged_inputs.items()})
     del paged_inputs
@@ -2703,17 +2960,27 @@ def main() -> int:
 
     # phase 5: the device's busy share of a run, per kind of level
     for cfg, level, kw in ((GCRN_M2, "baseline", {}), (GCRN_M2, "v2", {}),
-                           (GCRN_M2, "v3", {}), (STACKED, "v3", {}),
-                           (TGN, "v3", {}), (STATIC_GCN, "v3", {}),
+                           (GCRN_M2, "v3", {}), (EVOLVEGCN, "v3", {}),
+                           (STACKED, "v3", {}), (TGN, "v3", {}),
+                           (STATIC_GCN, "v3", {}),
                            (GCRN_M2, "v3", paged_plan(2)),
+                           (EVOLVEGCN, "v3", paged_plan(2)),
                            (TGN, "v3", paged_plan(2))):
         wall, device = busy_share(cfg, level, params[cfg.name], n_global,
                                   streams[cfg.name][0], plan_kw=kw)
         share = (f"{device / wall:.3f}" if device > 0
                  else "not measured (the profiler saw no device time)")
         paged = f" hbm_paged d{kw['buffer_depth']}" if kw else ""
+        ctas = ""
+        if level == "v3" and cfg in (GCRN_M2, EVOLVEGCN):
+            name = ENGINE[api.family_for(cfg)] + ("_paged" if kw else "")
+            launch = next(r for r in records if r["name"] == name)["b1_launch"]
+            ctas = (f"; a launch: {launch['ctas']} CTAs, one cluster of "
+                    f"{launch['cluster']} ({launch['threads']} threads, "
+                    f"{launch['smem']} B of shared memory a CTA)")
         log(f"busy {cfg.name} {level}{paged}: run {wall:.2f} ms wall under "
-            f"the profiler, {device:.2f} ms of kernels, busy share {share}")
+            f"the profiler, {device:.2f} ms of kernels, busy share {share}"
+            + ctas)
 
     # phase 6: where a live node tile's time goes
     tile_probe()

@@ -34,10 +34,15 @@ plain and ``force_ref`` paths stay differentiable. Only the flash
 attention has a backward, as kernels of its own (``flash_mha``).
 
 A stream engine's shared memory is estimated here (``smem_bytes``, equal to
-each library's own ``<name>_smem_bytes``) and a launch over the card's
-227 KB is refused on either device, with the JAX package's hint: page the
-store, or shrink td. Index tensors are range-checked before a launch (one
-device sync).
+each library's own ``<name>_smem_bytes``; for the cluster engines a CTA's)
+and a launch over the card's 227 KB is refused on either device, with the
+JAX package's hint: page the store, or shrink td. Index tensors are
+range-checked before a launch (one device sync).
+
+The GCRN and EvolveGCN engines (resident and paged) run one stream on a
+thread-block cluster of ``CLUSTER`` CTAs, each owning a slice of the state's
+columns; ``engine_cluster_config`` mirrors that launch and
+``library_engine_cluster_config`` reads the launcher's own (card only).
 """
 from __future__ import annotations
 
@@ -73,16 +78,35 @@ SOURCE = {**{name: name for name in KERNELS[:8]},
           "flash_bwd_dkv": "flash_attention_bwd",
           "flash_bwd_dq": "flash_attention_bwd"}
 
-#: the kernels' register micro-tile: each thread owns this many node rows
-#: (and, in the evolve kernel, this many columns of W). The kernels take
-#: any node count; the evolve kernel needs its square width D to be a
-#: multiple of it, which kernels/ops.py pads to.
+#: the per-step and stacked / tgn / static kernels' register micro-tile:
+#: each thread owns this many node rows. The kernels take any node count;
+#: the evolve kernel needs its square width D to be a multiple of it (its
+#: GRU's gwx / gwh slabs are whole rows of it, and a cluster of 8 CTAs
+#: then splits D evenly), which kernels/ops.py pads to.
 ROW_ALIGN = 8
 #: a CTA's shared memory on Hopper (227 KB)
 SMEM_LIMIT = 232448
 #: the kernels' node tile: rows a tile, floats between a k-major tile's columns
 TILE_ROWS = 32
 TILE_STRIDE = TILE_ROWS + 4
+#: the cluster engines (gcrn_engine.cu, evolve_engine.cu, both variants):
+#: CTAs a cluster (one stream; a constant, so a stream's bits never depend
+#: on the batch it rides in), threads a CTA, rows a paged window's TMA box
+#: holds at most, the slots of the EvolveGCN GRU's gwx / gwh ring and the
+#: rows of each, and the bytes of slack that align a CTA's shared memory
+#: to 128
+CLUSTER, CLUSTER_THREADS, BOX_ROWS, ALIGN_SLACK = 8, 256, 256, 128
+GW_SLOTS, GW_ROWS = 2, 8
+#: the resident EvolveGCN CTA's matrix-GRU threads, beside its
+#: CLUSTER_THREADS GCN threads, and the 4-column groups each carries (12
+#: sums a group wait in shared memory between its gwx and gwh passes)
+GRU_THREADS, GRU_GROUPS = 128, 4
+#: words of a cluster CTA's bitmask of a step's live node tiles, and so
+#: the most node rows a cluster engine takes
+LIVE_WORDS = 64
+MAX_ROWS = LIVE_WORDS * 32 * 32
+CLUSTER_ENGINES = ("gcrn_engine", "gcrn_engine_paged", "evolve_engine",
+                   "evolve_engine_paged")
 #: paging-ring depths (hbm_paged buffer_depth); the kernels reserve an
 #: mbarrier for each of the deepest ring's slots
 RING_DEPTHS = (1, 2, 4)
@@ -179,8 +203,8 @@ def build(names=KERNELS) -> dict:
 #: or 0 where the kernel uses no dynamic shared memory); the stream pointer
 #: comes last
 _SIGNATURES = {
-    "gcrn_engine": (15, 8, 3),
-    "evolve_engine": (13, 6, 2),
+    "gcrn_engine": (15, 8, 4),
+    "evolve_engine": (13, 6, 3),
     "stacked_engine": (15, 9, 4),
     "tgn_engine": (13, 7, 3),
     "static_engine": (9, 5, 2),
@@ -188,7 +212,7 @@ _SIGNATURES = {
     "stacked_step": (12, 5, 4),
     "ell_spmm": (6, 6, 0),
     "gcrn_engine_paged": (15, 10, 6),
-    "evolve_engine_paged": (13, 8, 4),
+    "evolve_engine_paged": (14, 8, 4),
     "stacked_engine_paged": (15, 11, 6),
     "tgn_engine_paged": (14, 9, 6),
     "fused_gru": (6, 3, 2),
@@ -271,13 +295,77 @@ def _ring(depth: int, rows: int, td: int) -> int:
     return 4 * depth * rows * td + RING_BAR_BYTES
 
 
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _slice_max(width: int) -> int:
+    """The widest of a ``width``-wide state's CLUSTER column slices."""
+    return -(-width // CLUSTER)
+
+
+def slice_bounds(width: int) -> list:
+    """The CLUSTER + 1 bounds of the column slices of a ``width``-wide state:
+    CTA r of a cluster owns columns [bounds[r], bounds[r + 1])."""
+    return [r * width // CLUSTER for r in range(CLUSTER + 1)]
+
+
+def _gcrn_cta(k, din, H, n, ring=None):
+    """Bytes of a GCRN cluster CTA: two k-major [agg_x | agg_h] tiles, its
+    units' weights and bias, the ELL lanes, the tile's mask and row ids and
+    the step's live-tile bits, and either (resident) the step's gathered
+    t-1 h and c rows of its units where they fit (``gcrn_rows_in_smem``) or,
+    paged, the tile's own c rows and a ring (``ring`` = (td, depth)) whose
+    slot holds a window of up to BOX_ROWS gathered h rows and the tile's 32
+    c rows, td wide."""
+    K, hm = din + H, _slice_max(H)
+    floats = (2 * K * TILE_STRIDE + K * hm * 4 + hm * 4 + 3 * TILE_ROWS * k
+              + 3 * TILE_ROWS + LIVE_WORDS)
+    if ring is None:
+        rows = 4 * 2 * n * _round_up(hm, 4)
+        base = ALIGN_SLACK + 4 * floats
+        return base + rows if base + rows <= SMEM_LIMIT else base
+    td, depth = ring
+    wr = min(BOX_ROWS, _round_up(n, 8))
+    return (ALIGN_SLACK + 4 * (floats + hm * TILE_STRIDE)
+            + _ring(depth, wr + TILE_ROWS, td))
+
+
+def gcrn_rows_in_smem(k: int, din: int, H: int, n: int) -> bool:
+    """Does the resident GCRN CTA keep the step's gathered t-1 h and c rows
+    of its units (2 n x its unit slice) in shared memory? Where they do not
+    fit beside the rest it keeps them in per-CTA global scratch, as the
+    paged variant does (at H 128, din 64, k 27: up to n 911 in shared
+    memory); the sums are the same either way."""
+    return smem_bytes("gcrn_engine", k=k, din=din, H=H, n=n) > \
+        _gcrn_cta(k, din, H, 0)
+
+
+def _evolve_cta(k, L, D, ring=None):
+    """Bytes of an EvolveGCN cluster CTA: the GRU's GW_SLOTS slabs of
+    GW_ROWS rows of gwx and gwh (and their mbarriers), two k-major aggregate
+    tiles, the ELL lanes, the tile's mask and the step's live-tile bits,
+    and either its columns of every W_l in two planes and its GRU threads'
+    parked x sums (resident) or, paged, a ring (``ring`` = (td, depth)) of
+    (D, td) windows of them."""
+    floats = (GW_SLOTS * 2 * GW_ROWS * 3 * D + 2 * D * TILE_STRIDE
+              + 2 * TILE_ROWS * k + 3 * TILE_ROWS + LIVE_WORDS)
+    base = ALIGN_SLACK + 4 * floats + 8 * GW_SLOTS
+    if ring is None:
+        return (base + 4 * L * 2 * D * _round_up(_slice_max(D), 4)
+                + 4 * GRU_THREADS * 12 * GRU_GROUPS)
+    td, depth = ring
+    box = min(D, BOX_ROWS)
+    return base + _ring(depth, -(-D // box) * box, td)
+
+
 #: each kernel's dynamic shared memory: (argument names of the library's
 #: ``<name>_smem_bytes``, in its order; the same function of them)
 _SMEM = {
-    "gcrn_engine": (("k", "din", "H"),
-                    lambda k, din, H: _tile(din + H) + _ell(k, 3)),
-    "evolve_engine": (("k", "D"),
-                      lambda k, D: 4 * D * D + _tile(D) + _ell(k, 2)),
+    # a cluster CTA (its units' weights and gathered rows)
+    "gcrn_engine": (("k", "din", "H", "n"), _gcrn_cta),
+    # a cluster CTA (its columns of every W_l, two planes)
+    "evolve_engine": (("k", "L", "D"), _evolve_cta),
     "stacked_engine": (("k", "din", "dmid", "H"),
                        lambda k, din, dmid, H: _tile(din + dmid + H)
                        + _ell(k, 3)),
@@ -289,14 +377,16 @@ _SMEM = {
     "stacked_step": (("k", "din", "dmid", "H"),
                      lambda k, din, dmid, H: _tile(din + dmid + H)
                      + _ell(k, 3)),
-    # a slot: the window of all n gathered h rows and the tile's c rows
+    # a cluster CTA; a slot: up to BOX_ROWS gathered h rows and the tile's
+    # c rows, td of its own columns
     "gcrn_engine_paged": (("k", "din", "H", "n", "td", "depth"),
-                          lambda k, din, H, n, td, depth: _tile(din + 2 * H)
-                          + _ell(k, 3) + _ring(depth, n + TILE_ROWS, td)),
-    # a slot: a (D, td) column window of W_l; no D x D buffer
+                          lambda k, din, H, n, td, depth:
+                          _gcrn_cta(k, din, H, n, (td, depth))),
+    # a cluster CTA; a slot: a (D, td) window of its columns of W_l, no W
+    # buffer
     "evolve_engine_paged": (("k", "D", "td", "depth"),
-                            lambda k, D, td, depth: _tile(D) + _ell(k, 2)
-                            + _ring(depth, D, td)),
+                            lambda k, D, td, depth:
+                            _evolve_cta(k, 1, D, (td, depth))),
     # a slot: the window of the tile's own h rows
     "stacked_engine_paged": (("k", "din", "dmid", "H", "td", "depth"),
                              lambda k, din, dmid, H, td, depth:
@@ -315,9 +405,9 @@ _SMEM = {
 def smem_bytes(name: str, **dims) -> int:
     """Dynamic shared memory of one launch of kernel ``name`` at ``dims``
     (the arguments of its ``<name>_smem_bytes``: some of k, din, dmid, H, D,
-    n, td, depth). It equals the library's own figure (``library_smem_bytes``,
-    on the card). No estimate grows with the store height G: the stores stay
-    in global memory."""
+    L, n, td, depth), a CTA's for the cluster engines. It equals the
+    library's own figure (``library_smem_bytes``, on the card). No estimate
+    grows with the store height G: the stores stay in global memory."""
     args, fn = _SMEM[name]
     return fn(*(dims[a] for a in args))
 
@@ -328,6 +418,56 @@ def library_smem_bytes(name: str, **dims) -> int:
     args, _ = _SMEM[name]
     return int(getattr(_library(name), f"{name}_smem_bytes")(
         *(dims[a] for a in args)))
+
+
+def engine_cluster_config(name: str, B: int, **dims) -> dict:
+    """The launch of cluster engine ``name`` (one of ``CLUSTER_ENGINES``)
+    over B streams at ``dims`` (those of ``smem_bytes``): CTAs a cluster,
+    CTAs, threads a CTA (the resident EvolveGCN's GRU threads included), a
+    CTA's dynamic shared memory, and the column slice
+    [lo, hi) of each CTA (``slices``: hidden units for GCRN, columns of W
+    for EvolveGCN; ``x_slices``: GCRN's input columns). It equals the
+    launcher's own (``library_engine_cluster_config``, on the card)."""
+    if name not in CLUSTER_ENGINES:
+        raise ValueError(f"{name!r} is not a cluster engine "
+                         f"({', '.join(CLUSTER_ENGINES)})")
+    width = dims["H"] if name.startswith("gcrn") else dims["D"]
+    bounds = slice_bounds(width)
+    threads = CLUSTER_THREADS + (GRU_THREADS if name == "evolve_engine"
+                                 else 0)
+    cfg = {"cluster": CLUSTER, "ctas": B * CLUSTER,
+           "threads": threads, "smem": smem_bytes(name, **dims),
+           "slices": list(zip(bounds[:-1], bounds[1:]))}
+    if name.startswith("gcrn"):
+        xb = slice_bounds(dims["din"])
+        cfg["x_slices"] = list(zip(xb[:-1], xb[1:]))
+    return cfg
+
+
+def library_engine_cluster_config(name: str, B: int, **dims) -> dict:
+    """``engine_cluster_config`` as the library's launcher builds it (its
+    ``<name>_cluster_config``; needs the card), with ``max_active_clusters``:
+    the clusters of this launch the card holds at once
+    (cudaOccupancyMaxActiveClusters; -1 where the query failed)."""
+    args, _ = _SMEM[name]
+    fn = getattr(_library(name), f"{name}_cluster_config")
+    fn.argtypes = [ctypes.c_int] * (1 + len(args)) + [
+        ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * (7 + 2 * CLUSTER))()
+    code = fn(B, *(dims[a] for a in args), out)
+    if code:
+        raise ValueError(f"{name}_cluster_config refused {dims} (cudaError "
+                         f"{code})")
+    C = out[0]
+    b = list(out[5:6 + C])
+    cfg = {"cluster": C, "ctas": out[1], "threads": out[2], "smem": out[3],
+           "slices": list(zip(b[:-1], b[1:])),
+           "max_active_clusters": out[4]}
+    if name.startswith("gcrn"):
+        xb = list(out[6 + C:7 + 2 * C])
+        cfg["x_slices"] = list(zip(xb[:-1], xb[1:]))
+    return cfg
 
 
 def library_ctas(name: str, Bs: int, H: int) -> int:
@@ -419,23 +559,44 @@ def library_flash_bwd_config(bh: int, s: int, group: int, kind: str,
             "threads": out[3], "smem": out[4], "grid": (out[5], out[6])}
 
 
-def _check_budget(family: str, residency: str, td, smem: int) -> None:
+def _check_rows(name: str, n: int) -> None:
+    """A cluster engine's node rows a step: at most MAX_ROWS (its bitmask
+    of live tiles)."""
+    if n > MAX_ROWS:
+        raise ValueError(f"{name}: {n} node rows a step, over {MAX_ROWS}")
+
+
+def _check_budget(family: str, residency: str, td, smem: int,
+                  limit=None) -> None:
     """Refuse a stream-engine launch whose shared memory is over the card's
     227 KB, with the JAX package's hint (its budget is the TPU's 16 MiB of
-    VMEM, so the two packages refuse at different sizes)."""
+    VMEM, so the two packages refuse at different sizes) and, where given,
+    a callable that names the limit at these dims."""
     if smem > SMEM_LIMIT:
         hint = ("shrink td" if residency == "hbm_paged" else
                 "page the state store with plan(state_residency="
                 "'hbm_paged', td=...)")
         raise ValueError(
             f"family {family!r} ({residency}, td={td}) needs {smem} bytes of "
-            f"shared memory, over the {SMEM_LIMIT}-byte budget — {hint}")
+            f"shared memory, over the {SMEM_LIMIT}-byte budget — {hint}"
+            + (f" ({limit()})" if limit else ""))
+
+
+def evolve_resident_max_d(k: int, L: int) -> int:
+    """The widest D (a multiple of ROW_ALIGN) whose resident EvolveGCN CTA
+    fits the card at k lanes and L layers: it holds two planes of its
+    columns of every W_l (at k 27: D 216 at L 1, D 184 at L 2)."""
+    d = 0
+    while smem_bytes("evolve_engine", k=k, L=L, D=d + ROW_ALIGN) <= \
+            SMEM_LIMIT:
+        d += ROW_ALIGN
+    return d
 
 
 def _check_ring(name: str, td, depth) -> None:
     """A paged engine's window width and ring depth: td a positive multiple
-    of ``ROW_ALIGN`` (a window's rows move as 16-byte bulk copies, and the
-    evolve kernel's micro-tile reads 8 columns at once), depth one of
+    of ``ROW_ALIGN`` (a window's rows move as 16-byte copies: bulk copies
+    of rows, or TMA boxes in the cluster engines), depth one of
     ``RING_DEPTHS``."""
     if not (isinstance(td, int) and td > 0 and td % ROW_ALIGN == 0):
         raise ValueError(f"{name}: td={td!r} must be a positive multiple of "
@@ -555,12 +716,18 @@ def _gcrn_cuda(name, ring, idx, coef, eidx, x, rowg, mask, h0, c0, wx, wh,
     if H % 4:
         raise ValueError(f"{name}: H={H} must be a multiple of 4 (the "
                          "store rows move as float4)")
+    _check_rows(name, n)
     lib = _library(name)
     e = 0 if emsg is None else emsg.shape[2]
     outs = torch.empty((B, T, n, H), dtype=f32, device=x.device)
     hT, cT = h0.clone(), c0.clone()
-    h_rows = torch.empty((B, n, H), dtype=f32, device=x.device)
-    c_rows = torch.empty_like(h_rows)
+    h_rows = c_rows = None
+    if ring or not gcrn_rows_in_smem(k, din, H, n):
+        # each CTA's gathered t-1 rows in global memory, its columns
+        # contiguous
+        h_rows = torch.empty((B * CLUSTER, n, _round_up(_slice_max(H), 4)),
+                             dtype=f32, device=x.device)
+        c_rows = torch.empty_like(h_rows)
     with torch.cuda.device(x.device):
         _launch(name, lib, _ptr(idx), _ptr(coef), _ptr(eidx), _ptr(x),
                 _ptr(rowg), _ptr(mask), _ptr(wx), _ptr(wh), _ptr(b),
@@ -580,7 +747,8 @@ def gcrn_engine(idx, coef, eidx, x, rowg, mask, h0, c0, wx, wh, b, emsg=None):
                 wh, b, emsg)
     name = "gcrn_engine"
     _check_budget("gcrn", "vmem", None, smem_bytes(
-        name, k=idx.shape[-1], din=x.shape[-1], H=h0.shape[-1]))
+        name, k=idx.shape[-1], din=x.shape[-1], H=h0.shape[-1],
+        n=idx.shape[2]))
     if _device_kind(name, x) == "cpu":
         return gcrn_plain(idx, coef, eidx, x, rowg, mask, h0, c0, wx, wh, b,
                           emsg)
@@ -677,15 +845,20 @@ def _evolve_cuda(name, ring, idx, coef, x, mask, live, w0, bg, gwx, gwh, gb,
     _check_index(name, "idx", idx, n)
     if D % ROW_ALIGN:
         raise ValueError(f"{name}: D={D} must be a multiple of {ROW_ALIGN}")
+    _check_rows(name, n)
     lib = _library(name)
     outs = torch.empty((B, T, n, D), dtype=f32, device=x.device)
     wT = w0.clone()
     act = torch.empty((B, 2, n, D), dtype=f32, device=x.device)
+    # paged: each CTA's columns of every W_l, its pages in global memory
+    pages = (torch.empty((B, L, CLUSTER, D, _round_up(_slice_max(D), 4)),
+                         dtype=f32, device=x.device),) if ring else ()
     with torch.cuda.device(x.device):
         _launch(name, lib, _ptr(idx), _ptr(coef), _ptr(x), _ptr(mask),
                 _ptr(live), _ptr(bg), _ptr(gwx), _ptr(gwh), _ptr(gb),
-                _ptr(eagg), _ptr(outs), _ptr(wT), _ptr(act), B, T, n, k, L,
-                D, *ring, _stream_ptr())
+                _ptr(eagg), _ptr(outs), _ptr(wT), _ptr(act),
+                *(_ptr(t) for t in pages), B, T, n, k, L, D, *ring,
+                _stream_ptr())
     return outs, wT
 
 
@@ -700,8 +873,12 @@ def evolve_engine(idx, coef, x, mask, live, w0, bg, gwx, gwh, gb, eagg=None):
     refuse_grad("evolve_engine", idx, coef, x, mask, live, w0, bg, gwx,
                 gwh, gb, eagg)
     name = "evolve_engine"
+    k, L = idx.shape[-1], w0.shape[1]
     _check_budget("evolve", "vmem", None, smem_bytes(
-        name, k=idx.shape[-1], D=w0.shape[2]))
+        name, k=k, L=L, D=w0.shape[2]), lambda: (
+        "a resident EvolveGCN CTA holds two planes of its columns of every "
+        f"layer's W: at k {k}, L {L} it fits up to D "
+        f"{evolve_resident_max_d(k, L)}"))
     if _device_kind(name, x) == "cpu":
         return evolve_plain(idx, coef, x, mask, live, w0, bg, gwx, gwh, gb,
                             eagg)

@@ -16,8 +16,8 @@ The contracts of tests/test_paged.py, held on the CPU at narrow widths
   3. Rejections: the JAX stream_call's messages, pinned equal.
   4. ACCOUNTING: ``engine.smem_bytes``, the shared-memory estimate that
      chip_smoke.py holds equal to each library's own on the card: the
-     resident EvolveGCN at D = 256 is over the card's 227 KB and the paged
-     one (td 16, depth 2) is under; every paged engine fits at the main
+     resident EvolveGCN at D = 256 is over the card's 227 KB a cluster CTA
+     and the paged one (td 16, depth 2) is under; every paged engine fits at the main
      path's widths at depth 4; no estimate grows with the store height G;
      the paged EvolveGCN's is linear in D at a fixed td (no D x D buffer).
   5. CAPACITY: the resident EvolveGCN at D = 256 refuses with the JAX
@@ -169,14 +169,19 @@ MAIN = {"gcrn_engine_paged": dict(k=27, din=64, H=128, n=640),
 
 
 def test_resident_evolve_at_d256_is_over_the_card_and_paged_is_under():
-    resident = engine.smem_bytes("evolve_engine", k=27, D=256)
+    """A cluster CTA's figures (engine.CLUSTER CTAs a stream): the resident
+    engine holds its columns of both layers' W in two planes (and its GRU
+    threads' parked sums), the paged one a ring of (D, td) windows of
+    them."""
+    resident = engine.smem_bytes("evolve_engine", k=27, L=2, D=256)
     paged = engine.smem_bytes("evolve_engine_paged", k=27, D=256, td=16,
                               depth=2)
-    assert resident == 305920 > engine.SMEM_LIMIT
+    assert resident == 335376 > engine.SMEM_LIMIT
     assert paged <= engine.SMEM_LIMIT
-    # the resident limit sits between D = 216 and D = 224
-    assert engine.smem_bytes("evolve_engine", k=27, D=216) \
-        <= engine.SMEM_LIMIT < engine.smem_bytes("evolve_engine", k=27, D=224)
+    # the resident limit sits between D = 184 and D = 192
+    assert engine.smem_bytes("evolve_engine", k=27, L=2, D=184) \
+        <= engine.SMEM_LIMIT < engine.smem_bytes("evolve_engine", k=27, L=2,
+                                                 D=192)
 
 
 @pytest.mark.parametrize("name", sorted(MAIN))
@@ -201,9 +206,9 @@ def test_no_estimate_grows_with_the_store_height():
                              depth=2) for d in (64, 128, 192, 256)]
     steps = np.diff(est)
     assert (steps == steps[0]).all() and steps[0] > 0
-    resident = [engine.smem_bytes("evolve_engine", k=27, D=d)
+    resident = [engine.smem_bytes("evolve_engine", k=27, L=2, D=d)
                 for d in (64, 128, 192, 256)]
-    assert len(set(np.diff(resident))) > 1  # the D x D copy: quadratic
+    assert len(set(np.diff(resident))) > 1  # the W planes: quadratic
 
 
 # -------------------------------------------------------- capacity ----
