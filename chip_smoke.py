@@ -24,18 +24,25 @@ Phases (any failure exits non-zero):
         differences, <= 1e-4 for the static GCN); the four paged engines
         (td 16) on the same inputs at depths 1, 2 and 4, bit-for-bit
         against the resident engine and against their plain versions,
-        each depth timed beside the resident engine; the two cluster
-        engines (gcrn_engine, evolve_engine: a stream on a thread-block
-        cluster of engine.CLUSTER CTAs) on narrow cases (H 20 / 24 / 128,
-        D 8 / 24 / 128 / 256, n 37 / 40 / 640 / 1000 (GCRN's resident rows
-        in global scratch), with and without edge messages, B 1 / 2 / 17,
-        a length-0 stream and a dead step) against
-        their plain versions (<= 1e-4), paged bit for bit against resident
-        at td 8 / 16 and depths 1 / 2 / 4, two calls bit for bit, the
-        launch the library builds (cluster, CTAs, threads, shared memory,
-        column slices) equal to engine.engine_cluster_config, a B 1 launch
-        one cluster of >= 8 CTAs, and resident and paged d1 / d2 / d4 timed
-        in turns at B 1 and at the V3_WINDOWS batch (B 4);
+        each depth timed beside the resident engine; the four cluster
+        engines (gcrn_engine, evolve_engine, stacked_engine, tgn_engine: a
+        stream on a thread-block cluster of engine.CLUSTER CTAs) on narrow
+        cases (H 20 / 24 / 128, D 8 / 24 / 128 / 256, n 37 / 40 / 640 /
+        1000 (GCRN's resident rows in global scratch), with and without
+        edge messages, TGN's event times up to 137, B 1 / 2 / 17, a
+        length-0 stream and a dead step) against their plain versions
+        (<= 1e-4), paged bit for bit against resident at td 8 / 16 and
+        depths 1 / 2 / 4, two calls bit for bit, the launch the library
+        builds (cluster, CTAs, threads, shared memory, column slices, the
+        weights in shared memory or not) equal to
+        engine.engine_cluster_config; the widest plans the one-CTA stacked
+        / TGN kernels took (stacked dmid = H = 736 and dmid 128, H 1,348;
+        TGN H 496 and 492) and paged TGN at n 1,400, and every cluster
+        engine at n 66,000 (two chunks of live-tile bits), each against
+        its plain version; 0 spill bytes in ptxas's report for the stacked
+        and TGN kernels; a B 1 launch one cluster of >= 8 CTAs, and
+        resident and paged d1 / d2 / d4 timed in turns at B 1 and at the
+        V3_WINDOWS batch (B 4; TGN: EVENT_V3_WINDOWS);
      c. the three per-step kernels (V2 steps, ELL SpMM) on the inputs the
         main path hands them at full width, recorded from one run of a path
         that launches each, every step of the stream (<= 1e-4); the GRU /
@@ -65,7 +72,7 @@ Phases (any failure exits non-zero):
      the card (<= 1e-3; <= 1e-4 for the cells).
   5. the device's busy share of one run at baseline, v2 and v3, resident
      and paged (kernel time over wall time, torch.profiler), with the CTAs
-     a GCRN-M2 / EvolveGCN-O v3 launch uses.
+     a v3 launch of each stateful family uses.
   6. a probe of where a live node tile's time goes: gcrn_step on
      synthetic full-width inputs that vary live rows, lanes and widths.
 Then the LM serving path, Qwen2.5-14B at full width and depth (48 layers,
@@ -780,14 +787,19 @@ def check_paged_engine(family, resident_inp, paged_inp, cost, ms_resident):
 
 
 # ------------------------------------------------- the cluster engines ----
-# gcrn_engine and evolve_engine, resident and paged, run one stream on a
+# The four stateful engines, resident and paged, run one stream on a
 # thread-block cluster of engine.CLUSTER CTAs, each owning a slice of the
 # state's columns (hidden units, columns of W_l). Their narrow cases: slices
 # that C does not divide evenly, B past one wave of clusters, a length-0
 # stream and a dead step, against the plain versions (TOL_KERNEL) and bit
 # for bit between residencies and between two calls; and the launch the
-# library builds against engine.engine_cluster_config.
+# library builds against engine.engine_cluster_config. Then the widest
+# plans the one-CTA kernels took, and n past 65,536 rows (two chunks of
+# live-tile bits) for every name.
 CLUSTER_TDS = (8, 16)
+CLUSTER_FAMILIES = ("gcrn", "evolve", "stacked", "tgn")
+#: rows of a step past one chunk of a CTA's live-tile bits
+CLUSTER_ROWS_PAST = 66_000
 
 
 def cluster_rows(rng, B, T, n):
@@ -811,22 +823,32 @@ def cluster_ell(rng, B, T, n, k, nr):
     return rows, idx, coef
 
 
+def cluster_rowg(rng, B, T, n, G, rows):
+    """Distinct global rows of each step's real rows, G on padding."""
+    perm = np.stack([[rng.permutation(G)[:n] for _ in range(T)]
+                     for _ in range(B)])
+    return np.where(rows, perm, G).astype(np.int32)
+
+
+def on_card(args):
+    return [None if a is None else torch.from_numpy(np.ascontiguousarray(a))
+            .cuda() for a in args]
+
+
 def cluster_gcrn_case(seed, B, T, n, k, din, H, G, edges):
     """Random packed gcrn_engine inputs on the card (numpy, from seed)."""
     rng = np.random.default_rng(seed)
     rows, idx, coef = cluster_ell(rng, B, T, n, k, cluster_rows(rng, B, T, n))
     e = 3 * n
     eidx = rng.integers(0, e, (B, T, n, k)).astype(np.int32)
-    perm = np.stack([[rng.permutation(G)[:n] for _ in range(T)]
-                     for _ in range(B)])
-    rowg = np.where(rows, perm, G).astype(np.int32)
+    rowg = cluster_rowg(rng, B, T, n, G, rows)
     mask = rows.astype(np.float32)
     f = lambda *sh: (rng.normal(size=sh) * 0.3).astype(np.float32)
     args = [idx, coef, eidx, f(B, T, n, din) * mask[..., None], rowg, mask,
             f(B, G, H), f(B, G, H), f(din, 4 * H), f(H, 4 * H), f(4 * H)]
     if edges:
         args.append(f(B, T, e, din))
-    return [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in args]
+    return on_card(args)
 
 
 def cluster_evolve_case(seed, B, T, n, k, L, D, edges):
@@ -845,7 +867,50 @@ def cluster_evolve_case(seed, B, T, n, k, L, D, edges):
             f(L, D, 3 * D) * wide, f(L, 3 * D)]
     if edges:
         args.append(f(B, T, L, n, D))
-    return [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in args]
+    return on_card(args)
+
+
+def cluster_stacked_case(seed, B, T, n, k, din, dmid, H, G, edges):
+    """Random packed stacked_engine inputs on the card (numpy, from seed);
+    the wide weights scaled by 4 / sqrt(width) so their sums stay of order
+    1."""
+    rng = np.random.default_rng(seed)
+    rows, idx, coef = cluster_ell(rng, B, T, n, k, cluster_rows(rng, B, T, n))
+    e = 3 * n
+    eidx = rng.integers(0, e, (B, T, n, k)).astype(np.int32)
+    rowg = cluster_rowg(rng, B, T, n, G, rows)
+    mask = rows.astype(np.float32)
+    f = lambda *sh: (rng.normal(size=sh) * 0.3).astype(np.float32)
+    sc = lambda w: min(1.0, 4.0 / float(np.sqrt(w)))
+    args = [idx, coef, eidx, f(B, T, n, din) * mask[..., None], rowg, mask,
+            f(B, G, H), f(din, dmid) * sc(din), f(dmid),
+            f(dmid, 3 * H) * sc(dmid), f(H, 3 * H) * sc(H), f(3 * H)]
+    if edges:
+        args.append(f(B, T, e, din))
+    return on_card(args)
+
+
+def cluster_tgn_case(seed, B, T, n, k, din, H, G):
+    """Random packed tgn_engine inputs on the card (numpy, from seed) under
+    the event contract (every live lane's partner a real row of its
+    batch), event times up to 137 (BC-Alpha's); returns (resident args:
+    partners by global row, paged args: by local id)."""
+    rng = np.random.default_rng(seed)
+    rows, idx, coef = cluster_ell(rng, B, T, n, k, cluster_rows(rng, B, T, n))
+    rowg = cluster_rowg(rng, B, T, n, G, rows)
+    gidx = np.take_along_axis(rowg, idx.reshape(B, T, n * k), axis=-1)
+    gidx = np.where(gidx < G, gidx, 0).reshape(B, T, n, k).astype(np.int32)
+    ts = (rng.uniform(0.0, 137.0, (B, T, n, k)) * (coef != 0)).astype(
+        np.float32)
+    mask = rows.astype(np.float32)
+    f = lambda *sh: (rng.normal(size=sh) * 0.3).astype(np.float32)
+    sc = lambda w: min(1.0, 4.0 / float(np.sqrt(w)))
+    freq = (1.0 / 10.0 ** np.linspace(0.0, 4.0, H)).astype(np.float32)
+    rest = [coef, ts, f(B, T, n, din) * mask[..., None], rowg, mask,
+            f(B, G, H), freq, f(din, H) * sc(din), f(H, 3 * H) * sc(H),
+            f(H, 3 * H) * sc(H), f(3 * H)]
+    rest = on_card(rest)
+    return on_card([gidx])[0:1] + rest, on_card([idx])[0:1] + rest
 
 
 def cluster_narrow_cases():
@@ -854,9 +919,13 @@ def cluster_narrow_cases():
     (n 1000: the resident CTA's gathered rows do not fit its shared memory
     and sit in global scratch); EvolveGCN at (D, n, k) = (8, 40, 5), (24,
     37, 5), (128, 640, 27), (256, 40, 5) (D 256 paged only: the resident CTA
-    is over the card); each with and without edge messages / edge terms, at
-    B 1, 2 and 17 (17 clusters: more than the card holds at once; n 640 and
-    1000 at B 1 and 2 only), 3 steps."""
+    is over the card); the stacked engine at (H, din, dmid, n, k) = (20, 12,
+    16, 40, 5), (24, 13, 24, 37, 5), (128, 64, 128, 640, 27), (128, 64, 128,
+    1000, 27); TGN at (H, din, n, k) = (20, 12, 40, 5), (24, 13, 37, 5),
+    (128, 64, 640, 22), (128, 64, 1000, 22); each with and without edge
+    messages / edge terms (TGN has none), at B 1, 2 and 17 (17 clusters:
+    more than the card holds at once; n 640 and 1000 at B 1 and 2 only), 3
+    steps. TGN's args are (resident, paged)."""
     cases = []
     for B in (1, 2, 17):
         for H, din, n, k in ((20, 12, 40, 5), (24, 13, 37, 5),
@@ -868,6 +937,16 @@ def cluster_narrow_cases():
                               f"edges={edges}",
                               cluster_gcrn_case(B * 7 + H, B, 3, n, k, din, H,
                                                 2 * n + 9, edges), True))
+                dmid = {12: 16, 13: 24}.get(din, 128)
+                cases.append(("stacked", f"B={B} H={H} din={din} dmid={dmid} "
+                              f"n={n} edges={edges}",
+                              cluster_stacked_case(B * 5 + H, B, 3, n, k, din,
+                                                   dmid, H, 2 * n + 9, edges),
+                              True))
+            kt = 22 if k == 27 else k
+            cases.append(("tgn", f"B={B} H={H} din={din} n={n} k={kt}",
+                          cluster_tgn_case(B * 3 + H, B, 3, n, kt, din, H,
+                                           2 * n + 9), True))
         for D, n, k in ((8, 40, 5), (24, 37, 5), (128, 640, 27),
                         (256, 40, 5)):
             if B == 17 and n == 640:
@@ -881,24 +960,69 @@ def cluster_narrow_cases():
     return cases
 
 
+def cluster_wide_cases():
+    """The widest plans the one-CTA kernels took, resident (their CTA holds
+    its weights in global memory there): the stacked engine at k 27, din
+    64, dmid = H = 736 and dmid 128, H 1,348; TGN at k 22, din 64, H 496
+    and k 27, H 492; and paged TGN at n 1,400 (td 16, depth 2), which the
+    one-CTA kernel refused; B 1, 2 steps."""
+    return [
+        ("stacked", "widest dmid=H=736", cluster_stacked_case(
+            41, 1, 2, 64, 27, 64, 736, 736, 200, True), True),
+        ("stacked", "widest dmid=128 H=1348", cluster_stacked_case(
+            42, 1, 2, 64, 27, 64, 128, 1348, 200, False), True),
+        ("tgn", "widest k=22 H=496", cluster_tgn_case(
+            43, 1, 2, 64, 22, 64, 496, 200), True),
+        ("tgn", "widest k=27 H=492", cluster_tgn_case(
+            44, 1, 2, 64, 27, 64, 492, 200), True),
+        ("tgn", "n=1400 k=22 H=128", cluster_tgn_case(
+            45, 1, 2, 1400, 22, 64, 128, 2809), True),
+    ]
+
+
+def cluster_rows_past_cases():
+    """One narrow case a family at n CLUSTER_ROWS_PAST (two chunks of
+    live-tile bits), B 1, 2 steps."""
+    n = CLUSTER_ROWS_PAST
+    return [
+        ("gcrn", f"n={n}", cluster_gcrn_case(51, 1, 2, n, 5, 12, 24,
+                                             n + 9, False), True),
+        ("evolve", f"n={n}", cluster_evolve_case(52, 1, 2, n, 5, 2, 24,
+                                                 False), True),
+        ("stacked", f"n={n}", cluster_stacked_case(53, 1, 2, n, 5, 12, 16, 24,
+                                                   n + 9, False), True),
+        ("tgn", f"n={n}", cluster_tgn_case(54, 1, 2, n, 5, 12, 24, n + 9),
+         True),
+    ]
+
+
 def cluster_dims(family, args) -> dict:
     """The shared-memory dims of a packed cluster-engine call."""
     if family == "gcrn":
         return dict(k=args[0].shape[-1], din=args[3].shape[-1],
                     H=args[6].shape[-1], n=args[0].shape[2])
+    if family == "stacked":
+        return dict(k=args[0].shape[-1], din=args[3].shape[-1],
+                    dmid=args[7].shape[-1], H=args[6].shape[-1])
+    if family == "tgn":
+        return dict(k=args[0].shape[-1], din=args[3].shape[-1],
+                    H=args[6].shape[-1])
     return dict(k=args[0].shape[-1], L=args[5].shape[1], D=args[5].shape[2])
 
 
-def cluster_paged_dims(family, dims, td, depth) -> dict:
+def cluster_paged_dims(family, dims, td, depth, n) -> dict:
     d = {key: v for key, v in dims.items()
          if not (family == "evolve" and key == "L")}
+    if family == "tgn":
+        d["n"] = n
     return dict(d, td=td, depth=depth)
 
 
 def check_cluster_config(name, B, dims) -> dict:
     """The library's launch of ``name`` over B streams equals the mirror's
     (cluster, CTAs, threads, a CTA's shared memory, every CTA's column
-    slice); returns the library's."""
+    slice, stacked / TGN: the weights in shared memory or not); returns the
+    library's."""
     want = engine.engine_cluster_config(name, B, **dims)
     got = engine.library_engine_cluster_config(name, B, **dims)
     check(all(got[key] == v for key, v in want.items())
@@ -907,17 +1031,20 @@ def check_cluster_config(name, B, dims) -> dict:
     return got
 
 
-def cluster_case_check(family, label, args, resident, config=True) -> float:
+def cluster_case_check(family, label, args, resident, config=True,
+                       tds=CLUSTER_TDS, depths=engine.RING_DEPTHS) -> float:
     """One narrow case: the resident kernel within TOL_KERNEL of its plain
-    version, two calls bit for bit equal, then the paged kernel at td 8 / 16
-    and every ring depth (where its CTA fits) within TOL_KERNEL and bit for
-    bit equal to the resident one (or to itself where there is none); with
-    ``config``, every launch's library config against the mirror. Returns
-    the largest error."""
+    version, two calls bit for bit equal, then the paged kernel at ``tds``
+    and ``depths`` (where its CTA fits) within TOL_KERNEL and bit for bit
+    equal to the resident one (or to itself where there is none); with
+    ``config``, every launch's library config against the mirror. TGN's
+    args are (resident, paged): partners by global row, by local id.
+    Returns the largest error."""
     kernel = getattr(engine, f"{family}_engine")
     paged = getattr(engine, f"{family}_engine_paged")
     plain = getattr(engine, f"{family}_plain")
-    B, dims = args[0].shape[0], cluster_dims(family, args)
+    args, p_args = args if family == "tgn" else (args, args)
+    B, n, dims = args[0].shape[0], args[0].shape[2], cluster_dims(family, args)
     want = plain(*args)
     ref, worst = None, 0.0
     if resident:
@@ -929,15 +1056,15 @@ def cluster_case_check(family, label, args, resident, config=True) -> float:
         check(np.isfinite(worst) and worst <= TOL_KERNEL,
               f"{family}_engine {label}: {worst:.3e} vs plain")
         check(bitwise(ref, again), f"{family}_engine {label}: two calls")
-    for td in CLUSTER_TDS:
-        for depth in engine.RING_DEPTHS:
-            pd = cluster_paged_dims(family, dims, td, depth)
+    for td in tds:
+        for depth in depths:
+            pd = cluster_paged_dims(family, dims, td, depth, n)
             if engine.smem_bytes(f"{family}_engine_paged", **pd) > \
                     engine.SMEM_LIMIT:
                 continue
             if config:
                 check_cluster_config(f"{family}_engine_paged", B, pd)
-            got = paged(*args, td=td, depth=depth)
+            got = paged(*p_args, td=td, depth=depth)
             torch.cuda.synchronize()
             err = max_err(got, want)
             worst = max(worst, err)
@@ -945,24 +1072,24 @@ def cluster_case_check(family, label, args, resident, config=True) -> float:
             check(np.isfinite(err) and err <= TOL_KERNEL,
                   f"{what}: {err:.3e} vs plain")
             check(bitwise(got, ref if ref is not None else
-                          paged(*args, td=td, depth=depth)),
+                          paged(*p_args, td=td, depth=depth)),
                   f"{what}: bit for bit vs "
                   + ("resident" if ref is not None else "a second call"))
     return worst
 
 
 def cluster_timings(inputs, label="") -> dict:
-    """ms a call of both cluster engines on the main path's inputs
-    (``inputs``: {(family, B): packed args}, B 1 and 4), resident and paged
-    (td PAGED_TD) at every ring depth, in turns (interleaved_ms: median of
-    5 samples of one call each)."""
+    """ms a call of the cluster engines on the main path's inputs
+    (``inputs``: {(family, B): (resident args, paged args)}, B 1 and 4),
+    resident and paged (td PAGED_TD) at every ring depth, in turns
+    (interleaved_ms: median of 5 samples of one call each)."""
     out = {}
-    for (family, B), args in inputs.items():
+    for (family, B), (args, p_args) in inputs.items():
         kernel = getattr(engine, f"{family}_engine")
         paged = getattr(engine, f"{family}_engine_paged")
         fns = {"resident": lambda: kernel(*args)}
         for d in engine.RING_DEPTHS:
-            fns[f"paged d{d}"] = lambda d=d: paged(*args, td=PAGED_TD,
+            fns[f"paged d{d}"] = lambda d=d: paged(*p_args, td=PAGED_TD,
                                                    depth=d)
         for key, ms in zip(fns, interleaved_ms(list(fns.values()), 1, 5)):
             out[(family, B, key)] = ms
@@ -972,11 +1099,39 @@ def cluster_timings(inputs, label="") -> dict:
     return out
 
 
+#: the cluster-engine functions whose spills ptxas must report as 0 (the
+#: redesigned stacked and TGN engines, resident and paged), by source
+NO_SPILL = ("stacked_engine", "tgn_engine")
+
+
+def spill_bytes(source: str) -> dict:
+    """{kernel function: spill store + load bytes} of a source's build, from
+    ptxas's -v report in engine.BUILD_LOG (kept beside the library, so a
+    library built by an earlier run reports too)."""
+    out, func = {}, None
+    for line in engine.BUILD_LOG.get(source, "").splitlines():
+        if "Function properties for" in line:
+            func = line.split("Function properties for")[1].strip()
+        elif "spill stores" in line and func is not None:
+            words = line.replace(",", " ").split()
+            out[func] = sum(int(words[i - 2]) for i, w in enumerate(words)
+                            if w == "spill" and i > 1)
+    return out
+
+
 def cluster_engine_checks(main_inputs) -> dict:
-    """The narrow cases, the main path's launch config (B 1 and 4) and the
-    timings in turns; returns {kernel: extra record fields}."""
+    """The narrow cases, the widest plans, n past one chunk of live-tile
+    bits, 0 spill bytes for the redesigned engines, the main path's launch
+    config (B 1 and 4) and the timings in turns; returns {kernel: extra
+    record fields}."""
     t0 = time.time()
-    worst = {"gcrn": 0.0, "evolve": 0.0}
+    for source in NO_SPILL:
+        spills = spill_bytes(source)
+        log(f"{source}: ptxas spill bytes {spills}")
+        engine_fns = [f for f in spills if "engine_kernel" in f]
+        check(len(engine_fns) == 2 and not any(spills[f] for f in engine_fns),
+              f"{source}: 0 spill bytes in both kernels ({spills})")
+    worst = {family: 0.0 for family in CLUSTER_FAMILIES}
     cases = cluster_narrow_cases()
     for family, label, args, resident in cases:
         worst[family] = max(worst[family],
@@ -984,22 +1139,40 @@ def cluster_engine_checks(main_inputs) -> dict:
     log(f"cluster engines: {len(cases)} narrow cases (H 20 / 24 / 128, "
         f"n 37 to 1000, D 8 / 24 / 128 / 256, B 1 / 2 / 17) within "
         f"{TOL_KERNEL} (largest "
-        f"{worst['gcrn']:.3e} gcrn, {worst['evolve']:.3e} evolve), paged bit "
-        f"for bit at td {CLUSTER_TDS} and depths {engine.RING_DEPTHS}, "
+        + ", ".join(f"{worst[f]:.3e} {f}" for f in CLUSTER_FAMILIES)
+        + f"), paged bit for bit at td {CLUSTER_TDS} and depths "
+        f"{engine.RING_DEPTHS}, {time.time() - t0:.1f} s")
+    t0 = time.time()
+    for family, label, args, resident in cluster_wide_cases():
+        err = cluster_case_check(family, label, args, resident, tds=(16,),
+                                 depths=(2,))
+        dims = cluster_dims(family, args[0] if family == "tgn" else args)
+        cfg = engine.engine_cluster_config(f"{family}_engine", 1, **dims)
+        log(f"{family}_engine {label}: max_abs_err={err:.3e} (tol "
+            f"{TOL_KERNEL}), {cfg['smem']} B a CTA, weights in shared "
+            f"memory {cfg['weights_smem']}")
+    for family, label, args, resident in cluster_rows_past_cases():
+        err = cluster_case_check(family, label, args, resident, config=False,
+                                 tds=(8,), depths=(2,))
+        log(f"{family}_engine {label}: max_abs_err={err:.3e} (tol "
+            f"{TOL_KERNEL}), resident and paged d2 bit for bit")
+    log(f"cluster engines: widest plans and n {CLUSTER_ROWS_PAST}, "
         f"{time.time() - t0:.1f} s")
     ms = cluster_timings(main_inputs)
     extra = {}
-    for family in ("gcrn", "evolve"):
+    for family in CLUSTER_FAMILIES:
         for B in (1, 4):
-            dims = cluster_dims(family, main_inputs[(family, B)])
+            args, p_args = main_inputs[(family, B)]
+            dims = cluster_dims(family, args)
             for name, d in ((f"{family}_engine", dims),
                             (f"{family}_engine_paged", cluster_paged_dims(
-                                family, dims, PAGED_TD, 2))):
+                                family, dims, PAGED_TD, 2,
+                                args[0].shape[2]))):
                 cfg = check_cluster_config(name, B, d)
                 rec = extra.setdefault(name, {})
                 rec[f"b{B}_launch"] = {key: cfg[key] for key in (
                     "cluster", "ctas", "threads", "smem",
-                    "max_active_clusters")}
+                    "max_active_clusters", "weights_smem") if key in cfg}
                 if B == 1:
                     check(cfg["cluster"] >= 8 and cfg["ctas"] == cfg["cluster"],
                           f"{name}: a B 1 launch is one cluster of >= 8 CTAs")
@@ -2815,12 +2988,19 @@ def main() -> int:
             next(r["ms"] for r in records if r["name"] == ENGINE[family])))
     # the cluster engines: narrow cases, launch configs, B 1 / 4 in turns
     cluster_inputs = {}
-    for cfg in (GCRN_M2, EVOLVEGCN):
+    for cfg in (GCRN_M2, EVOLVEGCN, STACKED, TGN):
         m = models[cfg.name]
-        cluster_inputs[(m.stream_family, 1)] = inputs[m.stream_family][1]
-        cluster_inputs[(m.stream_family, 4)] = kernel_inputs(
-            m, params[cfg.name], batch_of(np_stream, V3_WINDOWS),
-            lengths=[b - a for a, b in V3_WINDOWS])
+        family = m.stream_family
+        np_s = np_events if cfg is TGN else np_stream
+        wins = EVENT_V3_WINDOWS if cfg is TGN else V3_WINDOWS
+        b4 = batch_of(np_s, wins)
+        lens = [b - a for a, b in wins]
+        cluster_inputs[(family, 1)] = (inputs[family][1],
+                                       paged_inputs[family][1])
+        resident = kernel_inputs(m, params[cfg.name], b4, lengths=lens)
+        cluster_inputs[(family, 4)] = (resident, kernel_inputs(
+            m, params[cfg.name], b4, lengths=lens, residency="hbm_paged")
+            if cfg is TGN else resident)
     for name, extra in cluster_engine_checks(cluster_inputs).items():
         next(r for r in records if r["name"] == name).update(extra)
     del cluster_inputs
@@ -2972,7 +3152,7 @@ def main() -> int:
                  else "not measured (the profiler saw no device time)")
         paged = f" hbm_paged d{kw['buffer_depth']}" if kw else ""
         ctas = ""
-        if level == "v3" and cfg in (GCRN_M2, EVOLVEGCN):
+        if level == "v3" and cfg in (GCRN_M2, EVOLVEGCN, STACKED, TGN):
             name = ENGINE[api.family_for(cfg)] + ("_paged" if kw else "")
             launch = next(r for r in records if r["name"] == name)["b1_launch"]
             ctas = (f"; a launch: {launch['ctas']} CTAs, one cluster of "

@@ -15,7 +15,7 @@ a bf16 tensor is stored as float32 (exact: every bf16 value is a float32)
 and cast back to the template's dtype on restore. ``restore`` loads into a
 template's structure, each tensor on its template leaf's device and in its
 dtype. The JAX package's elastic restore across meshes is sharding and
-waits for ROADMAP queue 1 item 5.
+waits for ROADMAP queue 1, device sharding.
 """
 from __future__ import annotations
 

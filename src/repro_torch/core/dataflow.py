@@ -57,7 +57,7 @@ def build_model(cfg: DGNNConfig, impl: str = "xla",
     raise ValueError(cfg.dgnn_type)
 
 
-SERVE_ITEM = "the serve layer is ROADMAP.md queue 1 item 12"
+SERVE_ITEM = "not ported yet (ROADMAP.md queue 1, the serve layer)"
 
 
 def _check_executable(plan) -> None:
@@ -68,7 +68,8 @@ def _check_executable(plan) -> None:
             raise NotImplementedError(f"{f.name}={value!r}: {SERVE_ITEM}")
     if plan.device.n_devices > 1:
         raise NotImplementedError(
-            "DeviceSpec sharding is ROADMAP.md queue 1 item 13")
+            "DeviceSpec sharding is not ported yet (ROADMAP.md queue 1, "
+            "device sharding)")
 
 
 def _at(snaps, i: int):

@@ -38,8 +38,8 @@
 //     CTAs. It runs on kGruThreads threads of its own, beside the kThreads
 //     GCN threads' tiles of the same step (both read plane t; the paper's
 //     V1 overlap), pacing its arrivals at the cluster barriers with the
-//     GCN tiles' (the step's live tiles times L, read from the same
-//     bitmask). gwx / gwh (D x 3D each, 393 KB a layer at D 128) stream
+//     GCN tiles' (the step's live tiles times L, the launcher's count of
+//     the tiles the GCN threads' bitmask marks). gwx / gwh (D x 3D each, 393 KB a layer at D 128) stream
 //     through a two-slot ring of slabs (one bulk copy each), gwx's rows in
 //     a first pass and gwh's in a second, so a thread holds half its gate
 //     sums; every product reads from shared memory.
@@ -98,6 +98,7 @@ struct EvolveArgs {
   const float* x;     // (B, T, n, D)
   const float* mask;  // (B, T, n)
   const int* live;    // (B, T) 1 = real step, 0 = no-op
+  const int* tiles;   // (B, T) the live node tiles of each step
   const float* bias;  // (L, D)
   const float* gwx;   // (L, D, 3D) [r | z | n]
   const float* gwh;   // (L, D, 3D)
@@ -142,7 +143,7 @@ __host__ __device__ inline Layout layout(bool paged, int k, int L, int D,
   o += (size_t)kTileRows * k;
   y.coef = o;
   o += (size_t)kTileRows * k;
-  y.rows = o;  // the tile's mask, (unused) row ids, lane counts; live bits
+  y.rows = o;  // two tiles' masks, lane counts; live bits
   o += 3 * kTileRows + kLiveWords;
   if (!paged) {
     y.gsum = o;  // the GRU threads' x-pass sums, 12 a column group
@@ -159,12 +160,15 @@ __host__ __device__ inline Layout layout(bool paged, int k, int L, int D,
 // dst[v, c] = act((tile @ W[:, c]) + b[c]) * mask[v] for the tile's rows
 // v = r0 + r < n and the columns c < ncols, W's column c read from wsrc + c
 // (row kk at wsrc + kk * wstride); bias and dst offset to the same first
-// column; ReLU unless `last`; by threads t of nt. A thread owns 4 rows of
-// one column; every output is one fmaf chain over kk = 0 .. D - 1.
+// column; ReLU unless `last`; m_rows[r] the mask of row r0 + r (the
+// tile's own half of the two in shared memory: the next tile's ELL load
+// writes the other while slower warps may still be here); by threads t of
+// nt. A thread owns 4 rows of one column; every output is one fmaf chain
+// over kk = 0 .. D - 1.
 __device__ __forceinline__ void gcn_columns(const float* tile, int D,
                                             const float* wsrc, int wstride,
                                             int ncols, const float* bias,
-                                            bool last, const float* s_mask,
+                                            bool last, const float* m_rows,
                                             int r0, int n, float* dst, int t,
                                             int nt) {
   for (int p = t; p < kRowGroups * ncols; p += nt) {
@@ -187,7 +191,7 @@ __device__ __forceinline__ void gcn_columns(const float* tile, int D,
       if (v < n) {
         float h = __fadd_rn(acc[r], bl);
         if (!last) h = fmaxf(h, 0.0f);
-        dst[(size_t)v * D + cl] = __fmul_rn(h, s_mask[rg * kRows + r]);
+        dst[(size_t)v * D + cl] = __fmul_rn(h, m_rows[rg * kRows + r]);
       }
     }
   }
@@ -426,8 +430,11 @@ __global__ void __launch_bounds__(engine_threads<kPaged>(), 1)
     evolve_engine_kernel(const __grid_constant__ CUtensorMap wmap,
                          EvolveArgs a) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
+  // the 128-byte aligned base, offset from smem_raw (not rebuilt from an
+  // integer), so the compiler keeps it a shared-memory pointer: the tiles'
+  // and weights' loads compile to LDS, not generic loads
   float* smem = reinterpret_cast<float*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~uintptr_t(127));
+      smem_raw + ((128u - hopper::smem_u32(smem_raw)) & 127u));
   const int n = a.n, k = a.k, L = a.L, D = a.D, td = a.td;
   const Layout lay = layout(kPaged, k, L, D, td, a.depth);
   const int dsp = lay.dsp;
@@ -438,7 +445,8 @@ __global__ void __launch_bounds__(engine_threads<kPaged>(), 1)
   float* planes = smem + lay.planes;
   int* s_idx = reinterpret_cast<int*>(smem + lay.idx);
   float* s_coef = smem + lay.coef;
-  float* s_mask = smem + lay.rows;  // the tile's mask, lane counts, bits
+  // two tiles' masks (a tile's buffer's half), lane counts, live bits
+  float* s_mask = smem + lay.rows;
   int* s_cnt = reinterpret_cast<int*>(s_mask + 2 * kTileRows);
   uint32_t* s_live = reinterpret_cast<uint32_t*>(s_mask + 3 * kTileRows);
   const int tid = threadIdx.x;
@@ -506,9 +514,11 @@ __global__ void __launch_bounds__(engine_threads<kPaged>(), 1)
       if (a.eagg != nullptr)
         prefetch_l2(a.eagg + nt * L * n * D, sizeof(float) * L * n * D, rank);
     }
-    live_bits(mask, n, s_live);
-    const int nlive = count_live(s_live);
+    // the bits of the step's first chunk of kChunkTiles live tiles, and the
+    // step's live tiles (the launcher's count, at any n)
     const int ntiles = (n + kTileRows - 1) / kTileRows;
+    live_bits(mask, n, 0, s_live);
+    const int nlive = a.tiles[bt];
 
     if (gru_warp) {
       // the matrix-GRU of every layer, beside the GCN threads' tiles: these
@@ -558,77 +568,89 @@ __global__ void __launch_bounds__(engine_threads<kPaged>(), 1)
       const float* bias = a.bias + (size_t)l * D + d0;
       const int page = (b * L + l) * kCluster + (int)rank;  // W_l's pages
       const float* wplane = planes + (size_t)(2 * l + ((cur >> l) & 1)) * D * dsp;
-      // paged: window w of the layer's sweep is own column window w % ncw
-      // of W_l (thread 0 issues)
-      const unsigned sweep0 = ring.seq;
-      auto issue_window = [&](int w) {
-        const unsigned seq = sweep0 + (unsigned)w;
-        const int cw = w % ncw;
-        float* slot = ring_slot(ring, seq);
-        const uint32_t bar = ring_bar(ring, seq);
-        hopper::mbar_expect_tx(bar, wbytes);
-        for (int j = 0; j < lay.nbox; ++j)
-          hopper::tma_load_3d(
-              hopper::smem_u32(slot + (size_t)j * lay.box_rows * td), &wmap,
-              bar, cw * td, j * lay.box_rows, page);
-      };
-      const int total = nlive * ncw;
-      if constexpr (kPaged)
-        if (tid == 0)
-          for (int w = 0; w < min(a.depth, total); ++w) issue_window(w);
-      // all-padding tiles: zeros (the live tiles below write other rows)
-      for (int p = tid; p < n * ds; p += kThreads) {
-        const int v = p / ds, c = p - v * ds;
-        if (!tile_live(s_live, v / kTileRows)) dst[(size_t)v * D + c] = 0.0f;
-      }
+      // the layer's tiles, a chunk of kChunkTiles at a time (one chunk up to
+      // n 65,536, whose bits are taken above)
+      for (int q0 = 0; q0 < ntiles; q0 += kChunkTiles) {
+        if (ntiles > kChunkTiles)
+          live_bits(mask, n, q0, s_live, tid, kThreads, gcn_sync);
+        const int nl = ntiles > kChunkTiles ? count_live(s_live) : nlive;
+        const int vend = min(chunk_end(q0, n) * kTileRows, n);
+        // paged: window w of the layer's sweep is own column window w % ncw
+        // of W_l (thread 0 issues)
+        const unsigned sweep0 = ring.seq;
+        auto issue_window = [&](int w) {
+          const unsigned seq = sweep0 + (unsigned)w;
+          const int cw = w % ncw;
+          float* slot = ring_slot(ring, seq);
+          const uint32_t bar = ring_bar(ring, seq);
+          hopper::mbar_expect_tx(bar, wbytes);
+          for (int j = 0; j < lay.nbox; ++j)
+            hopper::tma_load_3d(
+                hopper::smem_u32(slot + (size_t)j * lay.box_rows * td), &wmap,
+                bar, cw * td, j * lay.box_rows, page);
+        };
+        const int total = nl * ncw;
+        if constexpr (kPaged)
+          if (tid == 0)
+            for (int w = 0; w < min(a.depth, total); ++w) issue_window(w);
+        // all-padding tiles: zeros (the live tiles below write other rows)
+        for (int p = q0 * kTileRows * ds + tid; p < vend * ds; p += kThreads) {
+          const int v = p / ds, c = p - v * ds;
+          if (!tile_live(s_live, q0, v / kTileRows))
+            dst[(size_t)v * D + c] = 0.0f;
+        }
 
-      // GCN layer over the live tiles: aggregate the own columns, all-gather
-      // the tile (DSMEM; one cluster barrier), multiply it by the own
-      // columns of W_l
-      for (int q = next_live(s_live, 0, n); q < ntiles;
-           q = next_live(s_live, q + 1, n)) {
-        const int r0 = q * kTileRows;
-        float* tile = tiles + (size_t)buf * D * kTileStride;
-        load_ell_tile(idx, coef, nullptr, mask, nullptr, r0, n, k, s_idx,
-                      s_coef, nullptr, s_mask, nullptr, s_cnt, tid, kThreads);
-        gcn_sync();
-        // two items a thread, their gathers interleaved
-        for (int p = tid; p < kTileRows * ds; p += 2 * kThreads) {
-          const int p1 = p + kThreads < kTileRows * ds ? p + kThreads : p;
-          const int r = p / ds, c = p - r * ds;
-          const int r1 = p1 / ds, c1 = p1 - r1 * ds;
-          float2 acc = ell_sum2(src, D, s_idx + r * k, s_coef + r * k,
-                                s_cnt[r], d0 + c, s_idx + r1 * k,
-                                s_coef + r1 * k, s_cnt[r1], d0 + c1);
-          if (ea != nullptr) {
-            if (r0 + r < n)
-              acc.x = __fadd_rn(acc.x, ea[(size_t)(r0 + r) * D + d0 + c]);
-            if (r0 + r1 < n)
-              acc.y = __fadd_rn(acc.y, ea[(size_t)(r0 + r1) * D + d0 + c1]);
+        // GCN layer over the live tiles: aggregate the own columns, all-gather
+        // the tile (DSMEM; one cluster barrier), multiply it by the own
+        // columns of W_l
+        for (int q = next_live(s_live, q0, q0, n); q < chunk_end(q0, n);
+             q = next_live(s_live, q0, q + 1, n)) {
+          const int r0 = q * kTileRows;
+          float* tile = tiles + (size_t)buf * D * kTileStride;
+          load_ell_tile(idx, coef, nullptr, mask, nullptr, r0, n, k, s_idx,
+                        s_coef, nullptr, s_mask + buf * kTileRows, nullptr,
+                        s_cnt, tid, kThreads);
+          gcn_sync();
+          // two items a thread, their gathers interleaved
+          for (int p = tid; p < kTileRows * ds; p += 2 * kThreads) {
+            const int p1 = p + kThreads < kTileRows * ds ? p + kThreads : p;
+            const int r = p / ds, c = p - r * ds;
+            const int r1 = p1 / ds, c1 = p1 - r1 * ds;
+            float2 acc = ell_sum2(src, D, s_idx + r * k, s_coef + r * k,
+                                  s_cnt[r], d0 + c, s_idx + r1 * k,
+                                  s_coef + r1 * k, s_cnt[r1], d0 + c1);
+            if (ea != nullptr) {
+              if (r0 + r < n)
+                acc.x = __fadd_rn(acc.x, ea[(size_t)(r0 + r) * D + d0 + c]);
+              if (r0 + r1 < n)
+                acc.y = __fadd_rn(acc.y, ea[(size_t)(r0 + r1) * D + d0 + c1]);
+            }
+            tile[(size_t)(d0 + c) * kTileStride + r] = acc.x;
+            if (p1 != p) tile[(size_t)(d0 + c1) * kTileStride + r1] = acc.y;
           }
-          tile[(size_t)(d0 + c) * kTileStride + r] = acc.x;
-          if (p1 != p) tile[(size_t)(d0 + c1) * kTileStride + r1] = acc.y;
-        }
-        gcn_sync();
-        broadcast_cols(tile, d0, ds, rank, tid, kThreads);
-        cluster::sync();
-        if constexpr (kPaged) {
-          for (int cw = 0; cw < ncw; ++cw) {
-            const unsigned seq = ring.seq;
-            ring_wait(ring, seq);
-            gcn_columns(tile, D, ring_slot(ring, seq), td,
-                        min(td, ds - cw * td), bias + cw * td, last, s_mask,
-                        r0, n, dst + cw * td, tid, kThreads);
-            ring.seq = seq + 1;
-            gcn_sync();
-            const int next = (int)(seq - sweep0) + a.depth;
-            if (tid == 0 && next < total) issue_window(next);
+          gcn_sync();
+          broadcast_cols(tile, d0, ds, rank, tid, kThreads);
+          cluster::sync();
+          if constexpr (kPaged) {
+            for (int cw = 0; cw < ncw; ++cw) {
+              const unsigned seq = ring.seq;
+              ring_wait(ring, seq);
+              gcn_columns(tile, D, ring_slot(ring, seq), td,
+                          min(td, ds - cw * td), bias + cw * td, last,
+                          s_mask + buf * kTileRows, r0, n, dst + cw * td, tid,
+                          kThreads);
+              ring.seq = seq + 1;
+              gcn_sync();
+              const int next = (int)(seq - sweep0) + a.depth;
+              if (tid == 0 && next < total) issue_window(next);
+            }
+          } else {
+            gcn_columns(tile, D, wplane, dsp, ds, bias, last,
+                        s_mask + buf * kTileRows, r0, n,
+                        dst, tid, kThreads);
           }
-        } else {
-          gcn_columns(tile, D, wplane, dsp, ds, bias, last, s_mask, r0, n,
-                      dst, tid, kThreads);
+          buf ^= 1;
         }
-        buf ^= 1;
       }
       // the layer's outputs before the next layer aggregates them
       gcn_sync();
@@ -687,7 +709,7 @@ __global__ void __launch_bounds__(engine_threads<kPaged>(), 1)
 
 template <bool kPaged>
 int launch(const EvolveArgs& a, int B, void* stream) {
-  if (a.D % kGwRows != 0 || a.n > kMaxRows) return (int)cudaErrorInvalidValue;
+  if (a.D % kGwRows != 0) return (int)cudaErrorInvalidValue;
   const Layout lay = layout(kPaged, a.k, a.L, a.D, a.td, a.depth);
   CUtensorMap wmap{};
   if (kPaged) {
@@ -701,7 +723,8 @@ int launch(const EvolveArgs& a, int B, void* stream) {
 }
 
 EvolveArgs make_args(const void* idx, const void* coef, const void* x,
-                     const void* mask, const void* live, const void* bias,
+                     const void* mask, const void* live, const void* tiles,
+                     const void* bias,
                      const void* gwx, const void* gwh, const void* gb,
                      const void* eagg, void* out, void* w, void* act,
                      void* wpage, int T, int n, int k, int L, int D) {
@@ -711,6 +734,7 @@ EvolveArgs make_args(const void* idx, const void* coef, const void* x,
   a.x = static_cast<const float*>(x);
   a.mask = static_cast<const float*>(mask);
   a.live = static_cast<const int*>(live);
+  a.tiles = static_cast<const int*>(tiles);
   a.bias = static_cast<const float*>(bias);
   a.gwx = static_cast<const float*>(gwx);
   a.gwh = static_cast<const float*>(gwh);
@@ -763,29 +787,33 @@ int evolve_engine_paged_cluster_config(int B, int k, int D, int td, int depth,
 }
 
 int evolve_engine_launch(const void* idx, const void* coef, const void* x,
-                         const void* mask, const void* live, const void* bias,
+                         const void* mask, const void* live,
+                         const void* tiles, const void* bias,
                          const void* gwx, const void* gwh, const void* gb,
                          const void* eagg, void* out, void* w, void* act,
                          int B, int T, int n, int k, int L, int D,
                          void* stream) {
-  const EvolveArgs a = make_args(idx, coef, x, mask, live, bias, gwx, gwh, gb,
-                                 eagg, out, w, act, nullptr, T, n, k, L, D);
+  if (tiles == nullptr) return (int)cudaErrorInvalidValue;
+  const EvolveArgs a = make_args(idx, coef, x, mask, live, tiles, bias, gwx,
+                                 gwh, gb, eagg, out, w, act, nullptr, T, n, k,
+                                 L, D);
   return launch<false>(a, B, stream);
 }
 
 int evolve_engine_paged_launch(const void* idx, const void* coef,
                                const void* x, const void* mask,
-                               const void* live, const void* bias,
-                               const void* gwx, const void* gwh,
-                               const void* gb, const void* eagg, void* out,
-                               void* w, void* act, void* wpage, int B, int T,
-                               int n, int k, int L, int D, int td, int depth,
+                               const void* live, const void* tiles,
+                               const void* bias, const void* gwx,
+                               const void* gwh, const void* gb,
+                               const void* eagg, void* out, void* w,
+                               void* act, void* wpage, int B, int T, int n,
+                               int k, int L, int D, int td, int depth,
                                void* stream) {
   if (td <= 0 || td % 8 != 0 || td > kBoxRows || depth < 1 ||
-      depth > engine::kMaxDepth)
+      depth > engine::kMaxDepth || tiles == nullptr)
     return (int)cudaErrorInvalidValue;
-  EvolveArgs a = make_args(idx, coef, x, mask, live, bias, gwx, gwh, gb, eagg,
-                           out, w, act, wpage, T, n, k, L, D);
+  EvolveArgs a = make_args(idx, coef, x, mask, live, tiles, bias, gwx, gwh,
+                           gb, eagg, out, w, act, wpage, T, n, k, L, D);
   a.td = td; a.depth = depth;
   return launch<true>(a, B, stream);
 }

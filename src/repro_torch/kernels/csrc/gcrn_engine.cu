@@ -149,8 +149,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     gcrn_engine_kernel(const __grid_constant__ CUtensorMap hmap,
                        const __grid_constant__ CUtensorMap cmap, GcrnArgs a) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
+  // the 128-byte aligned base, offset from smem_raw (not rebuilt from an
+  // integer), so the compiler keeps it a shared-memory pointer: the tiles'
+  // and weights' loads compile to LDS, not generic loads
   float* smem = reinterpret_cast<float*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~uintptr_t(127));
+      smem_raw + ((128u - hopper::smem_u32(smem_raw)) & 127u));
   const int H = a.H, n = a.n, k = a.k, din = a.din, td = a.td;
   const Layout lay = layout(kPaged, k, din, H, n, td, a.depth);
   const int K = lay.K, hm = lay.hm, hmp = lay.hmp, wr = lay.wr;
@@ -230,7 +233,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     // 1. the step's live tiles; gather the own units' t-1 rows out of the
     // stores, kGather items' loads in flight a thread (float4 items where
     // the slice is 16-byte aligned); zero the dead tiles' rows
-    live_bits(mask, n, s_live);
+    live_bits(mask, n, 0, s_live);
     if (vec) {
       const int per_row = hs / 4, items = n * per_row;
       for (int p0 = tid; p0 < items; p0 += kGather * kThreads) {
@@ -291,171 +294,179 @@ __global__ void __launch_bounds__(kThreads, 1)
     if constexpr (kPaged) publish_global();
     __syncthreads();
 
-    // paged: the step's sweep, nw windows a live tile; warp 0 issues them
-    // in order (lane 0 the copies), tracking the tile it has reached
-    int total = 0, issued = 0, p_tile = -1, p_w = 0;
-    if constexpr (kPaged) total = count_live(s_live) * nw;
-    const unsigned sweep0 = ring.seq;
-    auto issue_next = [&]() {  // warp 0
-      if (p_w == 0) p_tile = next_live(s_live, p_tile + 1, n);
-      if ((tid & 31) == 0) {
-        const unsigned seq = sweep0 + (unsigned)issued;
-        const int cw = p_w / nrw, rw = p_w - cw * nrw;
-        float* slot = ring_slot(ring, seq);
-        const uint32_t bar = ring_bar(ring, seq);
-        const uint32_t hbytes = (uint32_t)wr * td * sizeof(float);
-        const uint32_t cbytes = rw == 0 ? kTileRows * td * sizeof(float) : 0u;
-        hopper::mbar_expect_tx(bar, hbytes + cbytes);
-        const int plane = b * kCluster + (int)rank;
-        hopper::tma_load_3d(hopper::smem_u32(slot), &hmap, bar, cw * td,
-                            rw * wr, plane);
-        if (rw == 0)
-          hopper::tma_load_3d(hopper::smem_u32(slot + (size_t)wr * td), &cmap,
-                              bar, cw * td, p_tile * kTileRows, plane);
-      }
-      ++issued;
-      if (++p_w == nw) p_w = 0;
-    };
-    if constexpr (kPaged) {
-      if (tid < 32)
-        while (issued < total && issued < a.depth) issue_next();
-    }
-
-    // all-padding tiles: h' = c' = 0 (after the gather's barrier; the
-    // tiles below write other rows), a thread a row
-    for (int v0 = tid; v0 < n; v0 += kGather * kThreads) {
-      int g[kGather];
-#pragma unroll
-      for (int i = 0; i < kGather; ++i) {
-        const int v = v0 + i * kThreads;
-        g[i] = v < n && !tile_live(s_live, v / kTileRows) ? rowg[v] : -2;
-      }
-#pragma unroll
-      for (int i = 0; i < kGather; ++i) {
-        if (g[i] == -2) continue;
-        const int v = v0 + i * kThreads;
-        const bool store = g[i] >= 0 && g[i] < a.G;
-        for (int j = 0; j < hs; ++j) {
-          out[(size_t)v * H + u0 + j] = 0.0f;
-          if (store) {
-            h_st[(size_t)g[i] * H + u0 + j] = 0.0f;
-            c_st[(size_t)g[i] * H + u0 + j] = 0.0f;
-          }
+    // the step's tiles, a chunk of kChunkTiles at a time (one chunk up to n
+    // 65,536, whose bits are taken above)
+    for (int q0 = 0; q0 < ntiles; q0 += kChunkTiles) {
+      if (q0 > 0) live_bits(mask, n, q0, s_live);
+      const int qend = chunk_end(q0, n);
+      const int vend = min(qend * kTileRows, n);
+      // paged: the chunk's sweep, nw windows a live tile; warp 0 issues them
+      // in order (lane 0 the copies), tracking the tile it has reached
+      int total = 0, issued = 0, p_tile = q0 - 1, p_w = 0;
+      if constexpr (kPaged) total = count_live(s_live) * nw;
+      const unsigned sweep0 = ring.seq;
+      auto issue_next = [&]() {  // warp 0
+        if (p_w == 0) p_tile = next_live(s_live, q0, p_tile + 1, n);
+        if ((tid & 31) == 0) {
+          const unsigned seq = sweep0 + (unsigned)issued;
+          const int cw = p_w / nrw, rw = p_w - cw * nrw;
+          float* slot = ring_slot(ring, seq);
+          const uint32_t bar = ring_bar(ring, seq);
+          const uint32_t hbytes = (uint32_t)wr * td * sizeof(float);
+          const uint32_t cbytes = rw == 0 ? kTileRows * td * sizeof(float) : 0u;
+          hopper::mbar_expect_tx(bar, hbytes + cbytes);
+          const int plane = b * kCluster + (int)rank;
+          hopper::tma_load_3d(hopper::smem_u32(slot), &hmap, bar, cw * td,
+                              rw * wr, plane);
+          if (rw == 0)
+            hopper::tma_load_3d(hopper::smem_u32(slot + (size_t)wr * td), &cmap,
+                                bar, cw * td, p_tile * kTileRows, plane);
         }
-      }
-    }
-
-    // 2. the live tiles: aggregate the own columns of agg_x and agg_h,
-    // all-gather the tile (DSMEM; one cluster barrier), gate product and
-    // LSTM update of the own units
-    for (int q = next_live(s_live, 0, n); q < ntiles;
-         q = next_live(s_live, q + 1, n)) {
-      const int r0 = q * kTileRows;
-      float* tile = tiles + (size_t)buf * K * kTileStride;
-      load_ell_tile(idx, coef, emsg != nullptr ? eidx : nullptr, mask,
-                    rowg, r0, n, k, s_idx, s_coef,
-                    emsg != nullptr ? s_eidx : nullptr, s_mask, s_rowg, s_cnt,
-                    tid, kThreads);
-      __syncthreads();
-      for (int p = tid; p < kTileRows * xs; p += kThreads) {
-        const int r = p / xs, c = p - r * xs;
-        tile[(size_t)(x0 + c) * kTileStride + r] = cluster::ell_sum(
-            x, din, emsg, din, s_idx + r * k, s_coef + r * k,
-            emsg != nullptr ? s_eidx + r * k : nullptr, s_cnt[r], x0 + c);
-      }
+        ++issued;
+        if (++p_w == nw) p_w = 0;
+      };
       if constexpr (kPaged) {
-        float* ct = smem + lay.ct;
-        for (int w = 0; w < nw; ++w) {
-          const unsigned seq = ring.seq;
-          ring_wait(ring, seq);
-          const float* slot = ring_slot(ring, seq);
-          const int cw = w / nrw, rw = w - cw * nrw;
-          const int wc = min(td, hs - cw * td);
-          const int lo = rw * wr, hi = min(lo + wr, n);
-          for (int p = tid; p < kTileRows * ((wc + 3) / 4); p += kThreads) {
-            const int r = p % kTileRows, c0 = (p / kTileRows) * 4;
-            float* dst = tile + (size_t)(din + u0 + cw * td + c0) * kTileStride + r;
-            float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-            if (rw != 0)
-              acc = make_float4(dst[0], dst[kTileStride],
-                                dst[2 * kTileStride], dst[3 * kTileStride]);
-            acc = ell_window4(acc, slot, td, lo, hi, s_idx + r * k,
-                              s_coef + r * k, s_cnt[r], c0);
-            const float a4[4] = {acc.x, acc.y, acc.z, acc.w};
-            for (int c = 0; c < 4 && c0 + c < wc; ++c) {
-              dst[c * kTileStride] = a4[c];
-              if (rw == 0)
-                ct[(size_t)(cw * td + c0 + c) * kTileStride + r] =
-                    slot[(size_t)(wr + r) * td + c0 + c];
+        if (tid < 32)
+          while (issued < total && issued < a.depth) issue_next();
+      }
+
+      // all-padding tiles: h' = c' = 0 (after the gather's barrier; the
+      // tiles below write other rows), a thread a row
+      for (int v0 = q0 * kTileRows + tid; v0 < vend; v0 += kGather * kThreads) {
+        int g[kGather];
+#pragma unroll
+        for (int i = 0; i < kGather; ++i) {
+          const int v = v0 + i * kThreads;
+          g[i] = v < vend && !tile_live(s_live, q0, v / kTileRows) ? rowg[v]
+                                                                    : -2;
+        }
+#pragma unroll
+        for (int i = 0; i < kGather; ++i) {
+          if (g[i] == -2) continue;
+          const int v = v0 + i * kThreads;
+          const bool store = g[i] >= 0 && g[i] < a.G;
+          for (int j = 0; j < hs; ++j) {
+            out[(size_t)v * H + u0 + j] = 0.0f;
+            if (store) {
+              h_st[(size_t)g[i] * H + u0 + j] = 0.0f;
+              c_st[(size_t)g[i] * H + u0 + j] = 0.0f;
             }
           }
-          ring.seq = seq + 1;
-          __syncthreads();
-          if (tid < 32 && issued < total) issue_next();
-        }
-      } else {
-        for (int p = tid; p < kTileRows * ((hs + 3) / 4); p += kThreads) {
-          const int r = p % kTileRows, c0 = (p / kTileRows) * 4;
-          float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-          for (int lo = 0; lo < n; lo += wr)
-            acc = ell_window4(acc, hdst + (size_t)lo * hmp, hmp, lo,
-                              min(lo + wr, n), s_idx + r * k,
-                              s_coef + r * k, s_cnt[r], c0);
-          const float a4[4] = {acc.x, acc.y, acc.z, acc.w};
-          for (int c = 0; c < 4 && c0 + c < hs; ++c)
-            tile[(size_t)(din + u0 + c0 + c) * kTileStride + r] = a4[c];
         }
       }
-      __syncthreads();
-      broadcast_cols(tile, x0, xs, rank, tid, kThreads);
-      broadcast_cols(tile, din + u0, hs, rank, tid, kThreads);
-      cluster::sync();
-      const float* ct = smem + lay.ct;
-      // the LSTM update of unit j at tile row r from its four gate sums
-      auto lstm = [&](int r, int j, float gi, float gf, float gg, float go) {
-        const int v = r0 + r;
-        if (v >= n || j >= hs) return;
-        const float m = s_mask[r];
-        const float c = kPaged ? ct[(size_t)j * kTileStride + r]
-                               : cdst[(size_t)v * hmp + j];
-        const float c_new = __fmul_rn(
-            __fmaf_rn(sigmoidf(gf), c, __fmul_rn(sigmoidf(gi), tanhf(gg))), m);
-        const float h_new = __fmul_rn(__fmul_rn(sigmoidf(go), tanhf(c_new)), m);
-        out[(size_t)v * H + u0 + j] = h_new;
-        const int g = s_rowg[r];
-        if (g >= 0 && g < a.G) {
-          h_st[(size_t)g * H + u0 + j] = h_new;
-          c_st[(size_t)g * H + u0 + j] = c_new;
+
+      // 2. the live tiles: aggregate the own columns of agg_x and agg_h,
+      // all-gather the tile (DSMEM; one cluster barrier), gate product and
+      // LSTM update of the own units
+      for (int q = next_live(s_live, q0, q0, n); q < qend;
+           q = next_live(s_live, q0, q + 1, n)) {
+        const int r0 = q * kTileRows;
+        float* tile = tiles + (size_t)buf * K * kTileStride;
+        load_ell_tile(idx, coef, emsg != nullptr ? eidx : nullptr, mask,
+                      rowg, r0, n, k, s_idx, s_coef,
+                      emsg != nullptr ? s_eidx : nullptr, s_mask, s_rowg, s_cnt,
+                      tid, kThreads);
+        __syncthreads();
+        for (int p = tid; p < kTileRows * xs; p += kThreads) {
+          const int r = p / xs, c = p - r * xs;
+          tile[(size_t)(x0 + c) * kTileStride + r] = cluster::ell_sum(
+              x, din, emsg, din, s_idx + r * k, s_coef + r * k,
+              emsg != nullptr ? s_eidx + r * k : nullptr, s_cnt[r], x0 + c);
         }
-      };
-      for (int p = tid; p < kRowGroups * hs; p += kThreads) {
-        const int rg = p / hs, j = p - rg * hs;
-        const float4 bg = *reinterpret_cast<const float4*>(bs + j * 4);
-        float acc[4][kRows];
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          acc[0][r] = bg.x; acc[1][r] = bg.y; acc[2][r] = bg.z; acc[3][r] = bg.w;
-        }
-        const float* ap = tile + rg * kRows;
-        const float* wp = ws + (size_t)j * 4;
-#pragma unroll 4
-        for (int kk = 0; kk < K; ++kk) {
-          const float4 av = *reinterpret_cast<const float4*>(ap + (size_t)kk * kTileStride);
-          const float4 w = *reinterpret_cast<const float4*>(wp + (size_t)kk * hm * 4);
-          const float a4[kRows] = {av.x, av.y, av.z, av.w};
-#pragma unroll
-          for (int r = 0; r < kRows; ++r) {
-            acc[0][r] = fmaf(a4[r], w.x, acc[0][r]);
-            acc[1][r] = fmaf(a4[r], w.y, acc[1][r]);
-            acc[2][r] = fmaf(a4[r], w.z, acc[2][r]);
-            acc[3][r] = fmaf(a4[r], w.w, acc[3][r]);
+        if constexpr (kPaged) {
+          float* ct = smem + lay.ct;
+          for (int w = 0; w < nw; ++w) {
+            const unsigned seq = ring.seq;
+            ring_wait(ring, seq);
+            const float* slot = ring_slot(ring, seq);
+            const int cw = w / nrw, rw = w - cw * nrw;
+            const int wc = min(td, hs - cw * td);
+            const int lo = rw * wr, hi = min(lo + wr, n);
+            for (int p = tid; p < kTileRows * ((wc + 3) / 4); p += kThreads) {
+              const int r = p % kTileRows, c0 = (p / kTileRows) * 4;
+              float* dst = tile + (size_t)(din + u0 + cw * td + c0) * kTileStride + r;
+              float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+              if (rw != 0)
+                acc = make_float4(dst[0], dst[kTileStride],
+                                  dst[2 * kTileStride], dst[3 * kTileStride]);
+              acc = ell_window4(acc, slot, td, lo, hi, s_idx + r * k,
+                                s_coef + r * k, s_cnt[r], c0);
+              const float a4[4] = {acc.x, acc.y, acc.z, acc.w};
+              for (int c = 0; c < 4 && c0 + c < wc; ++c) {
+                dst[c * kTileStride] = a4[c];
+                if (rw == 0)
+                  ct[(size_t)(cw * td + c0 + c) * kTileStride + r] =
+                      slot[(size_t)(wr + r) * td + c0 + c];
+              }
+            }
+            ring.seq = seq + 1;
+            __syncthreads();
+            if (tid < 32 && issued < total) issue_next();
+          }
+        } else {
+          for (int p = tid; p < kTileRows * ((hs + 3) / 4); p += kThreads) {
+            const int r = p % kTileRows, c0 = (p / kTileRows) * 4;
+            float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+            for (int lo = 0; lo < n; lo += wr)
+              acc = ell_window4(acc, hdst + (size_t)lo * hmp, hmp, lo,
+                                min(lo + wr, n), s_idx + r * k,
+                                s_coef + r * k, s_cnt[r], c0);
+            const float a4[4] = {acc.x, acc.y, acc.z, acc.w};
+            for (int c = 0; c < 4 && c0 + c < hs; ++c)
+              tile[(size_t)(din + u0 + c0 + c) * kTileStride + r] = a4[c];
           }
         }
+        __syncthreads();
+        broadcast_cols(tile, x0, xs, rank, tid, kThreads);
+        broadcast_cols(tile, din + u0, hs, rank, tid, kThreads);
+        cluster::sync();
+        const float* ct = smem + lay.ct;
+        // the LSTM update of unit j at tile row r from its four gate sums
+        auto lstm = [&](int r, int j, float gi, float gf, float gg, float go) {
+          const int v = r0 + r;
+          if (v >= n || j >= hs) return;
+          const float m = mask[v];
+          const float c = kPaged ? ct[(size_t)j * kTileStride + r]
+                                 : cdst[(size_t)v * hmp + j];
+          const float c_new = __fmul_rn(
+              __fmaf_rn(sigmoidf(gf), c, __fmul_rn(sigmoidf(gi), tanhf(gg))), m);
+          const float h_new = __fmul_rn(__fmul_rn(sigmoidf(go), tanhf(c_new)), m);
+          out[(size_t)v * H + u0 + j] = h_new;
+          const int g = rowg[v];
+          if (g >= 0 && g < a.G) {
+            h_st[(size_t)g * H + u0 + j] = h_new;
+            c_st[(size_t)g * H + u0 + j] = c_new;
+          }
+        };
+        for (int p = tid; p < kRowGroups * hs; p += kThreads) {
+          const int rg = p / hs, j = p - rg * hs;
+          const float4 bg = *reinterpret_cast<const float4*>(bs + j * 4);
+          float acc[4][kRows];
 #pragma unroll
-        for (int r = 0; r < kRows; ++r)
-          lstm(rg * kRows + r, j, acc[0][r], acc[1][r], acc[2][r], acc[3][r]);
+          for (int r = 0; r < kRows; ++r) {
+            acc[0][r] = bg.x; acc[1][r] = bg.y; acc[2][r] = bg.z; acc[3][r] = bg.w;
+          }
+          const float* ap = tile + rg * kRows;
+          const float* wp = ws + (size_t)j * 4;
+#pragma unroll 4
+          for (int kk = 0; kk < K; ++kk) {
+            const float4 av = *reinterpret_cast<const float4*>(ap + (size_t)kk * kTileStride);
+            const float4 w = *reinterpret_cast<const float4*>(wp + (size_t)kk * hm * 4);
+            const float a4[kRows] = {av.x, av.y, av.z, av.w};
+#pragma unroll
+            for (int r = 0; r < kRows; ++r) {
+              acc[0][r] = fmaf(a4[r], w.x, acc[0][r]);
+              acc[1][r] = fmaf(a4[r], w.y, acc[1][r]);
+              acc[2][r] = fmaf(a4[r], w.z, acc[2][r]);
+              acc[3][r] = fmaf(a4[r], w.w, acc[3][r]);
+            }
+          }
+#pragma unroll
+          for (int r = 0; r < kRows; ++r)
+            lstm(rg * kRows + r, j, acc[0][r], acc[1][r], acc[2][r], acc[3][r]);
+        }
+        buf ^= 1;
       }
-      buf ^= 1;
     }
     // the step's store writes before the next step's gather reads them
     __syncthreads();
@@ -466,7 +477,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 template <bool kPaged>
 int launch(const GcrnArgs& a, int B, void* stream) {
-  if (a.H % 4 != 0 || a.n > kMaxRows) return (int)cudaErrorInvalidValue;
+  if (a.H % 4 != 0) return (int)cudaErrorInvalidValue;
   const Layout lay = layout(kPaged, a.k, a.din, a.H, a.n, a.td, a.depth);
   if (!lay.rows_smem && (a.h_rows == nullptr || a.c_rows == nullptr))
     return (int)cudaErrorInvalidValue;

@@ -39,10 +39,13 @@ and a launch over the card's 227 KB is refused on either device, with the
 JAX package's hint: page the store, or shrink td. Index tensors are
 range-checked before a launch (one device sync).
 
-The GCRN and EvolveGCN engines (resident and paged) run one stream on a
-thread-block cluster of ``CLUSTER`` CTAs, each owning a slice of the state's
-columns; ``engine_cluster_config`` mirrors that launch and
-``library_engine_cluster_config`` reads the launcher's own (card only).
+The four stateful stream engines (GCRN, EvolveGCN, stacked and TGN;
+resident and paged) run one stream on a thread-block cluster of
+``CLUSTER`` CTAs, each owning a slice of the state's columns;
+``engine_cluster_config`` mirrors that launch and
+``library_engine_cluster_config`` reads the launcher's own (card only). They
+take any number of node rows a step: a CTA walks a step's tiles in chunks
+of ``CHUNK_ROWS``.
 """
 from __future__ import annotations
 
@@ -89,7 +92,8 @@ SMEM_LIMIT = 232448
 #: the kernels' node tile: rows a tile, floats between a k-major tile's columns
 TILE_ROWS = 32
 TILE_STRIDE = TILE_ROWS + 4
-#: the cluster engines (gcrn_engine.cu, evolve_engine.cu, both variants):
+#: the cluster engines (gcrn_engine.cu, evolve_engine.cu, stacked_engine.cu,
+#: tgn_engine.cu, both variants):
 #: CTAs a cluster (one stream; a constant, so a stream's bits never depend
 #: on the batch it rides in), threads a CTA, rows a paged window's TMA box
 #: holds at most, the slots of the EvolveGCN GRU's gwx / gwh ring and the
@@ -97,16 +101,22 @@ TILE_STRIDE = TILE_ROWS + 4
 #: to 128
 CLUSTER, CLUSTER_THREADS, BOX_ROWS, ALIGN_SLACK = 8, 256, 256, 128
 GW_SLOTS, GW_ROWS = 2, 8
+#: a stacked / TGN cluster CTA of at most this many units splits its GRU's K
+#: loop over two threads an item, which exchange their sums through this
+#: many floats of shared memory
+SPLIT_UNITS = CLUSTER_THREADS // (2 * TILE_ROWS // 4)
+SPLIT_FLOATS = TILE_ROWS // 4 * SPLIT_UNITS * 3 * 4
 #: the resident EvolveGCN CTA's matrix-GRU threads, beside its
 #: CLUSTER_THREADS GCN threads, and the 4-column groups each carries (12
 #: sums a group wait in shared memory between its gwx and gwh passes)
 GRU_THREADS, GRU_GROUPS = 128, 4
-#: words of a cluster CTA's bitmask of a step's live node tiles, and so
-#: the most node rows a cluster engine takes
+#: words of a cluster CTA's bitmask of live node tiles, and so the rows of
+#: the chunks a step's tiles are walked in (any n is taken)
 LIVE_WORDS = 64
-MAX_ROWS = LIVE_WORDS * 32 * 32
+CHUNK_ROWS = LIVE_WORDS * 32 * 32
 CLUSTER_ENGINES = ("gcrn_engine", "gcrn_engine_paged", "evolve_engine",
-                   "evolve_engine_paged")
+                   "evolve_engine_paged", "stacked_engine",
+                   "stacked_engine_paged", "tgn_engine", "tgn_engine_paged")
 #: paging-ring depths (hbm_paged buffer_depth); the kernels reserve an
 #: mbarrier for each of the deepest ring's slots
 RING_DEPTHS = (1, 2, 4)
@@ -169,15 +179,18 @@ def build(names=KERNELS) -> dict:
     """Compile the sources of the named kernels that are not built yet, one
     ``nvcc`` per source, all running at once. Returns {name: library
     path}; raises if any compile fails. The compiler's output (``-Xptxas
-    -v``: registers, shared memory, spills) lands in ``BUILD_LOG``, by
-    source."""
+    -v``: registers, shared memory, spills) is kept beside each library
+    (``lib<source>_<digest>.log``) and lands in ``BUILD_LOG``, by source,
+    for a library built earlier too; a library without its log is built
+    again."""
     nvcc = _nvcc()
     out = build_dir()
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
     for source in dict.fromkeys(SOURCE[name] for name in names):
         lib = _lib_path(source)
-        if lib.exists():
+        if lib.exists() and lib.with_suffix(".log").exists():
+            BUILD_LOG[source] = lib.with_suffix(".log").read_text()
             continue
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
@@ -192,6 +205,10 @@ def build(names=KERNELS) -> dict:
         if proc.returncode != 0:
             failed.append(f"{source}:\n{log}")
             continue
+        # the log first: a library on disk always has its log beside it
+        tmp_log = tmp.with_suffix(".log")
+        tmp_log.write_text(log)
+        os.replace(tmp_log, lib.with_suffix(".log"))
         os.replace(tmp, lib)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
@@ -204,15 +221,15 @@ def build(names=KERNELS) -> dict:
 #: comes last
 _SIGNATURES = {
     "gcrn_engine": (15, 8, 4),
-    "evolve_engine": (13, 6, 3),
+    "evolve_engine": (14, 6, 3),
     "stacked_engine": (15, 9, 4),
-    "tgn_engine": (13, 7, 3),
+    "tgn_engine": (14, 7, 3),
     "static_engine": (9, 5, 2),
     "gcrn_step": (12, 4, 3),
     "stacked_step": (12, 5, 4),
     "ell_spmm": (6, 6, 0),
     "gcrn_engine_paged": (15, 10, 6),
-    "evolve_engine_paged": (14, 8, 4),
+    "evolve_engine_paged": (15, 8, 4),
     "stacked_engine_paged": (15, 11, 6),
     "tgn_engine_paged": (14, 9, 6),
     "fused_gru": (6, 3, 2),
@@ -359,6 +376,91 @@ def _evolve_cta(k, L, D, ring=None):
     return base + _ring(depth, -(-D // box) * box, td)
 
 
+def _choose(place):
+    """(bytes, own weights in shared memory) of a stacked / TGN cluster CTA
+    laid out by ``place(nbuf, wsmem)``: two tile buffers where they fit
+    (else one), then the own weights where they fit beside them (else they
+    are read from global memory)."""
+    nbuf = 2 if place(2, False) <= SMEM_LIMIT else 1
+    with_w = place(nbuf, True)
+    return (with_w, True) if with_w <= SMEM_LIMIT else (place(nbuf, False),
+                                                        False)
+
+
+def _stacked_place(k, din, dmid, H, ring, nbuf, wsmem):
+    """Bytes of a stacked cluster CTA: nbuf k-major [agg | nt | h] tiles
+    (nt's columns, at least as many as hold the tile's ELL lanes and lane
+    counts), with ``wsmem`` its columns of Wg and bg and its units' GRU
+    weights and bias, the GRU's exchange of split sums (a CTA of at most
+    SPLIT_UNITS units), a tile's mask and row ids for each buffer and the
+    live-tile bits;
+    paged, a ring (``ring`` = (td, depth)) of the tile's 32 rows x td."""
+    hm, mm = _slice_max(H), _slice_max(dmid)
+    ntc = max(dmid, -(-(3 * TILE_ROWS * k + TILE_ROWS) // TILE_STRIDE))
+    floats = (nbuf * (din + ntc + H) * TILE_STRIDE + 4 * TILE_ROWS
+              + LIVE_WORDS + (SPLIT_FLOATS if hm <= SPLIT_UNITS else 0))
+    if wsmem:
+        floats += din * mm + mm + (dmid + H) * hm * 3 + hm * 3
+    if ring:
+        td, depth = ring
+        floats += depth * TILE_ROWS * td
+    floats = _round_up(floats, 2) + (RING_BAR_BYTES // 4 if ring else 0)
+    return ALIGN_SLACK + 4 * floats
+
+
+def _stacked_cta(k, din, dmid, H, ring=None):
+    return _choose(lambda nbuf, w: _stacked_place(k, din, dmid, H, ring,
+                                                  nbuf, w))[0]
+
+
+def stacked_weights_in_smem(k: int, din: int, dmid: int, H: int,
+                            ring=None) -> bool:
+    """Does a stacked cluster CTA hold its columns of Wg and its units' GRU
+    weights in shared memory (``ring`` = (td, depth) for the paged one)?
+    Past their room it reads them from global memory, the same sums (at k
+    27, din 64, dmid 128: up to H 208)."""
+    return _choose(lambda nbuf, w: _stacked_place(k, din, dmid, H, ring,
+                                                  nbuf, w))[1]
+
+
+def _tgn_place(k, din, H, n, ring, nbuf, wsmem):
+    """Bytes of a TGN cluster CTA: the tile's features, nbuf k-major
+    [inp | own] tiles, with ``wsmem`` its columns of W_in and its units' GRU
+    weights and bias, the GRU's exchange of split sums (a CTA of at most
+    SPLIT_UNITS units), its frequencies, the ELL lanes (local id, coef, time;
+    resident also the global row), a tile's mask for each buffer, the lane
+    counts and the live-tile bits; paged, the own columns' partner sums and
+    a ring (``ring`` = (td, depth)) whose slot holds a window of up to
+    BOX_ROWS gathered rows and the tile's 32 rows, td wide."""
+    hm = _slice_max(H)
+    floats = ((din + nbuf * 2 * H) * TILE_STRIDE + hm
+              + (3 if ring else 4) * TILE_ROWS * k + 3 * TILE_ROWS
+              + LIVE_WORDS + (SPLIT_FLOATS if hm <= SPLIT_UNITS else 0))
+    if wsmem:
+        floats += din * hm + 2 * H * hm * 3 + hm * 3
+    if ring:
+        td, depth = ring
+        wr = min(BOX_ROWS, _round_up(n, 8))
+        floats += hm * TILE_STRIDE + depth * (wr + TILE_ROWS) * td
+    floats = _round_up(floats, 2) + (RING_BAR_BYTES // 4 if ring else 0)
+    return ALIGN_SLACK + 4 * floats
+
+
+def _tgn_cta(k, din, H, n=0, ring=None):
+    return _choose(lambda nbuf, w: _tgn_place(k, din, H, n, ring, nbuf,
+                                              w))[0]
+
+
+def tgn_weights_in_smem(k: int, din: int, H: int, n: int = 0,
+                        ring=None) -> bool:
+    """Does a TGN cluster CTA hold its columns of W_in and its units' GRU
+    weights in shared memory (``ring`` = (td, depth) for the paged one, its
+    window rows set by n)? Past their room it reads them from global
+    memory, the same sums (at k 22, din 64: up to H 180 resident)."""
+    return _choose(lambda nbuf, w: _tgn_place(k, din, H, n, ring, nbuf,
+                                              w))[1]
+
+
 #: each kernel's dynamic shared memory: (argument names of the library's
 #: ``<name>_smem_bytes``, in its order; the same function of them)
 _SMEM = {
@@ -366,11 +468,9 @@ _SMEM = {
     "gcrn_engine": (("k", "din", "H", "n"), _gcrn_cta),
     # a cluster CTA (its columns of every W_l, two planes)
     "evolve_engine": (("k", "L", "D"), _evolve_cta),
-    "stacked_engine": (("k", "din", "dmid", "H"),
-                       lambda k, din, dmid, H: _tile(din + dmid + H)
-                       + _ell(k, 3)),
-    "tgn_engine": (("k", "din", "H"),
-                   lambda k, din, H: _tile(din + 3 * H) + _ell(k, 3)),
+    # a cluster CTA (its units' weights where they fit)
+    "stacked_engine": (("k", "din", "dmid", "H"), _stacked_cta),
+    "tgn_engine": (("k", "din", "H"), _tgn_cta),
     "static_engine": (("k", "D"), lambda k, D: _tile(2 * D) + _ell(k, 2)),
     "gcrn_step": (("k", "din", "H"),
                   lambda k, din, H: _tile(din + H) + _ell(k, 3)),
@@ -387,15 +487,15 @@ _SMEM = {
     "evolve_engine_paged": (("k", "D", "td", "depth"),
                             lambda k, D, td, depth:
                             _evolve_cta(k, 1, D, (td, depth))),
-    # a slot: the window of the tile's own h rows
+    # a cluster CTA; a slot: the tile's 32 rows, td of its own columns
     "stacked_engine_paged": (("k", "din", "dmid", "H", "td", "depth"),
                              lambda k, din, dmid, H, td, depth:
-                             _tile(din + dmid + H) + _ell(k, 3)
-                             + _ring(depth, TILE_ROWS, td)),
-    # a slot: the window of all n gathered rows; no partner-aggregate tile
+                             _stacked_cta(k, din, dmid, H, (td, depth))),
+    # a cluster CTA; a slot: up to BOX_ROWS gathered rows and the tile's 32
+    # rows, td of its own columns (no buffer grows with n)
     "tgn_engine_paged": (("k", "din", "H", "n", "td", "depth"),
-                         lambda k, din, H, n, td, depth: _tile(din + 2 * H)
-                         + _ell(k, 3) + _ring(depth, n, td)),
+                         lambda k, din, H, n, td, depth:
+                         _tgn_cta(k, din, H, n, (td, depth))),
     # a fixed ring of staged chunks, whatever din and H
     "fused_gru": (("din", "H"), lambda din, H: 29696),
     "fused_lstm": (("din", "H"), lambda din, H: 33792),
@@ -420,27 +520,41 @@ def library_smem_bytes(name: str, **dims) -> int:
         *(dims[a] for a in args)))
 
 
+def _weights_in_smem(name: str, dims: dict) -> bool:
+    """The stacked / TGN cluster CTA's weights flag at ``dims``."""
+    ring = (dims["td"], dims["depth"]) if name.endswith("paged") else None
+    if name.startswith("stacked"):
+        return stacked_weights_in_smem(dims["k"], dims["din"], dims["dmid"],
+                                       dims["H"], ring)
+    return tgn_weights_in_smem(dims["k"], dims["din"], dims["H"],
+                               dims.get("n", 0), ring)
+
+
 def engine_cluster_config(name: str, B: int, **dims) -> dict:
     """The launch of cluster engine ``name`` (one of ``CLUSTER_ENGINES``)
     over B streams at ``dims`` (those of ``smem_bytes``): CTAs a cluster,
     CTAs, threads a CTA (the resident EvolveGCN's GRU threads included), a
     CTA's dynamic shared memory, and the column slice
-    [lo, hi) of each CTA (``slices``: hidden units for GCRN, columns of W
-    for EvolveGCN; ``x_slices``: GCRN's input columns). It equals the
-    launcher's own (``library_engine_cluster_config``, on the card)."""
+    [lo, hi) of each CTA (``slices``: hidden units for GCRN, stacked and
+    TGN, columns of W for EvolveGCN; ``x_slices``: GCRN's and the stacked
+    engine's input columns); for stacked and TGN ``weights_smem``, whether
+    a CTA holds its weights in shared memory. It equals the launcher's own
+    (``library_engine_cluster_config``, on the card)."""
     if name not in CLUSTER_ENGINES:
         raise ValueError(f"{name!r} is not a cluster engine "
                          f"({', '.join(CLUSTER_ENGINES)})")
-    width = dims["H"] if name.startswith("gcrn") else dims["D"]
+    width = dims["D"] if name.startswith("evolve") else dims["H"]
     bounds = slice_bounds(width)
     threads = CLUSTER_THREADS + (GRU_THREADS if name == "evolve_engine"
                                  else 0)
     cfg = {"cluster": CLUSTER, "ctas": B * CLUSTER,
            "threads": threads, "smem": smem_bytes(name, **dims),
            "slices": list(zip(bounds[:-1], bounds[1:]))}
-    if name.startswith("gcrn"):
+    if name.startswith(("gcrn", "stacked")):
         xb = slice_bounds(dims["din"])
         cfg["x_slices"] = list(zip(xb[:-1], xb[1:]))
+    if name.startswith(("stacked", "tgn")):
+        cfg["weights_smem"] = _weights_in_smem(name, dims)
     return cfg
 
 
@@ -454,7 +568,7 @@ def library_engine_cluster_config(name: str, B: int, **dims) -> dict:
     fn.argtypes = [ctypes.c_int] * (1 + len(args)) + [
         ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
-    out = (ctypes.c_int * (7 + 2 * CLUSTER))()
+    out = (ctypes.c_int * (8 + 2 * CLUSTER))()
     code = fn(B, *(dims[a] for a in args), out)
     if code:
         raise ValueError(f"{name}_cluster_config refused {dims} (cudaError "
@@ -464,9 +578,11 @@ def library_engine_cluster_config(name: str, B: int, **dims) -> dict:
     cfg = {"cluster": C, "ctas": out[1], "threads": out[2], "smem": out[3],
            "slices": list(zip(b[:-1], b[1:])),
            "max_active_clusters": out[4]}
-    if name.startswith("gcrn"):
+    if name.startswith(("gcrn", "stacked")):
         xb = list(out[6 + C:7 + 2 * C])
         cfg["x_slices"] = list(zip(xb[:-1], xb[1:]))
+    if name.startswith(("stacked", "tgn")):
+        cfg["weights_smem"] = bool(out[7 + 2 * C])
     return cfg
 
 
@@ -557,13 +673,6 @@ def library_flash_bwd_config(bh: int, s: int, group: int, kind: str,
                          f"group {group} (cudaError {code})")
     return {"q_rows": out[0], "kv_rows": out[1], "stages": out[2],
             "threads": out[3], "smem": out[4], "grid": (out[5], out[6])}
-
-
-def _check_rows(name: str, n: int) -> None:
-    """A cluster engine's node rows a step: at most MAX_ROWS (its bitmask
-    of live tiles)."""
-    if n > MAX_ROWS:
-        raise ValueError(f"{name}: {n} node rows a step, over {MAX_ROWS}")
 
 
 def _check_budget(family: str, residency: str, td, smem: int,
@@ -716,7 +825,6 @@ def _gcrn_cuda(name, ring, idx, coef, eidx, x, rowg, mask, h0, c0, wx, wh,
     if H % 4:
         raise ValueError(f"{name}: H={H} must be a multiple of 4 (the "
                          "store rows move as float4)")
-    _check_rows(name, n)
     lib = _library(name)
     e = 0 if emsg is None else emsg.shape[2]
     outs = torch.empty((B, T, n, H), dtype=f32, device=x.device)
@@ -825,6 +933,15 @@ def evolve_paged_plain(idx, coef, x, mask, live, w0, bg, gwx, gwh, gb,
     return torch.stack(outs, dim=1), w
 
 
+def _live_tiles(mask):
+    """(B, T) int32: the node tiles of TILE_ROWS rows of each step that hold
+    a nonzero mask (the kernels' live tiles)."""
+    B, T, n = mask.shape
+    live = torch.nn.functional.pad(mask != 0, (0, -n % TILE_ROWS))
+    return live.view(B, T, -1, TILE_ROWS).any(-1).sum(-1).to(
+        torch.int32).contiguous()
+
+
 def _evolve_cuda(name, ring, idx, coef, x, mask, live, w0, bg, gwx, gwh, gb,
                  eagg):
     """Check CUDA tensors and launch the EvolveGCN kernel ``name`` (``ring``:
@@ -845,20 +962,22 @@ def _evolve_cuda(name, ring, idx, coef, x, mask, live, w0, bg, gwx, gwh, gb,
     _check_index(name, "idx", idx, n)
     if D % ROW_ALIGN:
         raise ValueError(f"{name}: D={D} must be a multiple of {ROW_ALIGN}")
-    _check_rows(name, n)
     lib = _library(name)
     outs = torch.empty((B, T, n, D), dtype=f32, device=x.device)
     wT = w0.clone()
+    # each step's live node tiles: the matrix-GRU threads pace their
+    # cluster-barrier arrivals by them
+    tiles = _live_tiles(mask)
     act = torch.empty((B, 2, n, D), dtype=f32, device=x.device)
     # paged: each CTA's columns of every W_l, its pages in global memory
     pages = (torch.empty((B, L, CLUSTER, D, _round_up(_slice_max(D), 4)),
                          dtype=f32, device=x.device),) if ring else ()
     with torch.cuda.device(x.device):
         _launch(name, lib, _ptr(idx), _ptr(coef), _ptr(x), _ptr(mask),
-                _ptr(live), _ptr(bg), _ptr(gwx), _ptr(gwh), _ptr(gb),
-                _ptr(eagg), _ptr(outs), _ptr(wT), _ptr(act),
-                *(_ptr(t) for t in pages), B, T, n, k, L, D, *ring,
-                _stream_ptr())
+                _ptr(live), _ptr(tiles), _ptr(bg), _ptr(gwx),
+                _ptr(gwh), _ptr(gb), _ptr(eagg), _ptr(outs), _ptr(wT),
+                _ptr(act), *(_ptr(t) for t in pages), B, T, n, k, L, D,
+                *ring, _stream_ptr())
     return outs, wT
 
 
@@ -957,7 +1076,10 @@ def _stacked_cuda(name, ring, idx, coef, eidx, x, rowg, mask, h0, wg, bg, wx,
     e = 0 if emsg is None else emsg.shape[2]
     outs = torch.empty((B, T, n, H), dtype=f32, device=x.device)
     hT = h0.clone()
-    h_rows = torch.empty((B, n, H), dtype=f32, device=x.device)
+    # paged: each CTA's gathered t-1 rows in global memory, its units
+    # contiguous
+    h_rows = torch.empty((B * CLUSTER, n, _round_up(_slice_max(H), 4)),
+                         dtype=f32, device=x.device) if ring else None
     with torch.cuda.device(x.device):
         _launch(name, lib, _ptr(idx), _ptr(coef), _ptr(eidx), _ptr(x),
                 _ptr(rowg), _ptr(mask), _ptr(wg), _ptr(bg), _ptr(wx),
@@ -1062,11 +1184,28 @@ def tgn_paged_plain(idx, coef, ts, x, rowg, mask, mem0, freq, w_in, wx, wh,
     return torch.stack(outs, dim=1), store
 
 
+def _local_ids(gidx, rowg, G: int):
+    """Each lane's partner as a local id of its batch: the row v whose
+    global row rowg[v] is the lane's gidx (0 where no row of the batch is:
+    a lane off the event contract, or a coef-0 one), int32."""
+    B, T, n, k = gidx.shape
+    rows = rowg.reshape(B * T, n).long()
+    rows = torch.where(rows < G, rows, torch.full_like(rows, -1))
+    srt, order = torch.sort(rows, dim=-1)
+    want = gidx.reshape(B * T, n * k).long()
+    pos = torch.searchsorted(srt, want).clamp_(max=n - 1)
+    hit = torch.gather(srt, -1, pos) == want
+    lid = torch.where(hit, torch.gather(order, -1, pos),
+                      torch.zeros_like(pos))
+    return lid.to(torch.int32).reshape(B, T, n, k).contiguous()
+
+
 def _tgn_cuda(name, ring, lane, coef, ts, x, rowg, mask, mem0, freq, w_in,
-              wx, wh, b):
+              wx, wh, b, lid=None):
     """Check CUDA tensors and launch the TGN kernel ``name`` (``ring``: ()
-    resident with ``lane`` the partners' global rows, (td, depth) paged
-    with ``lane`` their local ids)."""
+    resident with ``lane`` the partners' global rows and ``lid`` their
+    local ids, derived from ``lane`` and ``rowg`` where None; (td, depth)
+    paged with ``lane`` their local ids)."""
     B, T, n, k = lane.shape
     din, (G, H) = x.shape[-1], mem0.shape[1:]
     f32, i32 = torch.float32, torch.int32
@@ -1093,25 +1232,44 @@ def _tgn_cuda(name, ring, lane, coef, ts, x, rowg, mask, mem0, freq, w_in,
     lib = _library(name)
     outs = torch.empty((B, T, n, H), dtype=f32, device=x.device)
     memT = mem0.clone()
-    scratch = (torch.empty((B, n, H), dtype=f32, device=x.device),) if ring \
-        else ()
+    if ring:
+        # each CTA's gathered t-1 rows in global memory, its units contiguous
+        lanes = (lane,)
+        scratch = (torch.empty((B * CLUSTER, n, _round_up(_slice_max(H), 4)),
+                               dtype=f32, device=x.device),)
+    else:
+        # the partners' local ids beside their global rows: the resident
+        # kernel sums them in the paged kernel's row windows
+        if lid is None:
+            lid = _local_ids(lane, rowg, G)
+        else:
+            _check(name, x.device, idx=(lid, i32))
+            if lid.shape != lane.shape:
+                raise ValueError(f"{name}: inconsistent shapes")
+            _check_index(name, "idx", lid, n)
+        lanes, scratch = (lane, lid), ()
     with torch.cuda.device(x.device):
-        _launch(name, lib, _ptr(lane), _ptr(coef), _ptr(ts), _ptr(x),
-                _ptr(rowg), _ptr(mask), _ptr(freq), _ptr(w_in), _ptr(wx),
-                _ptr(wh), _ptr(b), _ptr(outs), _ptr(memT),
+        _launch(name, lib, *(_ptr(t) for t in lanes), _ptr(coef), _ptr(ts),
+                _ptr(x), _ptr(rowg), _ptr(mask), _ptr(freq), _ptr(w_in),
+                _ptr(wx), _ptr(wh), _ptr(b), _ptr(outs), _ptr(memT),
                 *(_ptr(t) for t in scratch), B, T, n, k, din, H, G, *ring,
                 _stream_ptr())
     return outs, memT
 
 
-def tgn_engine(gidx, coef, ts, x, rowg, mask, mem0, freq, w_in, wx, wh, b):
+def tgn_engine(gidx, coef, ts, x, rowg, mask, mem0, freq, w_in, wx, wh, b,
+               *, idx=None):
     """TGN node memory over B streams of T event batches in one launch.
 
     gidx (B, T, n, k) int32 global row of each event lane's partner,
     coef/ts (B, T, n, k) (lane weight, event time), x (B, T, n, din),
     rowg (B, T, n) int32 (G drops), mask (B, T, n), mem0 (B, G, H),
     freq (H,), w_in (din, H), wx/wh (H, 3H), b (3H,); all float tensors
-    float32, H a multiple of 4. Returns (outs (B, T, n, H), memT (B, G, H))."""
+    float32, H a multiple of 4. ``idx`` (B, T, n, k) int32: each lane's
+    partner as its local id, where the caller has it (the kernel sums
+    partners in the paged kernel's row windows; found from gidx and rowg
+    where None; the plain version needs none). Returns (outs (B, T, n,
+    H), memT (B, G, H))."""
     refuse_grad("tgn_engine", gidx, coef, ts, x, rowg, mask, mem0, freq,
                 w_in, wx, wh, b)
     name = "tgn_engine"
@@ -1121,7 +1279,7 @@ def tgn_engine(gidx, coef, ts, x, rowg, mask, mem0, freq, w_in, wx, wh, b):
         return tgn_plain(gidx, coef, ts, x, rowg, mask, mem0, freq, w_in, wx,
                          wh, b)
     return _tgn_cuda(name, (), gidx, coef, ts, x, rowg, mask, mem0, freq,
-                     w_in, wx, wh, b)
+                     w_in, wx, wh, b, lid=idx)
 
 
 def tgn_engine_paged(idx, coef, ts, x, rowg, mask, mem0, freq, w_in, wx, wh,

@@ -389,9 +389,14 @@ def _tgn_launch(batched, neigh_idx, neigh_coef, neigh_ts, node_feat,
             node_feat[None], renumber[None], node_mask[None], mem0[None],
             freq, w_in, wx, wh, b, ring=ring)
         return outs[0], memT[0]
-    return _engine_call("tgn", _tgn_pack(
-        neigh_idx, neigh_coef, neigh_ts, node_feat, renumber, node_mask,
-        mem0, freq, w_in, wx, wh, b, paged=ring is not None), ring)
+    packed = _tgn_pack(neigh_idx, neigh_coef, neigh_ts, node_feat, renumber,
+                       node_mask, mem0, freq, w_in, wx, wh, b,
+                       paged=ring is not None)
+    if ring is None:
+        # the partners' local ids too: the resident kernel sums them in the
+        # paged kernel's row windows
+        return _engine.tgn_engine(*packed, idx=_i32(neigh_idx))
+    return _engine_call("tgn", packed, ring)
 
 
 def _static_pack(neigh_idx, neigh_coef, node_feat, node_mask, weights,

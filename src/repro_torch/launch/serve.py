@@ -6,7 +6,7 @@ config, as in the JAX launcher), on the card unless ``--device cpu``:
   PYTHONPATH=src python -m repro_torch.launch.serve --lm qwen2.5-14b --steps 16
 
 DGNN mode (``--dgnn``, and the default without ``--lm``) needs the serve
-layer, which is not ported yet (ROADMAP queue 1 item 12).
+layer, which is not ported yet (ROADMAP queue 1, the serve layer).
 """
 from __future__ import annotations
 
@@ -36,7 +36,7 @@ def main(argv=None) -> None:
     if not args.lm:
         raise NotImplementedError(
             "DGNN serving (SnapshotServer) is not ported yet (ROADMAP queue "
-            "1 item 12); --lm runs the LM scaffold")
+            "1, the serve layer); --lm runs the LM scaffold")
     cfg = reduce_for_smoke(ARCHS[args.lm])
     if not cfg.supports_decode:
         raise SystemExit(f"{args.lm} is encoder-only")

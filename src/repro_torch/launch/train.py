@@ -9,7 +9,7 @@ the full-size one with ``--full`` (per-layer remat on):
       --full --batch 2 --seq 2048 --attn-impl flash --steps 3
 
 The DGNN trainer (``examples/train_evolvegcn.py``) is not ported yet
-(ROADMAP queue 1 item 1).
+(ROADMAP queue 1, the DGNN trainer).
 """
 from __future__ import annotations
 

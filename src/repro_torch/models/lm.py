@@ -12,7 +12,8 @@ Training (``loss_fn``): ``backbone(train=True)`` recomputes each layer in
 the backward when ``rt.remat`` (``torch.utils.checkpoint``, the JAX
 package's ``jax.checkpoint``: only the layer boundaries are kept), and
 ``chunked_ce_loss`` recomputes each ``rt.loss_chunk`` chunk's logits, so
-(B, S, V) never exists. Not ported yet (ROADMAP queue 1 item 15): the MoE
+(B, S, V) never exists. Not ported yet (ROADMAP queue 1, the LM MoE MLP
+and Mamba2 mixer): the MoE
 and Mamba2 mixers (``init_params`` refuses those architectures), and
 sharding.
 """
@@ -40,7 +41,8 @@ from repro_torch.nn.layers import (
 )
 
 #: the ROADMAP item of what this module does not run yet
-_NOT_PORTED = "not ported yet (ROADMAP queue 1 item 15)"
+_NOT_PORTED = ("not ported yet (ROADMAP queue 1, the LM MoE MLP and Mamba2 "
+               "mixer)")
 
 
 @dataclass(frozen=True)

@@ -12,9 +12,9 @@ Paths:
 
 The JAX package's ``shard`` annotations and its ``shard_map`` around the
 flash kernel have nothing to do on one card and are dropped (sharding is
-ROADMAP queue 1 item 13). A decode cache's ``len`` is a host-side int32
-tensor: the position is read every step to place the new key and to refuse
-a write past the end, without a device sync.
+ROADMAP queue 1, device sharding). A decode cache's ``len`` is a host-side
+int32 tensor: the position is read every step to place the new key and to
+refuse a write past the end, without a device sync.
 """
 from __future__ import annotations
 

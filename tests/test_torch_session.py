@@ -161,7 +161,7 @@ def test_plan_validation_matches_jax(kwargs):
 
 
 def _assert_paged_session_runs(case, plan_kwargs):
-    """ROADMAP queue 1 item 11 (hbm_paged) is ported: the paged plan runs
+    """hbm_paged residency is ported: the paged plan runs
     on the CPU and matches the resident session (1e-6) and the JAX
     session (3e-4), on the JAX model's parameters."""
     jops.set_force_ref(True)
@@ -186,13 +186,13 @@ def _assert_paged_session_runs(case, plan_kwargs):
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(level="o1", stream_chunk=4), "stream_chunk=4: .*item 12"),
-    # item 11 (hbm_paged) is ported: this plan now executes (match None)
+    (dict(level="o1", stream_chunk=4), "stream_chunk=4: .*the serve layer"),
+    # hbm_paged is ported: this plan now executes (match None)
     pytest.param(dict(level="v3", state_residency="hbm_paged", td=8), None,
                  id="kwargs1-item 11"),
-    (dict(scheduler="continuous", level="v3"), "scheduler='continuous': .*item 12"),
-    (dict(max_retries=2, level="v3"), "max_retries=2: .*item 12"),
-    (dict(n_pad=256, level="v3"), "n_pad=256: .*item 12"),
+    (dict(scheduler="continuous", level="v3"), "scheduler='continuous': .*the serve layer"),
+    (dict(max_retries=2, level="v3"), "max_retries=2: .*the serve layer"),
+    (dict(n_pad=256, level="v3"), "n_pad=256: .*the serve layer"),
 ])
 def test_unported_plan_fields_raise_on_execution(kwargs, match):
     case = harness.make_case("gcrn-m2", T=2, B=1)
@@ -206,5 +206,6 @@ def test_unported_plan_fields_raise_on_execution(kwargs, match):
     else:
         with pytest.raises(NotImplementedError, match=match):
             sess.run(_port_snaps(case.stacked[0]))
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md queue 1, the serve layer"):
         sess.serve([])
