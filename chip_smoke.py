@@ -9,13 +9,21 @@ Phases (any failure exits non-zero):
   2. build all eighteen kernels from src/repro_torch/kernels/csrc (eleven
      sources, one nvcc per source, all at once), and hold the port's
      shared-memory estimate (engine.smem_bytes) equal to each library's own;
+     0 spill bytes in ptxas's report for gcrn_step and ell_spmm, and no
+     generic LD in their SASS (cuobjdump -sass: gcrn_step's shared loads
+     are LDS);
   3. every kernel against its plain PyTorch version on the card:
      a. narrow odd widths with partial node tiles, ragged with a length-0
         row, with and without edge messages / the static edge term, the
         paged engines at ring depths 1, 2 and 4 (also bit-for-bit against
         the resident engine), the GRU / LSTM cells at their kernel's edges
         (a partial row tile and unit slice, din 13 and an x 4 bytes off a
-        16-byte boundary on the 4-byte staging, din = H = 512) (<= 1e-4:
+        16-byte boundary on the 4-byte staging, din = H = 512), gcrn_step
+        and ell_spmm at their edges (n 37: a partial row tile; H 20 / 24,
+        din 12 / 13; k 1 / 27 / 33 / 40; every row dead, a single live row;
+        with and without edge messages; the SpMM also at d 12 / 13 / 64 /
+        128 and with x 4 bytes off a 16-byte boundary; two calls bit for
+        bit equal; their launches equal to engine.step_plan) (<= 1e-4:
         fp32 with TF32 off, only the order of summation differs);
      b. the five stream engines at full width (BC-Alpha, n_pad 640,
         G 3468): a T = 8, B = 2 ragged case (<= 1e-4) and the main path's
@@ -45,7 +53,12 @@ Phases (any failure exits non-zero):
         V3_WINDOWS batch (B 4; TGN: EVENT_V3_WINDOWS);
      c. the three per-step kernels (V2 steps, ELL SpMM) on the inputs the
         main path hands them at full width, recorded from one run of a path
-        that launches each, every step of the stream (<= 1e-4); the GRU /
+        that launches each, every step of the stream (<= 1e-4), each timed
+        per call three ways (bare launches on CUDA events and a CUDA graph
+        of the calls, in turns; the profiler's kernel duration after phase
+        6; medians of 9), the ELL
+        SpMM by width and edge messages, gcrn_step's and ell_spmm's launch
+        at those shapes equal to engine.step_plan; the GRU /
         LSTM cells at benchmarks/kernel_bench.py's shape (640 rows, 128
         wide, tb 128; their grid, from the library, fills the card), then
         at three larger shapes;
@@ -74,7 +87,11 @@ Phases (any failure exits non-zero):
      and paged (kernel time over wall time, torch.profiler), with the CTAs
      a v3 launch of each stateful family uses.
   6. a probe of where a live node tile's time goes: gcrn_step on
-     synthetic full-width inputs that vary live rows, lanes and widths.
+     synthetic full-width inputs that vary live rows, lanes and widths,
+     timed the three ways of 3c. It runs before phase 5, and the kernel
+     durations of 3c and 6 are taken after it: no profiler window opens
+     before the last host-dispatched timing of phases 3-6 (a process the
+     profiler has traced dispatches from the host more slowly).
 Then the LM serving path, Qwen2.5-14B at full width and depth (48 layers,
 d_model 5120, 40 / 8 heads, head_dim 128, d_ff 13824, vocab 152064, QKV
 bias) with random bf16 weights drawn on the card from the seed:
@@ -143,6 +160,7 @@ Imports nothing of the JAX package.
 import contextlib
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -240,6 +258,9 @@ RNN_NARROW = ((96, 13, 24, 48), (96, 13, 24, 32), (40, 13, 24, 8),
 # around host-dispatched calls, and around one replay of a CUDA graph that
 # holds RNN_CALLS calls)
 RNN_SAMPLES, RNN_CALLS = 9, 20
+# the per-step kernels' timing (gcrn_step, stacked_step, ell_spmm): the
+# median of STEP_SAMPLES samples, each one pass over the recorded calls
+STEP_SAMPLES = 9
 # the cells' earlier tb-row kernels (one CTA a tb-row tile walking 32-row
 # sub-tiles; PERF.md's kernel table, rows 10-11 in brackets, NVIDIA H100
 # 80GB HBM3, 700.00 W): ms a launch at the shape above, and the serial K
@@ -1396,12 +1417,264 @@ def sparse_mm_inputs(call):
     return a, x
 
 
-def check_step_kernel(name, plain, calls, timed, cost, library=None):
+# ------------------------------------------------- the per-step kernels ----
+# gcrn_step (32-row x 8-unit CTAs, the unit slices of a row tile sharing
+# its aggregation on a cluster) and ell_spmm (a warp, or half of one, a
+# row) at their edges: node counts that leave a partial row tile (n 37), a
+# partial unit slice (H 20), din 12 / 13 (13: the 4-byte variants), k 1 /
+# 27 / 33 / 40 (past one 32-entry round), every row dead or a single live
+# row, with and without edge messages; the SpMM also at d 12 / 13 / 64 /
+# 128 and with x 4 bytes past a 16-byte boundary.
+STEP_EDGE_K = (1, 27, 33, 40)
+STEP_EDGE_WIDTHS = ((12, 24), (13, 20), (12, 20), (13, 24))
+SPMM_EDGE_D = (12, 13, 64, 128)
+STEP_EDGE_LIVE = ("mixed", "dead", "one row")
+#: the per-step kernels whose ptxas spills must be 0, and whose shared
+#: loads must be LDS (no generic LD), by source
+STEP_SOURCES = ("gcrn_step", "ell_spmm")
+
+
+def step_edge_ell(rng, n, k, live, e):
+    """CUDA (idx, coef, eidx) of an n-row ELL with k lanes: some coef-0
+    lanes and padding rows ("mixed"), no live lane ("dead") or one row with
+    live lanes ("one row")."""
+    n_real = n - 5
+    idx = rng.integers(0, n_real, (n, k)).astype(np.int32)
+    coef = (rng.uniform(0.1, 1.0, (n, k))
+            * (rng.uniform(size=(n, k)) < 0.6)).astype(np.float32)
+    coef[n_real:] = 0.0
+    if live == "dead":
+        coef[:] = 0.0
+    elif live == "one row":
+        coef[np.arange(n) != n // 2] = 0.0
+        coef[n // 2, -1] = 0.5  # its last lane live: past 32 at k 33 / 40
+    eidx = rng.integers(0, e, (n, k)).astype(np.int32)
+    cu = lambda a: torch.from_numpy(a).cuda()
+    return cu(idx), cu(coef), cu(eidx)
+
+
+def step_case_check(label, fn, args) -> float:
+    """The kernel through ``fn`` (an ops function) against its force-ref
+    call (<= 1e-4), and two calls bit for bit equal."""
+    got, again = fn(*args), fn(*args)
+    err = max_err(got, fn(*args, force_ref=True))
+    same = bitwise(got, again)
+    check(np.isfinite(err) and err <= TOL_KERNEL and same,
+          f"{label}: max_abs_err={err:.3e} (tol {TOL_KERNEL}), two calls "
+          f"bitwise {same}")
+    return err
+
+
+def step_plan_check(name, dims) -> dict:
+    """The launch the library builds equals engine.step_plan."""
+    mine, lib = engine.step_plan(name, **dims), engine.library_step_plan(
+        name, **dims)
+    check(mine == lib, f"{name} plan at {dims}: {mine} != library {lib}")
+    return lib
+
+
+def step_kernel_edges():
+    """gcrn_step and ell_spmm at their edges (STEP_EDGE_*), each against
+    its plain version and bit for bit across two calls, their launches
+    equal to engine.step_plan."""
+    rng = np.random.default_rng(SEED + 7)
+    f32 = lambda *s: torch.from_numpy(
+        (rng.normal(size=s) * 0.3).astype(np.float32)).cuda()
+    n, e = 37, 50
+    worst = {"gcrn_step": 0.0, "ell_spmm": 0.0}
+    cases = 0
+    for k in STEP_EDGE_K:
+        for live in STEP_EDGE_LIVE:
+            ell = step_edge_ell(rng, n, k, live, e)
+            for din, H in STEP_EDGE_WIDTHS:
+                args = (*ell, f32(n, din), f32(n, H), f32(n, H),
+                        f32(din, 4 * H), f32(H, 4 * H), f32(4 * H))
+                for em in (None, f32(e, din)):
+                    full = args if em is None else (*args, em)
+                    worst["gcrn_step"] = max(worst["gcrn_step"], step_case_check(
+                        f"gcrn_step n={n} k={k} din={din} H={H} {live} "
+                        f"edges={em is not None}", ops.dgnn_fused_step, full))
+                    cases += 1
+                step_plan_check("gcrn_step", dict(n=n, k=k, din=din, H=H))
+            for d in SPMM_EDGE_D:
+                x = f32(n, d)
+                views = [("", x)]
+                if d % 4 == 0 and live == "mixed":
+                    x_off = torch.empty(n * d + 1, device="cuda")[1:]
+                    x_off.copy_(x.flatten())
+                    views.append((" x offset 4 B", x_off.view(n, d)))
+                for tag, xv in views:
+                    for em in (None, f32(e, d)):
+                        full = (*ell, xv) if em is None else (*ell, xv, em)
+                        worst["ell_spmm"] = max(worst["ell_spmm"], step_case_check(
+                            f"ell_spmm n={n} k={k} d={d}{tag} {live} "
+                            f"edges={em is not None}", ops.ell_spmm, full))
+                        cases += 1
+                    step_plan_check("ell_spmm", dict(
+                        L=1, n=n, d=d, aligned=int(xv.data_ptr() % 16 == 0)))
+    log(f"per-step kernel edges: {cases} cases (n {n}, k "
+        f"{'/'.join(map(str, STEP_EDGE_K))}, din/H "
+        f"{', '.join(f'{a}/{b}' for a, b in STEP_EDGE_WIDTHS)}, d "
+        f"{'/'.join(map(str, SPMM_EDGE_D))}, {', '.join(STEP_EDGE_LIVE)}, "
+        "with and without edges, x offset 4 B) within "
+        f"{TOL_KERNEL} and bit for bit across two calls (largest "
+        + ", ".join(f"{v:.3e} {k}" for k, v in worst.items()) + ")")
+
+
+def sass_loads(source: str) -> dict:
+    """{kernel function: {mnemonic: count}} of the load instructions
+    (LDS shared, LDG global, LD generic, LDGSTS cp.async) in the built
+    library of ``source``, from ``cuobjdump -sass``."""
+    tool = Path(engine._nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(tool), "-sass", str(engine._lib_path(source))],
+                          capture_output=True, text=True, check=True).stdout
+    out, func = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            func = line.split("Function :")[1].strip()
+            out[func] = {}
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?(LD\w*)", line)
+        if m and func is not None:
+            op = m.group(1)
+            out[func][op] = out[func].get(op, 0) + 1
+    return out
+
+
+def step_build_checks():
+    """0 spill bytes in ptxas's report for the per-step kernels, and their
+    shared-memory loads compiled to LDS: no generic LD in any of their
+    kernels (cuobjdump -sass)."""
+    for source in STEP_SOURCES:
+        spills = spill_bytes(source)
+        log(f"{source}: ptxas spill bytes {spills}")
+        check(spills and not any(spills.values()),
+              f"{source}: 0 spill bytes ({spills})")
+        loads = sass_loads(source)
+        for func, ops_ in loads.items():
+            log(f"{source}: sass loads of {func}: {ops_}")
+        check(loads and not any("LD" in ops_ for ops_ in loads.values()),
+              f"{source}: a generic LD in {loads}")
+        if source == "gcrn_step":
+            check(all(ops_.get("LDS", 0) > 0 for ops_ in loads.values()),
+                  f"gcrn_step: its shared loads are LDS ({loads})")
+
+
+def recorded_step_calls(params, n_global, stream, np_stream):
+    """The CUDA inputs of every per-step kernel call of one solo run of the
+    whole stream: (gcrn_step's, from GCRN-M2 v2 through the session;
+    stacked_step's, from the stacked family's v2; ell_spmm's, from
+    GCRN-M2 baseline with impl "pallas": two a step, x with edge messages
+    and h without)."""
+    T = stream.node_mask.shape[0]
+    with recording("gcrn_step") as g_calls:
+        drive(GCRN_M2, "v2", "session", params[GCRN_M2.name], n_global,
+              stream, np_stream)
+    with recording("stacked_step") as s_calls:
+        drive(STACKED, "v2", "session", params[STACKED.name], n_global,
+              stream, np_stream)
+    with recording("ell_spmm") as e_calls:
+        drive(GCRN_M2, "baseline", "pallas", params[GCRN_M2.name], n_global,
+              stream, np_stream)
+    e_calls = e_calls[:2 * T]
+    check(len(e_calls) == 2 * T
+          and sum(c[4] is None for c in e_calls) == T,
+          f"ell_spmm recorded {len(e_calls)} calls")
+    return g_calls[:T], s_calls[:T], e_calls
+
+
+def ell_groups(calls) -> dict:
+    """ELL SpMM calls by width and edge messages ({label: calls}), the
+    no-edge calls of the widest group first (PERF.md's row 9)."""
+    groups = {}
+    for c in calls:
+        groups.setdefault((c[4] is not None, -c[3].shape[-1]), []).append(c)
+    return {f"d {-d}{' edges' if edges else ''}": groups[(edges, d)]
+            for edges, d in sorted(groups)}
+
+
+def kernel_duration_ms(fn, match: str) -> float:
+    """ms a launch of the kernels whose profiler name holds ``match``
+    during one call of ``fn``: their summed device duration over their
+    count (torch.profiler; nan where it saw none)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and match in e.key]
+    count = sum(e.count for e in evs)
+    return (sum(e.self_device_time_total for e in evs) / 1e3 / count
+            if count else float("nan"))
+
+
+def launches_of(prepared):
+    """One pass of prepared per-step launches."""
+    return lambda: [engine.launch(p) for p in prepared]
+
+
+#: kernel-duration measurements waiting for ``kernel_durations``: (label,
+#: a pass of launches, launches a pass, profiler name to match, the dict
+#: whose "kernel" it fills)
+PENDING_DURATIONS = []
+
+
+def step_turns(prepare, match: str, label: str) -> dict:
+    """ms a call of one pass of launches (``prepare`` makes it, a list of
+    engine.Prepared on the current stream), two ways in turns, medians of
+    STEP_SAMPLES: ``events`` (bare launches, CUDA events around the pass)
+    and ``graph`` (one replay of a CUDA graph of the pass). The third,
+    ``kernel`` (the profiler's duration a launch of the kernels named like
+    ``match``), is nan here and filled in by ``kernel_durations``: a process
+    the profiler has traced dispatches from the host more slowly, so its
+    windows wait until every host-dispatched timing is done."""
+    prepared = prepare()
+    calls = len(prepared)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # the graph's launches bind its stream
+        captured = prepare()
+    graph = graph_of(lambda: launches_of(captured), 1, side)
+    events, graph_ms = interleaved_ms([launches_of(prepared), graph.replay],
+                                      1, STEP_SAMPLES)
+    t = {"events": events / calls, "graph": graph_ms / calls,
+         "kernel": float("nan")}
+    # the graph holds raw pointers into `captured`'s tensors: both go
+    # together
+    del graph, captured
+    PENDING_DURATIONS.append((label, launches_of(prepared), calls, match,
+                              t))
+    return t
+
+
+def kernel_durations() -> None:
+    """The profiler's kernel duration a launch (medians of STEP_SAMPLES
+    windows, each one pass) of every pass ``step_turns`` timed, into the
+    dict it returned; a profiler window now and then reports no kernel
+    (nan): the median of the windows that did."""
+    for label, fn, calls, match, t in PENDING_DURATIONS:
+        k = [kernel_duration_ms(fn, match) for _ in range(STEP_SAMPLES)]
+        t["kernel"] = ms = (float(np.nanmedian(k)) if np.isfinite(k).any()
+                            else float("nan"))
+        log(f"{label}: {ms:.4f} ms kernel duration a launch (profiler, "
+            f"median of {STEP_SAMPLES} windows, {calls} launches a window)")
+    PENDING_DURATIONS.clear()
+
+
+def check_step_kernel(name, plain, calls, groups, cost, library=None):
     """A per-step kernel vs its plain version on every recorded main-path
-    call (<= 1e-4), then timed on the ``timed`` calls: the bare launches
-    (prepared once), the plain version, and ``library`` (a list of
-    zero-argument calls) where one PyTorch call computes the same
-    function. Times and the bound are per call."""
+    call (<= 1e-4), then timed per call on each of ``groups`` ({label:
+    calls}; the ELL SpMM's by width and edge messages) by ``step_turns``
+    beside the group's bound; the first group also beside the plain
+    version and ``library`` (zero-argument calls, one a timed call) where
+    one PyTorch call computes the same function, in turns with the
+    kernel's bare launches. The record's times are the first group's; each
+    group's kernel duration arrives in its ``groups`` entry with
+    ``kernel_durations``."""
     wrapper = getattr(engine, name)
     err = 0.0
     for c in calls:
@@ -1410,23 +1683,39 @@ def check_step_kernel(name, plain, calls, timed, cost, library=None):
     log(f"{name}: {len(calls)} main-path calls max_abs_err={err:.3e} "
         f"(tol {TOL_KERNEL})")
     check(np.isfinite(err) and err <= TOL_KERNEL, name)
-    prepared = [engine.prepare(name, *c) for c in timed]
-    ms = cuda_ms(lambda: [engine.launch(p) for p in prepared], reps=5)
-    plain_ms = cuda_ms(lambda: [plain(*c) for c in timed], reps=2)
+    times = {}
+    for label, timed in groups.items():
+        t = step_turns(lambda timed=timed: [engine.prepare(name, *c)
+                                            for c in timed],
+                       name, f"{name} {label}")
+        costs = [cost(c) for c in timed]
+        flops, byts = sum(f for f, _ in costs), sum(b for _, b in costs)
+        bound_ms, bound_by = bound(flops, byts)
+        n_t = len(timed)
+        t.update(bound_ms=bound_ms / n_t, bound_by=bound_by, calls=n_t)
+        times[label] = t
+        log(f"{name} {label}: per call {t['events']:.4f} ms bare launches, "
+            f"{t['graph']:.4f} ms from a CUDA graph (medians of "
+            f"{STEP_SAMPLES} in turns, {n_t} calls a pass); bound "
+            f"{bound_ms / n_t:.5f} ms ({flops / n_t:.3e} flop, "
+            f"{byts / n_t:.3e} B, {bound_by})")
+    first = next(iter(groups))
+    timed, t = groups[first], times[first]
+    plain_ms = cuda_ms(lambda: [plain(*c) for c in timed], reps=2) / len(
+        timed)
     lib_ms = None
     if library is not None:
-        lib_ms = cuda_ms(lambda: [f() for f in library], reps=5) / len(timed)
-    costs = [cost(c) for c in timed]
-    flops, byts = sum(f for f, _ in costs), sum(b for _, b in costs)
-    bound_ms, bound_by = bound(flops, byts)
-    n_t = len(timed)
-    log(f"{name}: per call {ms / n_t:.4f} ms kernel, {plain_ms / n_t:.4f} ms "
-        f"plain, bound {bound_ms / n_t:.5f} ms ({flops / n_t:.3e} flop, "
-        f"{byts / n_t:.3e} B)"
-        + ("" if lib_ms is None else f", torch.sparse.mm {lib_ms:.4f} ms"))
-    return record(name, max_abs_err=err, ms=ms / n_t, plain_ms=plain_ms / n_t,
-                  bound_ms=bound_ms / n_t, bound_by=bound_by,
-                  library_ms=lib_ms, timed_calls=n_t)
+        prepared = [engine.prepare(name, *c) for c in timed]
+        ms, lib_ms = (m / len(timed) for m in interleaved_ms(
+            [launches_of(prepared), lambda: [f() for f in library]], 1,
+            STEP_SAMPLES))
+        log(f"{name} {first}: in turns, {ms:.4f} ms bare launches, "
+            f"{lib_ms:.4f} ms torch.sparse.mm (medians of {STEP_SAMPLES})")
+    log(f"{name} {first}: plain {plain_ms:.4f} ms a call")
+    return record(name, max_abs_err=err, ms=t["events"], graph_ms=t["graph"],
+                  plain_ms=plain_ms, bound_ms=t["bound_ms"],
+                  bound_by=t["bound_by"], library_ms=lib_ms,
+                  timed_calls=t["calls"], groups=times)
 
 
 def paged_small_check(family, args, lengths, resident, want, label):
@@ -1809,12 +2098,14 @@ def rnn_path(cell: str) -> dict:
     return counts
 
 
-def tile_probe():
+def tile_probe() -> dict:
     """Where a live node tile's time goes: gcrn_step at full width (n 640,
     din 64, H 128, k 27) on synthetic inputs that vary the live rows, the
-    live lanes a row and the widths, timed as bare launches (us a call).
-    With 5 live lanes a row and 128 live rows it matches the main path's
-    shape (~107 real rows, ~5 live lanes)."""
+    live lanes a row and the widths, each case a pass of 20 launches timed
+    three ways (``step_turns``: bare launches, a CUDA graph, and later the
+    kernel's duration; us a call). With 5 live lanes a row and 128 live
+    rows it matches the main path's shape (~107 real rows, ~5 live
+    lanes)."""
     def inputs(live_rows=128, live_lanes=5, k=27, din=64, H=128):
         g = torch.Generator().manual_seed(SEED)
         n = N_PAD
@@ -1837,11 +2128,15 @@ def tile_probe():
              ("640 live rows, 5 lanes", dict(live_rows=640)),
              ("no live row (bias only)", dict(live_rows=0)),
              ("128 live rows, din 32, H 64", dict(din=32, H=64)))
+    probe = {}
     for label, kw in cases:
-        p = engine.prepare("gcrn_step", *inputs(**kw))
-        us = cuda_ms(lambda: [engine.launch(p) for _ in range(100)],
-                     reps=3) * 10
-        log(f"tile probe gcrn_step: {label}: {us:.1f} us a call")
+        args = inputs(**kw)
+        t = probe[label] = step_turns(
+            lambda: [engine.prepare("gcrn_step", *args)] * 20, "gcrn_step",
+            f"tile probe gcrn_step: {label}")
+        log(f"tile probe gcrn_step: {label}: {t['events'] * 1e3:.2f} us "
+            f"bare launches, {t['graph'] * 1e3:.2f} us graph a call")
+    return probe
 
 
 def busy_share(cfg, level, params, n_global, stream, plan_kw=None):
@@ -2928,6 +3223,7 @@ def main() -> int:
             elif ("registers" in line or "spill" in line
                   or "(C75" in line):  # ptxas: serialised wgmmas
                 log(f"  {name}: {line.strip()}")
+    step_build_checks()
 
     np_stream, n_global = bc_alpha()
     stream = np_stream.to("cuda")
@@ -2947,6 +3243,7 @@ def main() -> int:
     # phase 3a: narrow widths
     t0 = time.time()
     small_shapes_check()
+    step_kernel_edges()
 
     # phase 3b: the stream engines at full width
     check_b = batch_of(np_stream, CHECK_WINDOWS)
@@ -3012,31 +3309,33 @@ def main() -> int:
     del inputs
 
     # phase 3c: the per-step kernels on recorded main-path inputs
-    with recording("gcrn_step") as g_calls:
-        drive(GCRN_M2, "v2", "session", params[GCRN_M2.name], n_global,
-              stream, np_stream)
-    with recording("stacked_step") as s_calls:
-        drive(STACKED, "v2", "session", params[STACKED.name], n_global,
-              stream, np_stream)
-    with recording("ell_spmm") as e_calls:
-        drive(GCRN_M2, "baseline", "pallas", params[GCRN_M2.name], n_global,
-              stream, np_stream)
-    g_calls, s_calls = g_calls[:T], s_calls[:T]  # the solo run's steps
-    e_calls = e_calls[:2 * T]
-    no_edge = [c for c in e_calls if c[4] is None]
-    check(len(no_edge) == T and len(e_calls) == 2 * T,
-          f"ell_spmm recorded {len(e_calls)} calls, {len(no_edge)} no-edge")
+    g_calls, s_calls, e_calls = recorded_step_calls(
+        params, n_global, stream, np_stream)
+    e_groups = ell_groups(e_calls)
+    idx, _, _, x, h = g_calls[0][:5]
+    plan = step_plan_check("gcrn_step", dict(
+        n=idx.shape[0], k=idx.shape[1], din=x.shape[1], H=h.shape[1]))
+    log(f"gcrn_step launch at the main path's shape: {plan}")
+    for label, calls in e_groups.items():
+        idx, x, em = calls[0][0], calls[0][3], calls[0][4]
+        aligned = all(t.data_ptr() % 16 == 0 for t in (x, em)
+                      if t is not None)
+        plan = step_plan_check("ell_spmm", dict(
+            L=int(np.prod(idx.shape[:-2])), n=idx.shape[-2], d=x.shape[-1],
+            aligned=int(aligned)))
+        log(f"ell_spmm launch, {label}: {plan}")
+    no_edge = e_groups[next(iter(e_groups))]
     lib = [sparse_mm_inputs(c) for c in no_edge]
     lib_err = max(max_err(torch.sparse.mm(a, x), engine.ell_spmm_plain(*c))
                   for (a, x), c in zip(lib, no_edge))
     log(f"torch.sparse.mm vs plain ELL SpMM: max_abs_err={lib_err:.3e}")
     records += [
         check_step_kernel("gcrn_step", engine.gcrn_step_plain, g_calls,
-                          g_calls, gcrn_step_cost),
+                          {"all": g_calls}, gcrn_step_cost),
         check_step_kernel("stacked_step", engine.stacked_step_plain, s_calls,
-                          s_calls, stacked_step_cost),
+                          {"all": s_calls}, stacked_step_cost),
         check_step_kernel("ell_spmm", engine.ell_spmm_plain, e_calls,
-                          no_edge, ell_cost,
+                          e_groups, ell_cost,
                           library=[lambda a=a, x=x: torch.sparse.mm(a, x)
                                    for a, x in lib]),
     ]
@@ -3138,6 +3437,13 @@ def main() -> int:
     log(f"phase 4 (paged paths, capacity, RNN cells): "
         f"{time.time() - t0:.1f} s")
 
+    # phase 6: where a live node tile's time goes, run before phase 5: no
+    # host-dispatched timing follows a profiler window (a traced process
+    # dispatches more slowly). Then the profiler's kernel durations of 3c
+    # and 6
+    tile_probe()
+    kernel_durations()
+
     # phase 5: the device's busy share of a run, per kind of level
     for cfg, level, kw in ((GCRN_M2, "baseline", {}), (GCRN_M2, "v2", {}),
                            (GCRN_M2, "v3", {}), (EVOLVEGCN, "v3", {}),
@@ -3162,8 +3468,6 @@ def main() -> int:
             f"the profiler, {device:.2f} ms of kernels, busy share {share}"
             + ctas)
 
-    # phase 6: where a live node tile's time goes
-    tile_probe()
     del models, params, streams, stream, events
 
     # the LM serving path. Phase 3d: both flash kernels on narrow cases,

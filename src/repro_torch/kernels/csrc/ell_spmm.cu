@@ -10,80 +10,136 @@
 //   out[l, v] = sum_s coef[l, v, s] * (x[l, idx[l, v, s]] + emsg[l, eidx[l, v, s]])
 // with the emsg term only in the edge variant (emsg null: none).
 //
-// Design. One thread per (graph, row, 4 columns): neighbouring threads
-// read neighbouring 16-byte pieces of one source row, so each gather of a
-// lane is a coalesced float4 read of the row (a width that is not a multiple
-// of 4 takes the one-float variant). A warp covers 32 float4 columns, i.e.
-// one row of width 128 or two rows of width 64. The lane's id and coef are
-// the same address for the threads of a row (one broadcast). coef-0 lanes,
-// the ELL padding, add exact zeros and are skipped, so an all-padding row
-// costs k coef reads and writes zeros. x (640 x 128 x 4 B = 328 KB at full
-// width) stays in the 50 MB L2, so the gathers hit L2.
+// Design: a row to a group of threads, its ELL lanes loaded once
+// (ell_lanes.cuh).
+// - A row of dv vectors (float4s; single floats where d is not a multiple
+//   of 4 or a base is not 16-byte aligned) takes a warp, or half a warp
+//   where dv <= 16 (d 64): thread t sums columns t, t + group, ...
+// - The group reads the row's k ELL entries (idx, coef, eidx) in one
+//   coalesced load, 32 entries a round (half a warp: two a thread), and
+//   ballots the live (coef != 0) ones. Their ids and coefs reach the
+//   threads by shuffles, kBatch at a time, and each thread issues the
+//   gathers of the whole batch (x, and emsg's rows in the edge variant),
+//   without a branch, before their FMAs: the dependent chain is one ELL
+//   read plus one gather round trip for every kBatch live lanes, not k of
+//   them.
+// - The FMAs of a column run in ascending lane order: a fixed order, the
+//   same bits on every call. A row without a live lane writes zeros after
+//   its one ELL read. Graphs run in blockIdx.y (at most 65535).
 //
-// What bounds it. It moves more bytes than it computes (2 flops per
-// gathered float): bound by bytes, the ELL arrays, the gathered rows and the
-// output, on the card's roofline; at one snapshot (640 rows) the launch and
-// the L2 latency of the dependent gathers dominate.
-#include <cuda_runtime.h>
-#include <stdint.h>
+// What bounds it. It moves more bytes than it computes (2 flops a gathered
+// float): the card's roofline is the ELL arrays of the live rows, the x /
+// emsg rows they read and the output, ~0.12 us at one snapshot (640 rows,
+// ~107 live, ~5 live lanes a row), which fit the 50 MB L2. What sets the
+// time instead is latency (PERF.md: ~2.7 us of kernel a call at
+// d 128): the launch, then one ELL read and about one gather round trip a
+// row, all rows at once. Hopper's other tools do not apply: TMA has no
+// gather on sm_90, tensor cores do nothing for ~5 lanes a row, and shared
+// memory could hold only the lanes a group already keeps in registers.
+// Registers (nvcc -Xptxas -v, sm_90a): 48 / 62 / 76 / 80 (floats a warp,
+// floats a half warp, float4s a warp, float4s a half warp), no spills.
+#include "ell_lanes.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kBatch = 8;  // live lanes gathered at once
 
-template <int V>
-struct Vec;
-template <>
-struct Vec<4> {
-  using T = float4;
-  __device__ static T zero() { return make_float4(0.0f, 0.0f, 0.0f, 0.0f); }
-  __device__ static void fma(T& acc, float w, const T& v) {
-    acc.x = fmaf(w, v.x, acc.x); acc.y = fmaf(w, v.y, acc.y);
-    acc.z = fmaf(w, v.z, acc.z); acc.w = fmaf(w, v.w, acc.w);
-  }
-  __device__ static T add(const T& a, const T& b) {
-    return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
-  }
-};
-template <>
-struct Vec<1> {
-  using T = float;
-  __device__ static T zero() { return 0.0f; }
-  __device__ static void fma(T& acc, float w, const T& v) { acc = fmaf(w, v, acc); }
-  __device__ static T add(const T& a, const T& b) { return a + b; }
-};
-
-template <int V>
+// V floats a vector, kGroup threads a row (16 or 32)
+template <int V, int kGroup>
 __global__ void __launch_bounds__(kThreads)
 ell_spmm_kernel(const int* __restrict__ idx, const float* __restrict__ coef,
                 const int* __restrict__ eidx, const float* __restrict__ x,
                 const float* __restrict__ emsg, float* __restrict__ out,
                 int n, int k, int nx, int e, int d) {
-  using T = typename Vec<V>::T;
+  using T = typename ell::Vec<V>::T;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int half = lane / kGroup, t = lane % kGroup;
+  const int v = (blockIdx.x * kWarps + warp) * ell::kEntries<kGroup> + half;
+  const bool row_ok = v < n;
   const int dv = d / V;
-  const int p = blockIdx.x * kThreads + threadIdx.x;
-  if (p >= n * dv) return;
-  const int v = p / dv, j = p - v * dv;
   const size_t l = blockIdx.y;
-  const size_t lane0 = (l * n + v) * k;
-  const T* xs = reinterpret_cast<const T*>(x + l * nx * d) + j;
+  const size_t base = (l * n + v) * k;
+  const T* xs = reinterpret_cast<const T*>(x + l * nx * d);
   const T* es = emsg != nullptr
-                    ? reinterpret_cast<const T*>(emsg + l * e * d) + j
+                    ? reinterpret_cast<const T*>(emsg + l * e * d)
                     : nullptr;
-  T acc = Vec<V>::zero();
-  for (int s = 0; s < k; ++s) {
-    const float w = __ldg(coef + lane0 + s);
-    if (w == 0.0f) continue;
-    T val = __ldg(xs + (size_t)__ldg(idx + lane0 + s) * dv);
-    if (es != nullptr) val = Vec<V>::add(val, __ldg(es + (size_t)__ldg(eidx + lane0 + s) * dv));
-    Vec<V>::fma(acc, w, val);
+  for (int q0 = 0; q0 < dv; q0 += kGroup) {  // warp-uniform
+    const int q = q0 + t;
+    // a column past d reads column dv - 1 (in bounds) and stores nothing
+    const int qc = q < dv ? q : dv - 1;
+    T acc = ell::Vec<V>::zero();
+    for (int s0 = 0; s0 < k; s0 += 32) {
+      ell::Entry ent[ell::kEntries<kGroup>];
+      unsigned m = ell::load_round<kGroup>(idx, coef, eidx, base, row_ok, s0,
+                                           k, t, half, es != nullptr, ent);
+      while (__any_sync(~0u, m != 0)) {
+        int id[kBatch], ed[kBatch];
+        float cf[kBatch];
+        ell::next_batch<kGroup, kBatch>(m, ent, half, id, cf, ed);
+        T val[kBatch];
+#pragma unroll
+        for (int b = 0; b < kBatch; ++b)
+          val[b] = __ldg(xs + (size_t)id[b] * dv + qc);
+        if (es != nullptr) {
+#pragma unroll
+          for (int b = 0; b < kBatch; ++b)
+            val[b] = ell::Vec<V>::add(val[b], __ldg(es + (size_t)ed[b] * dv + qc));
+        }
+#pragma unroll
+        for (int b = 0; b < kBatch; ++b) ell::Vec<V>::fma(acc, cf[b], val[b]);
+      }
+    }
+    if (row_ok && q < dv) reinterpret_cast<T*>(out + (l * n + v) * d)[q] = acc;
   }
-  reinterpret_cast<T*>(out + (l * n + v) * d)[j] = acc;
+}
+
+// the launch: vector width, threads a row, rows a CTA, grid
+struct Plan {
+  int vec, group, rows;
+  dim3 grid;
+};
+
+Plan plan(int L, int n, int d, bool aligned) {
+  Plan p;
+  p.vec = d % 4 == 0 && aligned ? 4 : 1;
+  p.group = d / p.vec <= 16 ? 16 : 32;
+  p.rows = kWarps * (32 / p.group);
+  p.grid = dim3((unsigned)((n + p.rows - 1) / p.rows), (unsigned)L);
+  return p;
+}
+
+template <int V, int G>
+void launch_kernel(const Plan& p, cudaStream_t s, const void* idx,
+                   const void* coef, const void* eidx, const void* x,
+                   const void* emsg, void* out, int n, int k, int nx, int e,
+                   int d) {
+  ell_spmm_kernel<V, G><<<p.grid, kThreads, 0, s>>>(
+      static_cast<const int*>(idx), static_cast<const float*>(coef),
+      static_cast<const int*>(eidx), static_cast<const float*>(x),
+      static_cast<const float*>(emsg), static_cast<float*>(out), n, k, nx, e,
+      d);
 }
 
 }  // namespace
 
 extern "C" {
+
+// the launch over L graphs of n rows, d wide, with 16-byte aligned bases
+// or not: out = grid x, grid y, CTAs, threads, rows a CTA, threads a row,
+// floats a vector
+int ell_spmm_plan(int L, int n, int d, int aligned, int* out) {
+  const Plan p = plan(L, n, d, aligned != 0);
+  out[0] = (int)p.grid.x;
+  out[1] = (int)p.grid.y;
+  out[2] = (int)(p.grid.x * p.grid.y);
+  out[3] = kThreads;
+  out[4] = p.rows;
+  out[5] = p.group;
+  out[6] = p.vec;
+  return 0;
+}
 
 int ell_spmm_launch(const void* idx, const void* coef, const void* eidx,
                     const void* x, const void* emsg, void* out, int L, int n,
@@ -94,20 +150,16 @@ int ell_spmm_launch(const void* idx, const void* coef, const void* eidx,
   const uintptr_t bases = reinterpret_cast<uintptr_t>(x) |
                           reinterpret_cast<uintptr_t>(emsg) |
                           reinterpret_cast<uintptr_t>(out);
-  const bool vec4 = d % 4 == 0 && bases % 16 == 0;
-  const long long work = (long long)n * (vec4 ? d / 4 : d);
-  const dim3 grid((unsigned)((work + kThreads - 1) / kThreads), (unsigned)L);
+  const Plan p = plan(L, n, d, bases % 16 == 0);
   auto s = static_cast<cudaStream_t>(stream);
-  const int* ii = static_cast<const int*>(idx);
-  const float* cc = static_cast<const float*>(coef);
-  const int* ee = static_cast<const int*>(eidx);
-  const float* xx = static_cast<const float*>(x);
-  const float* em = static_cast<const float*>(emsg);
-  float* oo = static_cast<float*>(out);
-  if (vec4)
-    ell_spmm_kernel<4><<<grid, kThreads, 0, s>>>(ii, cc, ee, xx, em, oo, n, k, nx, e, d);
+  if (p.vec == 4 && p.group == 16)
+    launch_kernel<4, 16>(p, s, idx, coef, eidx, x, emsg, out, n, k, nx, e, d);
+  else if (p.vec == 4)
+    launch_kernel<4, 32>(p, s, idx, coef, eidx, x, emsg, out, n, k, nx, e, d);
+  else if (p.group == 16)
+    launch_kernel<1, 16>(p, s, idx, coef, eidx, x, emsg, out, n, k, nx, e, d);
   else
-    ell_spmm_kernel<1><<<grid, kThreads, 0, s>>>(ii, cc, ee, xx, em, oo, n, k, nx, e, d);
+    launch_kernel<1, 32>(p, s, idx, coef, eidx, x, emsg, out, n, k, nx, e, d);
   return (int)cudaGetLastError();
 }
 

@@ -42,6 +42,8 @@
 // - The epilogue (bias, then the splits' sums; sigmoid / tanh, c' and h')
 //   runs in registers with the rounding helpers of the engines' cells
 //   (engine_common.cuh lstm_tile / gru_tile), and stores row-major.
+// - The K split's product, the partial sums and the LSTM update are
+//   cell_tile.cuh's, which gcrn_step.cu shares.
 // - Edges: rows past Bs, K rows past din or H and units past H are staged
 //   as zeros (cp.async's zero fill) and never stored. The 16-byte copies
 //   need din and H multiples of 4 and 16-byte aligned x, h, wx, wh;
@@ -53,20 +55,15 @@
 // a wider H) torch.gru_cell / lstm_cell, two cuBLAS GEMMs and a pointwise
 // kernel, are faster; chip_smoke.py times both at three such shapes.
 // Registers (nvcc -Xptxas -v, sm_90a): 96 (LSTM), 80 (GRU); no spills.
-#include "engine_common.cuh"
+#include "cell_tile.cuh"
 
 namespace {
 
-constexpr int kRows = 32;           // rows a CTA
-constexpr int kUnits = 8;          // hidden units a CTA
+using namespace cell;
+
 constexpr int kChunk = 64;          // K rows a staged chunk
 constexpr int kStages = 2;          // ring slots
 constexpr int kSplit = 4;           // warps that split a chunk's K rows
-constexpr int kRowsPerThread = 4;   // a thread's rows: rg + kRowGroups i
-constexpr int kUnitsPerThread = 2;  // a thread's units: ug kUnitsPerThread + v
-constexpr int kRowGroups = kRows / kRowsPerThread;
-constexpr int kUnitGroups = kUnits / kUnitsPerThread;
-constexpr int kGroup = kRowGroups * kUnitGroups;  // threads of one K split
 constexpr int kThreads = kGroup * kSplit;
 constexpr int kSplitK = kChunk / kSplit;          // a split's K rows a chunk
 // floats between two rows of a staged activation chunk: +4 keeps 16-byte
@@ -74,8 +71,6 @@ constexpr int kSplitK = kChunk / kSplit;          // a split's K rows a chunk
 constexpr int kAStride = kChunk + 4;
 // the partial sums of the K splits: (kSplit, 4 slots, kRows, kUnits)
 constexpr int kRedFloats = kSplit * 4 * kRows * kUnits;
-static_assert(kGroup % 32 == 0, "a K split is whole warps");
-static_assert(kSplitK % 4 == 0, "a split reads float4s along K");
 static_assert(kThreads % kUnits == 0 && kRows * kUnits % kThreads == 0,
               "the epilogue's rows divide among the threads");
 
@@ -96,29 +91,6 @@ struct Cell {
   float* c_out;       // (Bs, H), LSTM only
   int Bs, din, H;
 };
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   engine::smem_addr(dst)),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   engine::smem_addr(dst)),
-               "l"(src), "r"(ok ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // Stage chunk `chunk` of the K loop (chunks [0, n_x) over x / wx, the rest
 // over h / wh) for the CTA's rows [r0, r0 + kRows) and units
@@ -162,58 +134,16 @@ __device__ __forceinline__ void stage_chunk(const Cell& a, int chunk, int n_x,
   }
 }
 
-// kUnitsPerThread consecutive floats from shared memory
-__device__ __forceinline__ void load_units(const float* p,
-                                           float (&v)[kUnitsPerThread]) {
-  if constexpr (kUnitsPerThread == 2) {
-    const float2 t = *reinterpret_cast<const float2*>(p);
-    v[0] = t.x; v[1] = t.y;
-  } else {
-#pragma unroll
-    for (int t = 0; t < kUnitsPerThread; ++t) v[t] = p[t];
-  }
-}
-
-using Acc = float[4][kRowsPerThread][kUnitsPerThread];
-
-// acc[s][i][v] += sum over split `split`'s K rows k of the staged chunk of
-//   sa[(rg + kRowGroups i) * kAStride + k] * sw[k G kUnits + g kUnits + u]
-// with u = ug kUnitsPerThread + v and s = g, except gate 2 (the GRU's n,
-// the LSTM's g), which sums into slot kNSlot.
+// acc += split `split`'s kSplitK K rows of the staged chunk (cell_tile.cuh
+// fma_rows), gate 2 into slot kNSlot.
 template <int G, int kNSlot>
 __device__ __forceinline__ void fma_chunk(const float* sa, const float* sw,
                                           int split, int rg, int ug,
                                           Acc& acc) {
   const int k_lo = split * kSplitK;
-  const float* ar = sa + rg * kAStride + k_lo;
-  const float* wr = sw + k_lo * G * kUnits + ug * kUnitsPerThread;
-#pragma unroll
-  for (int k = 0; k < kSplitK; k += 4) {
-    float4 av[kRowsPerThread];
-#pragma unroll
-    for (int i = 0; i < kRowsPerThread; ++i)
-      av[i] = *reinterpret_cast<const float4*>(
-          ar + kRowGroups * i * kAStride + k);
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      float wv[G][kUnitsPerThread];
-#pragma unroll
-      for (int g = 0; g < G; ++g)
-        load_units(wr + (k + q) * G * kUnits + g * kUnits, wv[g]);
-#pragma unroll
-      for (int i = 0; i < kRowsPerThread; ++i) {
-        const float x = q == 0 ? av[i].x : q == 1 ? av[i].y
-                      : q == 2 ? av[i].z : av[i].w;
-#pragma unroll
-        for (int g = 0; g < G; ++g) {
-          const int s = g == 2 ? kNSlot : g;
-#pragma unroll
-          for (int v = 0; v < kUnitsPerThread; ++v)
-            acc[s][i][v] = fmaf(x, wv[g][v], acc[s][i][v]);
-        }
-      }
-    }
-  }
+  fma_rows<G, kNSlot, kSplitK>(sa + rg * kAStride + k_lo, kAStride,
+                               sw + k_lo * G * kUnits + ug * kUnitsPerThread,
+                               acc);
 }
 
 // One CTA: rows [r0, r0 + kRows) x units [j0, j0 + kUnits), all G gates.
@@ -238,12 +168,7 @@ __global__ void __launch_bounds__(kThreads) cell_kernel(Cell a) {
     cp_async_commit();
   }
   Acc acc;
-#pragma unroll
-  for (int s = 0; s < 4; ++s)
-#pragma unroll
-    for (int i = 0; i < kRowsPerThread; ++i)
-#pragma unroll
-      for (int v = 0; v < kUnitsPerThread; ++v) acc[s][i][v] = 0.0f;
+  zero(acc);
   for (int chunk = 0; chunk < n; ++chunk) {
     cp_async_wait<kStages - 2>();  // this chunk's copies have landed ...
     __syncthreads();               // ... for every thread, and the slot
@@ -263,14 +188,7 @@ __global__ void __launch_bounds__(kThreads) cell_kernel(Cell a) {
   cp_async_wait<0>();
   __syncthreads();  // the ring is read out: its memory takes the partials
   float* const red = smem;
-#pragma unroll
-  for (int s = 0; s < 4; ++s)
-#pragma unroll
-    for (int i = 0; i < kRowsPerThread; ++i)
-#pragma unroll
-      for (int v = 0; v < kUnitsPerThread; ++v)
-        red[((split * 4 + s) * kRows + rg + kRowGroups * i) * kUnits +
-            ug * kUnitsPerThread + v] = acc[s][i][v];
+  store_partials(acc, red, split, rg, ug);
   __syncthreads();
   const int u = threadIdx.x % kUnits, j = j0 + u;
   if (j >= a.H) return;
@@ -285,18 +203,12 @@ __global__ void __launch_bounds__(kThreads) cell_kernel(Cell a) {
     if (row >= a.Bs) break;
     float gate[4];
 #pragma unroll
-    for (int s = 0; s < 4; ++s) {
-      gate[s] = bias[s];
-#pragma unroll
-      for (int p = 0; p < kSplit; ++p)
-        gate[s] += red[((p * 4 + s) * kRows + r) * kUnits + u];
-    }
+    for (int s = 0; s < 4; ++s) gate[s] = gate_sum<kSplit>(red, s, r, u, bias[s]);
     const size_t o = (size_t)row * a.H + j;
     if constexpr (G == 4) {
-      const float c_new = __fmaf_rn(
-          engine::sigmoidf(gate[1]), a.c[o],
-          __fmul_rn(engine::sigmoidf(gate[0]), tanhf(gate[2])));
-      a.h_out[o] = __fmul_rn(engine::sigmoidf(gate[3]), tanhf(c_new));
+      float h_new, c_new;
+      lstm_update(gate, a.c[o], h_new, c_new);
+      a.h_out[o] = h_new;
       a.c_out[o] = c_new;
     } else {
       const float rr = engine::sigmoidf(gate[0]);

@@ -45,7 +45,10 @@ resident and paged) run one stream on a thread-block cluster of
 ``engine_cluster_config`` mirrors that launch and
 ``library_engine_cluster_config`` reads the launcher's own (card only). They
 take any number of node rows a step: a CTA walks a step's tiles in chunks
-of ``CHUNK_ROWS``.
+of ``CHUNK_ROWS``. ``step_plan`` mirrors the launches of the V2 GC-LSTM
+step (whose unit slices share a row tile's aggregation on a cluster of
+``CLUSTER`` CTAs) and of the ELL SpMM; ``library_step_plan`` reads the
+launchers' own (card only).
 """
 from __future__ import annotations
 
@@ -133,6 +136,15 @@ FLASH_THREADS, FLASH_HEAD_DIM = 384, 128
 #: dO, or k / v) and the ring's slots; threads and head_dim as the forward
 FLASH_BWD_CTA_ROWS, FLASH_BWD_TILE_ROWS, FLASH_BWD_STAGES = 128, 64, 3
 FLASH_BWD_KINDS = ("dkv", "dq")
+#: the V2 GC-LSTM step's launch (``gcrn_step.cu``): a CTA owns TILE_ROWS
+#: rows and STEP_UNITS hidden units (all four gates) on STEP_THREADS
+#: threads, one K split a warp; its weight columns arrive STEP_CHUNK K rows
+#: a slot through a ring of STEP_STAGES slots; the CLUSTER unit slices of a
+#: row tile share its aggregation
+STEP_UNITS, STEP_THREADS, STEP_CHUNK, STEP_STAGES = 8, 256, 64, 3
+#: the ELL SpMM's launch (``ell_spmm.cu``): threads a CTA; a row takes a
+#: warp, or half of one where it is at most 16 vectors wide
+SPMM_THREADS = 256
 
 #: launches per kernel since the last ``reset_launches()``; only a real
 #: kernel launch counts, never the plain path
@@ -461,6 +473,16 @@ def tgn_weights_in_smem(k: int, din: int, H: int, n: int = 0,
                                               w))[1]
 
 
+def _gcrn_step_smem(din: int, H: int) -> int:
+    """Bytes of a gcrn_step CTA: its (TILE_ROWS, din + H rounded up to 8,
+    + 4) activation tile and its weight ring, or the partial sums of its
+    STEP_THREADS / 32 K splits where more."""
+    tile = TILE_ROWS * (_round_up(din + H, 8) + 4)
+    ring = STEP_STAGES * STEP_CHUNK * 4 * STEP_UNITS
+    red = STEP_THREADS // 32 * 4 * TILE_ROWS * STEP_UNITS
+    return 4 * max(tile + ring, red)
+
+
 #: each kernel's dynamic shared memory: (argument names of the library's
 #: ``<name>_smem_bytes``, in its order; the same function of them)
 _SMEM = {
@@ -472,8 +494,9 @@ _SMEM = {
     "stacked_engine": (("k", "din", "dmid", "H"), _stacked_cta),
     "tgn_engine": (("k", "din", "H"), _tgn_cta),
     "static_engine": (("k", "D"), lambda k, D: _tile(2 * D) + _ell(k, 2)),
-    "gcrn_step": (("k", "din", "H"),
-                  lambda k, din, H: _tile(din + H) + _ell(k, 3)),
+    # the row-major [agg_x | agg_h] tile and the weight ring, or the K
+    # splits' partial sums where more; k does not change it
+    "gcrn_step": (("k", "din", "H"), lambda k, din, H: _gcrn_step_smem(din, H)),
     "stacked_step": (("k", "din", "dmid", "H"),
                      lambda k, din, dmid, H: _tile(din + dmid + H)
                      + _ell(k, 3)),
@@ -593,6 +616,56 @@ def library_ctas(name: str, Bs: int, H: int) -> int:
     fn = getattr(_library(name), f"{name}_ctas")
     fn.argtypes, fn.restype = [ctypes.c_int] * 2, ctypes.c_int
     return int(fn(Bs, H))
+
+
+#: the arguments of each per-step kernel's ``<name>_plan``, in its order
+_PLAN_ARGS = {"gcrn_step": ("n", "k", "din", "H"),
+              "ell_spmm": ("L", "n", "d", "aligned")}
+
+
+def step_plan(name: str, **dims) -> dict:
+    """The launch of per-step kernel ``name`` at ``dims``: "gcrn_step" over
+    n rows (k, din, H), "ell_spmm" over L graphs of n rows d wide
+    (``aligned``: x, emsg and the output start on 16 bytes). Its CTAs,
+    threads a CTA and dynamic shared memory; for gcrn_step its row tiles,
+    unit slices (padded to whole clusters: a 1-D grid of both, the slices
+    of a tile neighbours) and CTAs a cluster, for the ELL SpMM its grid
+    (row blocks, graphs), the rows a CTA, the threads a row and the floats
+    a vector. It equals the launcher's own (``library_step_plan``, on the
+    card)."""
+    if name == "gcrn_step":
+        n, H = dims["n"], dims["H"]
+        tiles = -(-n // TILE_ROWS)
+        slices = _round_up(-(-H // STEP_UNITS), CLUSTER)
+        return {"tiles": tiles, "slices": slices, "ctas": tiles * slices,
+                "cluster": CLUSTER, "threads": STEP_THREADS,
+                "smem": smem_bytes(name, k=dims["k"], din=dims["din"], H=H)}
+    if name == "ell_spmm":
+        d = dims["d"]
+        vec = 4 if d % 4 == 0 and dims["aligned"] else 1
+        row_threads = 16 if d // vec <= 16 else 32
+        rows = SPMM_THREADS // row_threads
+        grid = (-(-dims["n"] // rows), dims["L"])
+        return {"grid": grid, "ctas": grid[0] * grid[1],
+                "threads": SPMM_THREADS, "smem": 0, "rows": rows,
+                "row_threads": row_threads, "vec": vec}
+    raise ValueError(f"{name!r} has no step plan ({', '.join(_PLAN_ARGS)})")
+
+
+def library_step_plan(name: str, **dims) -> dict:
+    """``step_plan`` as the library's launcher builds it (its
+    ``<name>_plan``; needs the card)."""
+    args = _PLAN_ARGS[name]
+    fn = getattr(_library(name), f"{name}_plan")
+    fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 7)()
+    fn(*(int(dims[a]) for a in args), out)
+    if name == "gcrn_step":
+        return {"tiles": out[0], "slices": out[1], "ctas": out[2],
+                "cluster": out[5], "threads": out[3], "smem": out[4]}
+    return {"grid": (out[0], out[1]), "ctas": out[2], "threads": out[3],
+            "smem": 0, "rows": out[4], "row_threads": out[5], "vec": out[6]}
 
 
 def flash_config(bh: int, s: int, d: int) -> dict:

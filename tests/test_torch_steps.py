@@ -11,7 +11,12 @@
   the plan's level; the stacked layout through ``params_from_jax`` /
   ``state_from_jax``.
 * The new kernel wrappers refuse devices other than cpu and cuda; on a
-  card they match their plain versions (skipped here).
+  card they match their plain versions at the kernels' edges, bit for bit
+  across two calls (skipped here).
+* The launch plans of ``gcrn_step`` and ``ell_spmm`` (``engine.step_plan``):
+  the grid at the main path's shape, shared memory that does not grow with
+  n and takes every width the one-CTA step kernel took; on a card, the
+  library's own plan (skipped here).
 """
 import dataclasses
 
@@ -244,12 +249,33 @@ def cuda():
     return torch.device("cuda")
 
 
+# the per-step kernels' edges on the card (chip_smoke.py phase 3a runs the
+# same): a partial row tile (n 37), a partial unit slice (H 20), din 12 / 13,
+# k 1 / 27 / 33 / 40, a dead tile, a single live row; the SpMM at d 12 / 13 /
+# 64 / 128
+EDGE_SHAPES = [(37, 5, 12, 24, "mixed"), (37, 1, 13, 20, "mixed"),
+               (37, 27, 12, 24, "mixed"), (37, 33, 13, 20, "mixed"),
+               (37, 40, 12, 24, "dead"), (37, 40, 13, 20, "one row"),
+               (37, 27, 64, 24, "mixed"), (37, 27, 128, 24, "mixed")]
+
+
+def _edge_inputs(n, k, din, h, live):
+    d = _inputs(4, n=n, k=k, din=din, h=h)
+    if live == "dead":
+        d["coef"][:] = 0.0
+    elif live == "one row":
+        d["coef"][np.arange(n) != n // 2] = 0.0
+        d["coef"][n // 2, -1] = 0.5
+    return d
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", EDGE_SHAPES)
 @pytest.mark.parametrize("edges", [False, True])
 @pytest.mark.parametrize("op", ["ell_spmm", "dgnn_fused_step",
                                 "stacked_fused_step"])
-def test_step_kernel_matches_plain_on_card(cuda, op, edges):
-    d = _inputs(4)
+def test_step_kernel_matches_plain_on_card(cuda, op, edges, shape):
+    d = _edge_inputs(*shape)
     em = d["em"] if edges else None
     args = {"ell_spmm": (d["idx"], d["coef"], d["eidx"], d["x"], em),
             "dgnn_fused_step": (d["idx"], d["coef"], d["eidx"], d["x"],
@@ -260,10 +286,100 @@ def test_step_kernel_matches_plain_on_card(cuda, op, edges):
                                    d["gh"], d["gb"], em)}[op]
     targs = [None if a is None else a.to(cuda) for a in _t(*args)]
     fn = getattr(tops, op)
-    got, want = fn(*targs), fn(*targs, force_ref=True)
+    got, again = fn(*targs), fn(*targs)
+    want = fn(*targs, force_ref=True)
     torch.cuda.synchronize()
     got = got if isinstance(got, tuple) else (got,)
+    again = again if isinstance(again, tuple) else (again,)
     want = want if isinstance(want, tuple) else (want,)
-    for g, w in zip(got, want):
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a), "two calls differ"
         np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
                                    atol=1e-4)
+
+
+# ---------------------------------------------------------- launch plans ----
+
+def test_gcrn_step_plan_fills_the_card_at_the_main_shape():
+    """BC-Alpha's V2 step (n 640, k 27, din 64, H 128): 20 row tiles x 16
+    unit slices, 320 CTAs of 256 threads (more than the H100's 132 SMs),
+    the 8 slices of a cluster sharing a tile's aggregation."""
+    plan = engine.step_plan("gcrn_step", n=640, k=27, din=64, H=128)
+    assert (plan["tiles"], plan["slices"], plan["ctas"]) == (20, 16, 320)
+    assert plan["cluster"] == engine.CLUSTER == 8
+    assert plan["threads"] == engine.STEP_THREADS == 256
+    # the (32, 192 + 4) activation tile and three 64-row weight slots
+    assert plan["smem"] == 4 * (32 * 196 + 3 * 64 * 32)
+
+
+@pytest.mark.parametrize("k", [1, 27, 40])
+def test_gcrn_step_smem_does_not_grow_with_n_or_k(k):
+    plans = [engine.step_plan("gcrn_step", n=n, k=k, din=64, H=128)
+             for n in (1, 37, 640, 100_000)]
+    assert len({p["smem"] for p in plans}) == 1
+    assert plans[0]["smem"] == engine.smem_bytes("gcrn_step", k=1, din=64,
+                                                 H=128)
+    assert [p["tiles"] for p in plans] == [1, 2, 20, 3125]
+
+
+@pytest.mark.parametrize("H, slices", [(8, 8), (20, 8), (64, 8), (72, 16),
+                                       (128, 16)])
+def test_gcrn_step_pads_its_unit_slices_to_whole_clusters(H, slices):
+    plan = engine.step_plan("gcrn_step", n=37, k=5, din=12, H=H)
+    assert plan["slices"] == slices and plan["ctas"] == 2 * slices
+    assert plan["ctas"] % plan["cluster"] == 0
+
+
+def _one_cta_smem(k, din, H):
+    """The shared memory of the one-CTA gcrn_step kernel the 2-D grid
+    replaced: a k-major (din + H, 36) tile and the tile's ELL lanes."""
+    return 4 * (din + H) * engine.TILE_STRIDE + engine.TILE_ROWS * k * 12
+
+
+@pytest.mark.parametrize("k", [1, 5, 27, 40, 64, 300])
+def test_gcrn_step_takes_every_width_the_one_cta_kernel_took(k):
+    widest = (engine.SMEM_LIMIT - engine.TILE_ROWS * k * 12) // (
+        4 * engine.TILE_STRIDE)
+    assert _one_cta_smem(k, 1, widest - 1) <= engine.SMEM_LIMIT
+    for din in (1, 4, 13, 64, widest // 2, widest - 1):
+        assert engine.smem_bytes("gcrn_step", k=k, din=din,
+                                 H=widest - din) <= engine.SMEM_LIMIT
+    # the new limit: K = din + H up to 1,616, whatever k
+    assert engine.smem_bytes("gcrn_step", k=k, din=64,
+                             H=1552) <= engine.SMEM_LIMIT
+    assert engine.smem_bytes("gcrn_step", k=k, din=64,
+                             H=1553) > engine.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("d, aligned, row_threads, vec", [
+    (64, True, 16, 4), (128, True, 32, 4), (13, True, 16, 1),
+    (64, False, 32, 1), (256, True, 32, 4), (12, True, 16, 4)])
+def test_ell_spmm_plan(d, aligned, row_threads, vec):
+    """A row takes a warp, or half of one where it is at most 16 vectors
+    wide (d 64 in float4s, d 13 in floats); 256-thread CTAs over the rows,
+    the graphs in the grid's y."""
+    plan = engine.step_plan("ell_spmm", L=3, n=640, d=d, aligned=aligned)
+    assert (plan["row_threads"], plan["vec"]) == (row_threads, vec)
+    assert plan["threads"] == engine.SPMM_THREADS == 256
+    assert plan["rows"] == 256 // row_threads
+    assert plan["grid"] == (-(-640 // plan["rows"]), 3)
+    assert plan["ctas"] == plan["grid"][0] * 3
+
+
+def test_step_plan_names_only_the_per_step_kernels():
+    with pytest.raises(ValueError, match="has no step plan"):
+        engine.step_plan("stacked_step", n=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, dims", [
+    ("gcrn_step", dict(n=640, k=27, din=64, H=128)),
+    *[("gcrn_step", dict(n=n, k=k, din=din, H=h))
+      for n, k, din, h, _ in EDGE_SHAPES],
+    ("gcrn_step", dict(n=37, k=5, din=64, H=1552)),
+    *[("ell_spmm", dict(L=L, n=n, d=d, aligned=a))
+      for L, n, d, a in ((1, 640, 64, 1), (1, 640, 128, 1), (3, 37, 13, 1),
+                         (2, 37, 64, 0), (1, 37, 12, 1), (1, 5, 256, 1))]])
+def test_step_plan_matches_library_on_card(cuda, name, dims):
+    assert engine.library_step_plan(name, **dims) == engine.step_plan(
+        name, **dims)

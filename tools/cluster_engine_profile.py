@@ -1,19 +1,22 @@
 #!/usr/bin/env python3
-"""Where a stacked / TGN cluster engine's time goes, on one CUDA card.
+"""Where a stacked / TGN cluster engine's or the V2 GC-LSTM step's time
+goes, on one CUDA card.
 
     python3 tools/cluster_engine_profile.py
 
 Copies src/repro_torch into build/cluster_profile/ (gitignored), turns the
 `// PROF_INIT`, `// PROF(i) <phase>` and `// PROF_END` comments of the
-copy's stacked_engine.cu and tgn_engine.cu into clock64 marks (thread 0
-of the first CTA sums the cycles of phase i up to mark i; a
-<source>_profile entry point reads them back), builds the copy and runs
+copy's stacked_engine.cu, tgn_engine.cu and gcrn_step.cu into clock64
+marks (thread 0 of the first CTA sums the cycles of phase i up to mark i;
+a <source>_profile entry point reads them back), builds the copy and runs
 each engine, resident and paged (td 16, depth 2), on the BC-Alpha main
-path's B 1 inputs (the 137-step stream; TGN's 176 event batches). Prints
-each run's ms (CUDA events, median of 3) and its cycles split by the
-phases the comments name. The marks cost a little time of their own; the
-kernels the repo ships carry none. Prints the card's name and power limit
-first.
+path's B 1 inputs (the 137-step stream; TGN's 176 event batches), then
+gcrn_step on the main path's recorded calls (chip_smoke.py's
+``recorded_step_calls``; CTA 0 is a live tile's). Prints each engine
+run's ms (CUDA events, median of 3) and its cycles split by the phases the
+comments name; for gcrn_step the cycles of a call, summed over the calls.
+The marks cost a little time of their own; the kernels the repo ships
+carry none. Prints the card's name and power limit first.
 """
 import ctypes
 import os
@@ -24,7 +27,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 COPY = ROOT / "build" / "cluster_profile"
-SOURCES = ("stacked_engine", "tgn_engine")
+SOURCES = ("stacked_engine", "tgn_engine", "gcrn_step")
 
 PRE = """
 __device__ unsigned long long g_prof[16];
@@ -117,6 +120,26 @@ def main() -> int:
                   f"last call: {total}; " + ", ".join(
                       f"{names[i]} {out[i] / total:.3f}"
                       for i in range(len(names)) if out[i]), flush=True)
+    params = {}
+    for cfg in (cs.GCRN_M2, cs.STACKED):
+        model = cs.build_model(cfg, n_global=n_global)
+        params[cfg.name] = cs.ops.to_device(model.init(gen), "cuda")
+    calls, _, _ = cs.recorded_step_calls(params, n_global,
+                                         np_stream.to("cuda"), np_stream)
+    names = phases["gcrn_step"]
+    summed = [0] * 16
+    for c in calls:
+        engine.gcrn_step(*c)
+        torch.cuda.synchronize()
+        out = (ctypes.c_ulonglong * 16)()
+        code = engine._LIBS["gcrn_step"].gcrn_step_profile(out)
+        cs.check(code == 0, f"gcrn_step_profile read back ({code})")
+        summed = [a + b for a, b in zip(summed, out)]
+    total = sum(summed)
+    print(f"gcrn_step: {len(calls)} main-path calls; cycles of CTA 0 "
+          f"thread 0, {total / len(calls):.0f} a call: " + ", ".join(
+              f"{names[i]} {summed[i] / total:.3f}"
+              for i in range(len(names)) if summed[i]), flush=True)
     return 0
 
 
