@@ -9,21 +9,27 @@ Phases (any failure exits non-zero):
   2. build all eighteen kernels from src/repro_torch/kernels/csrc (eleven
      sources, one nvcc per source, all at once), and hold the port's
      shared-memory estimate (engine.smem_bytes) equal to each library's own;
-     0 spill bytes in ptxas's report for gcrn_step and ell_spmm, and no
-     generic LD in their SASS (cuobjdump -sass: gcrn_step's shared loads
-     are LDS);
+     0 spill bytes in ptxas's report for gcrn_step, stacked_step,
+     ell_spmm and static_engine, and no generic LD in their SASS
+     (cuobjdump -sass: the shared loads of all but the SpMM are LDS);
   3. every kernel against its plain PyTorch version on the card:
      a. narrow odd widths with partial node tiles, ragged with a length-0
         row, with and without edge messages / the static edge term, the
         paged engines at ring depths 1, 2 and 4 (also bit-for-bit against
         the resident engine), the GRU / LSTM cells at their kernel's edges
         (a partial row tile and unit slice, din 13 and an x 4 bytes off a
-        16-byte boundary on the 4-byte staging, din = H = 512), gcrn_step
-        and ell_spmm at their edges (n 37: a partial row tile; H 20 / 24,
-        din 12 / 13; k 1 / 27 / 33 / 40; every row dead, a single live row;
-        with and without edge messages; the SpMM also at d 12 / 13 / 64 /
-        128 and with x 4 bytes off a 16-byte boundary; two calls bit for
-        bit equal; their launches equal to engine.step_plan) (<= 1e-4:
+        16-byte boundary on the 4-byte staging, din = H = 512), gcrn_step,
+        stacked_step and ell_spmm at their edges (n 37: a partial row tile;
+        H 20 / 24, din 12 / 13, stacked dmid din + 7; k 1 / 27 / 33 / 40;
+        every row dead (stacked also with h 0), a single live row; with and
+        without edge messages; the SpMM also at d 12 / 13 / 64 / 128 and
+        with x 4 bytes off a 16-byte boundary; two calls bit for bit equal;
+        their launches equal to engine.step_plan), stacked_step at the
+        widest shapes the one-CTA kernel took (Wg read from L2) and n
+        66,000, and static_engine on STATIC_CASES (the pack's widths, D 13,
+        three layers, square, each variant of its launch up to D 806, n
+        66,000, with and without the edge term; the columns past the
+        widths zero; its launch equal to engine.static_plan) (<= 1e-4:
         fp32 with TF32 off, only the order of summation differs);
      b. the five stream engines at full width (BC-Alpha, n_pad 640,
         G 3468): a T = 8, B = 2 ragged case (<= 1e-4) and the main path's
@@ -53,12 +59,16 @@ Phases (any failure exits non-zero):
         V3_WINDOWS batch (B 4; TGN: EVENT_V3_WINDOWS);
      c. the three per-step kernels (V2 steps, ELL SpMM) on the inputs the
         main path hands them at full width, recorded from one run of a path
-        that launches each, every step of the stream (<= 1e-4), each timed
+        that launches each, every step of the stream (<= 1e-4; stacked_step
+        also on a one-GCN-layer stacked run's, with edge messages), each timed
         per call three ways (bare launches on CUDA events and a CUDA graph
         of the calls, in turns; the profiler's kernel duration after phase
         6; medians of 9), the ELL
         SpMM by width and edge messages, gcrn_step's and ell_spmm's launch
-        at those shapes equal to engine.step_plan; the GRU /
+        at those shapes equal to engine.step_plan; static_engine's main
+        launch (at the layers' true widths) the same three ways, its
+        launch equal to engine.static_plan, and a probe of its waves (the
+        first 132 slots, all, the rest, the largest alone); the GRU /
         LSTM cells at benchmarks/kernel_bench.py's shape (640 rows, 128
         wide, tb 128; their grid, from the library, fills the card), then
         at three larger shapes;
@@ -86,9 +96,10 @@ Phases (any failure exits non-zero):
   5. the device's busy share of one run at baseline, v2 and v3, resident
      and paged (kernel time over wall time, torch.profiler), with the CTAs
      a v3 launch of each stateful family uses.
-  6. a probe of where a live node tile's time goes: gcrn_step on
-     synthetic full-width inputs that vary live rows, lanes and widths,
-     timed the three ways of 3c. It runs before phase 5, and the kernel
+  6. a probe of where a live node tile's time goes: gcrn_step and
+     stacked_step on synthetic full-width inputs that vary live rows,
+     lanes, the rows with a nonzero h and widths, timed the three ways of
+     3c. It runs before phase 5, and the kernel
      durations of 3c and 6 are taken after it: no profiler window opens
      before the last host-dispatched timing of phases 3-6 (a process the
      profiler has traced dispatches from the host more slowly).
@@ -159,6 +170,7 @@ Imports nothing of the JAX package.
 """
 import contextlib
 import dataclasses
+import functools
 import json
 import re
 import subprocess
@@ -1357,11 +1369,12 @@ def smem_check(main_inp, paged_main_inp):
         check(est == lib, f"smem_bytes({name}, {d}) == library")
 
 
-def static_wave_probe(inp):
+def static_wave_probe(inp, widths):
     """What spreading the static GCN's slots over the SMs costs:
-    static_engine on the main path's slots, timed on the first 132 (one an
-    SM), on all of them, on those past 132, and on the slot with the most
-    real rows alone (ms a launch, the wrapper included)."""
+    static_engine (at the layers' true ``widths``) on the main path's
+    slots, timed on the first 132, on all of them, on those past 132, and
+    on the slot with the most real rows alone (ms a launch, the wrapper
+    included)."""
     idx, coef, x, mask, w, bg, eagg = inp
     B = idx.shape[0]
     rows = (mask != 0).sum(dim=(1, 2))
@@ -1380,8 +1393,9 @@ def static_wave_probe(inp):
         args = pick(sel)
         if args[0].shape[0] == 0:
             continue
+        run = functools.partial(engine.static_engine, *args, widths=widths)
         log(f"static wave probe: {label}: "
-            f"{cuda_ms(lambda: engine.static_engine(*args), reps=20):.4f} ms")
+            f"{cuda_ms(run, reps=20):.4f} ms")
 
 
 @contextlib.contextmanager
@@ -1429,9 +1443,11 @@ STEP_EDGE_K = (1, 27, 33, 40)
 STEP_EDGE_WIDTHS = ((12, 24), (13, 20), (12, 20), (13, 24))
 SPMM_EDGE_D = (12, 13, 64, 128)
 STEP_EDGE_LIVE = ("mixed", "dead", "one row")
-#: the per-step kernels whose ptxas spills must be 0, and whose shared
-#: loads must be LDS (no generic LD), by source
-STEP_SOURCES = ("gcrn_step", "ell_spmm")
+#: the kernels whose ptxas spills must be 0 and whose loads include no
+#: generic LD, by source; of those, the ones whose shared loads must show
+#: as LDS
+STEP_SOURCES = ("gcrn_step", "ell_spmm", "stacked_step", "static_engine")
+LDS_SOURCES = ("gcrn_step", "stacked_step", "static_engine")
 
 
 def step_edge_ell(rng, n, k, live, e):
@@ -1474,14 +1490,15 @@ def step_plan_check(name, dims) -> dict:
 
 
 def step_kernel_edges():
-    """gcrn_step and ell_spmm at their edges (STEP_EDGE_*), each against
-    its plain version and bit for bit across two calls, their launches
-    equal to engine.step_plan."""
+    """gcrn_step, stacked_step (dmid = din + 7; a dead tile also with h 0,
+    the padding rows' shortcut) and ell_spmm at their edges (STEP_EDGE_*),
+    each against its plain version and bit for bit across two calls, their
+    launches equal to engine.step_plan."""
     rng = np.random.default_rng(SEED + 7)
     f32 = lambda *s: torch.from_numpy(
         (rng.normal(size=s) * 0.3).astype(np.float32)).cuda()
     n, e = 37, 50
-    worst = {"gcrn_step": 0.0, "ell_spmm": 0.0}
+    worst = {"gcrn_step": 0.0, "stacked_step": 0.0, "ell_spmm": 0.0}
     cases = 0
     for k in STEP_EDGE_K:
         for live in STEP_EDGE_LIVE:
@@ -1496,6 +1513,23 @@ def step_kernel_edges():
                         f"edges={em is not None}", ops.dgnn_fused_step, full))
                     cases += 1
                 step_plan_check("gcrn_step", dict(n=n, k=k, din=din, H=H))
+                dmid = din + 7
+                for h in [f32(n, H)] + ([torch.zeros(n, H, device="cuda")]
+                                        if live == "dead" else []):
+                    args = (*ell, f32(n, din), h, f32(din, dmid), f32(dmid),
+                            f32(dmid, 3 * H), f32(H, 3 * H), f32(3 * H))
+                    for em in (None, f32(e, din)):
+                        full = args if em is None else (*args, em)
+                        worst["stacked_step"] = max(
+                            worst["stacked_step"], step_case_check(
+                                f"stacked_step n={n} k={k} din={din} "
+                                f"dmid={dmid} H={H} {live}"
+                                f"{'' if h.any() else ' h 0'} "
+                                f"edges={em is not None}",
+                                ops.stacked_fused_step, full))
+                        cases += 1
+                step_plan_check("stacked_step", dict(n=n, k=k, din=din,
+                                                     dmid=dmid, H=H))
             for d in SPMM_EDGE_D:
                 x = f32(n, d)
                 views = [("", x)]
@@ -1513,12 +1547,124 @@ def step_kernel_edges():
                     step_plan_check("ell_spmm", dict(
                         L=1, n=n, d=d, aligned=int(xv.data_ptr() % 16 == 0)))
     log(f"per-step kernel edges: {cases} cases (n {n}, k "
-        f"{'/'.join(map(str, STEP_EDGE_K))}, din/H "
+        f"{'/'.join(map(str, STEP_EDGE_K))}, din/H (stacked dmid din + 7) "
         f"{', '.join(f'{a}/{b}' for a, b in STEP_EDGE_WIDTHS)}, d "
         f"{'/'.join(map(str, SPMM_EDGE_D))}, {', '.join(STEP_EDGE_LIVE)}, "
         "with and without edges, x offset 4 B) within "
         f"{TOL_KERNEL} and bit for bit across two calls (largest "
         + ", ".join(f"{v:.3e} {k}" for k, v in worst.items()) + ")")
+
+
+#: stacked_step past its edges (n, k, din, dmid, H): the widest shapes the
+#: one-CTA kernel took at k 1, one whose Wg slice no longer fits shared
+#: memory (read from L2) and the widest H at din 16 and dmid 8 (4-byte
+#: copies), and n past 65,536 rows at the main path's widths
+STACKED_WIDE = ((37, 1, 600, 600, 400), (37, 1, 16, 8, 1587),
+                (CLUSTER_ROWS_PAST, 27, 128, 128, 128))
+
+
+def stacked_step_wide():
+    """stacked_step at STACKED_WIDE (a third of the rows live, some lanes
+    dead, edge messages) against its plain version, two calls bit for bit,
+    its launch equal to engine.step_plan."""
+    rng = np.random.default_rng(SEED + 11)
+    f32 = lambda *s: torch.from_numpy(
+        (rng.normal(size=s) * 0.3).astype(np.float32)).cuda()
+    for n, k, din, dmid, H in STACKED_WIDE:
+        e = 64
+        ell = step_edge_ell(rng, n, k, "mixed", e)
+        ell[1][n // 3:] = 0.0  # the rows past a third: padding, h 0
+        h = f32(n, H)
+        h[n // 3:] = 0.0
+        args = (*ell, f32(n, din), h, f32(din, dmid), f32(dmid),
+                f32(dmid, 3 * H), f32(H, 3 * H), f32(3 * H), f32(e, din))
+        plan = step_plan_check("stacked_step", dict(n=n, k=k, din=din,
+                                                    dmid=dmid, H=H))
+        err = step_case_check(f"stacked_step n={n} k={k} din={din} "
+                              f"dmid={dmid} H={H} edges=True",
+                              ops.stacked_fused_step, args)
+        log(f"stacked_step wide n={n} k={k} din={din} dmid={dmid} H={H}: "
+            f"max_abs_err={err:.3e}, launch {plan}")
+        del args, ell, h
+        torch.cuda.empty_cache()
+
+
+#: the static engine's cases (B, n, k, D, widths or None (D throughout),
+#: edge term): the widths of ops' packs (D 16 at 13 / 11 / 7: the V 1
+#: gathers), the main path's (64 / 128 / 64), D 13 (4-byte rows), three
+#: layers, a square D 96, the widest W slice in shared memory (D 256), the
+#: widest two-tile pass (384, W read from L2), the widest D the one-CTA
+#: kernel took (806, one tile a pass), and n past 65,536 rows (two chunks
+#: of live-tile bits); slot 0 partly live, slot 1 dead, the rest full
+STATIC_CASES = ((3, 37, 5, 16, (13, 11, 7), True),
+                (3, 200, 27, 128, (64, 128, 64), True),
+                (2, 70, 33, 13, (13, 9, 5), False),
+                (3, 100, 1, 64, (32, 64, 40, 24), True),
+                (2, 37, 40, 96, None, False),
+                (3, 130, 5, 256, (256, 256), True),
+                (3, 130, 5, 384, (384, 384), True),
+                (3, 100, 1, 806, None, False),
+                (2, CLUSTER_ROWS_PAST, 27, 64, (64, 64, 32), True))
+
+
+def static_case(rng, B, n, k, D, widths, edges):
+    """CUDA packed inputs of static_engine: rows past n // 2 of slot 0 and
+    all of slot 1 padding (mask 0, no lanes), x / W / b / eagg zero past
+    each layer's widths."""
+    L = len(widths) - 1
+    rows = np.ones((B, n), bool)
+    rows[0, n // 2:] = False
+    rows[1] = False
+    idx = rng.integers(0, max(n // 2, 1), (B, 1, n, k)).astype(np.int32)
+    coef = (rng.uniform(0.1, 1.0, (B, 1, n, k))
+            * (rng.uniform(size=(B, 1, n, k)) < 0.6)
+            * rows[:, None, :, None]).astype(np.float32)
+    mask = rows[:, None].astype(np.float32)
+    f32 = lambda *s: (rng.normal(size=s) * 0.3).astype(np.float32)
+    x = np.zeros((B, 1, n, D), np.float32)
+    x[..., :widths[0]] = f32(B, 1, n, widths[0])
+    w = np.zeros((L, D, D), np.float32)
+    bg = np.zeros((L, D), np.float32)
+    for l in range(L):
+        w[l, :widths[l], :widths[l + 1]] = f32(widths[l], widths[l + 1])
+        bg[l, :widths[l + 1]] = f32(widths[l + 1])
+    eagg = None
+    if edges:
+        eagg = np.zeros((B, 1, L, n, D), np.float32)
+        for l in range(L):
+            eagg[:, :, l, :, :widths[l]] = f32(B, 1, n, widths[l])
+    cu = lambda a: None if a is None else torch.from_numpy(a).cuda()
+    return tuple(map(cu, (idx, coef, x, mask, w, bg, eagg)))
+
+
+def static_engine_edges():
+    """static_engine at STATIC_CASES against its plain version (<= 1e-4;
+    the columns past the last width exactly zero), two calls bit for bit,
+    its launch equal to engine.static_plan."""
+    rng = np.random.default_rng(SEED + 13)
+    worst = 0.0
+    for B, n, k, D, widths, edges in STATIC_CASES:
+        wd = list(widths) if widths is not None else [D, D, D]
+        inp = static_case(rng, B, n, k, D, wd, edges)
+        got = engine.static_engine(*inp, widths=widths)
+        again = engine.static_engine(*inp, widths=widths)
+        err = max_err(got, engine.static_plain(*inp))
+        pad_zero = not got[..., wd[-1]:].any()
+        same = bitwise(got, again)
+        mine = engine.static_plan(B, k, D, wd)
+        lib = engine.library_static_plan(B, k, D)
+        label = (f"static_engine B={B} n={n} k={k} D={D} widths={widths} "
+                 f"edges={edges}")
+        log(f"{label}: max_abs_err={err:.3e} (tol {TOL_KERNEL}), columns "
+            f"past the widths zero {pad_zero}, two calls bitwise {same}, "
+            f"launch {lib}")
+        check(np.isfinite(err) and err <= TOL_KERNEL and pad_zero and same
+              and lib == {key: mine[key] for key in lib}, label)
+        worst = max(worst, err)
+        del inp, got, again
+        torch.cuda.empty_cache()
+    log(f"static_engine: {len(STATIC_CASES)} cases within {TOL_KERNEL} "
+        f"(largest {worst:.3e})")
 
 
 def sass_loads(source: str) -> dict:
@@ -1542,9 +1688,9 @@ def sass_loads(source: str) -> dict:
 
 
 def step_build_checks():
-    """0 spill bytes in ptxas's report for the per-step kernels, and their
-    shared-memory loads compiled to LDS: no generic LD in any of their
-    kernels (cuobjdump -sass)."""
+    """0 spill bytes in ptxas's report for the per-step kernels and the
+    static engine, and their shared-memory loads compiled to LDS: no
+    generic LD in any of their kernels (cuobjdump -sass)."""
     for source in STEP_SOURCES:
         spills = spill_bytes(source)
         log(f"{source}: ptxas spill bytes {spills}")
@@ -1555,9 +1701,9 @@ def step_build_checks():
             log(f"{source}: sass loads of {func}: {ops_}")
         check(loads and not any("LD" in ops_ for ops_ in loads.values()),
               f"{source}: a generic LD in {loads}")
-        if source == "gcrn_step":
+        if source in LDS_SOURCES:
             check(all(ops_.get("LDS", 0) > 0 for ops_ in loads.values()),
-                  f"gcrn_step: its shared loads are LDS ({loads})")
+                  f"{source}: its shared loads are LDS ({loads})")
 
 
 def recorded_step_calls(params, n_global, stream, np_stream):
@@ -1581,6 +1727,27 @@ def recorded_step_calls(params, n_global, stream, np_stream):
           and sum(c[4] is None for c in e_calls) == T,
           f"ell_spmm recorded {len(e_calls)} calls")
     return g_calls[:T], s_calls[:T], e_calls
+
+
+def stacked_one_layer_check(n_global, stream, np_stream):
+    """stacked_step on the inputs a one-GCN-layer stacked model's V2 session
+    run hands it (din 64, the projected edge messages: the kernel's edge
+    variant), every step's call against its plain version (<= 1e-4)."""
+    cfg = dataclasses.replace(STACKED, n_gnn_layers=1)
+    model = build_model(cfg, n_global=n_global)
+    params = ops.to_device(model.init(torch.Generator().manual_seed(SEED + 5)),
+                           "cuda")
+    with recording("stacked_step") as calls:
+        drive(cfg, "v2", "session", params, n_global, stream, np_stream)
+    calls = calls[:stream.node_mask.shape[0]]
+    err = max(max_err(engine.stacked_step(*c), engine.stacked_step_plain(*c))
+              for c in calls)
+    edges = sum(c[10] is not None for c in calls)
+    log(f"stacked_step, one GCN layer: {len(calls)} main-path calls (din "
+        f"{calls[0][3].shape[-1]}, {edges} with edge messages) "
+        f"max_abs_err={err:.3e} (tol {TOL_KERNEL})")
+    check(edges == len(calls) and np.isfinite(err) and err <= TOL_KERNEL,
+          "stacked_step on the one-GCN-layer path")
 
 
 def ell_groups(calls) -> dict:
@@ -2100,12 +2267,13 @@ def rnn_path(cell: str) -> dict:
 
 def tile_probe() -> dict:
     """Where a live node tile's time goes: gcrn_step at full width (n 640,
-    din 64, H 128, k 27) on synthetic inputs that vary the live rows, the
-    live lanes a row and the widths, each case a pass of 20 launches timed
-    three ways (``step_turns``: bare launches, a CUDA graph, and later the
-    kernel's duration; us a call). With 5 live lanes a row and 128 live
-    rows it matches the main path's shape (~107 real rows, ~5 live
-    lanes)."""
+    din 64, H 128, k 27), then stacked_step (n 640, din = dmid = H = 128,
+    k 27), on synthetic inputs that vary the live rows, the live lanes a
+    row, the rows with a nonzero h (stacked) and the widths, each case a
+    pass of 20 launches timed three ways (``step_turns``: bare launches, a
+    CUDA graph, and later the kernel's duration; us a call). With 5 live
+    lanes a row and 128 live rows it matches the main path's shape (~107
+    real rows, ~5 live lanes)."""
     def inputs(live_rows=128, live_lanes=5, k=27, din=64, H=128):
         g = torch.Generator().manual_seed(SEED)
         n = N_PAD
@@ -2135,6 +2303,45 @@ def tile_probe() -> dict:
             lambda: [engine.prepare("gcrn_step", *args)] * 20, "gcrn_step",
             f"tile probe gcrn_step: {label}")
         log(f"tile probe gcrn_step: {label}: {t['events'] * 1e3:.2f} us "
+            f"bare launches, {t['graph'] * 1e3:.2f} us graph a call")
+
+    def stacked_inputs(live_rows=128, live_lanes=5, k=27, din=128, dmid=128,
+                       H=128, h_rows=None):
+        """stacked_step at full width (n 640): the first ``live_rows`` rows
+        with ``live_lanes`` live lanes, the first ``h_rows`` (default
+        live_rows) with a nonzero h, the rest padding (h 0)."""
+        g = torch.Generator().manual_seed(SEED + 1)
+        n = N_PAD
+        live_rows = min(live_rows, n)
+        h_rows = live_rows if h_rows is None else h_rows
+        idx = torch.randint(0, max(live_rows, 1), (n, k), generator=g,
+                            dtype=torch.int32)
+        coef = torch.zeros(n, k)
+        coef[:live_rows, :live_lanes] = torch.rand(live_rows, live_lanes,
+                                                   generator=g) + 0.1
+        h = torch.zeros(n, H)
+        h[:h_rows] = torch.randn(h_rows, H, generator=g) * 0.3
+        dense = [torch.randn(*shape, generator=g) * 0.3 for shape in
+                 ((n, din), (din, dmid), (dmid,), (dmid, 3 * H),
+                  (H, 3 * H), (3 * H,))]
+        x, wg, bg, wx, wh, b = dense
+        return [t.cuda() for t in (idx, coef, torch.zeros_like(idx), x, h,
+                                   wg, bg, wx, wh, b)]
+
+    stacked_cases = (
+        ("128 live rows, 5 of 27 lanes", {}),
+        ("128 live rows, 27 of 27 lanes", dict(live_lanes=27)),
+        ("32 live rows (one tile), 5 lanes", dict(live_rows=32)),
+        ("640 live rows, 5 lanes", dict(live_rows=640)),
+        ("no live row, h 0 (padding rows)", dict(live_rows=0)),
+        ("no live row, h on 128 rows", dict(live_rows=0, h_rows=128)),
+        ("128 live rows, din 64 (one GCN layer)", dict(din=64)))
+    for label, kw in stacked_cases:
+        args = stacked_inputs(**kw)
+        t = probe[f"stacked_step {label}"] = step_turns(
+            lambda: [engine.prepare("stacked_step", *args)] * 20,
+            "stacked_step", f"tile probe stacked_step: {label}")
+        log(f"tile probe stacked_step: {label}: {t['events'] * 1e3:.2f} us "
             f"bare launches, {t['graph'] * 1e3:.2f} us graph a call")
     return probe
 
@@ -3244,6 +3451,8 @@ def main() -> int:
     t0 = time.time()
     small_shapes_check()
     step_kernel_edges()
+    stacked_step_wide()
+    static_engine_edges()
 
     # phase 3b: the stream engines at full width
     check_b = batch_of(np_stream, CHECK_WINDOWS)
@@ -3252,6 +3461,8 @@ def main() -> int:
     solo_ev = batch_of(np_events, ((0, T_ev),))
     static_dims = [(STATIC_GCN.in_dim, STATIC_GCN.hidden),
                    (STATIC_GCN.hidden, STATIC_GCN.out_dim)]
+    # the layers' true widths, which the main path's launch computes alone
+    static_widths = [static_dims[0][0]] + [d for _, d in static_dims]
     records = []
     inputs, paged_inputs, costs = {}, {}, {}
     for cfg, name, plain, cost, (b_in, s_in), tol in (
@@ -3267,6 +3478,9 @@ def main() -> int:
             (STATIC_GCN, "static_engine", engine.static_plain,
              lambda inp: static_cost(inp, static_dims), (check_b, solo),
              TOL_KERNEL)):
+        kernel = getattr(engine, name)
+        if name == "static_engine":
+            kernel = functools.partial(kernel, widths=static_widths)
         m, p = models[cfg.name], params[cfg.name]
         family = m.stream_family
         inputs[family] = (kernel_inputs(m, p, b_in, lengths=[8, 5]),
@@ -3277,8 +3491,8 @@ def main() -> int:
         paged_inputs[family] = inputs[family] if family != "tgn" else (
             kernel_inputs(m, p, b_in, lengths=[8, 5], residency="hbm_paged"),
             kernel_inputs(m, p, s_in, residency="hbm_paged"))
-        records.append(check_engine(
-            name, getattr(engine, name), plain, *inputs[family], cost, tol))
+        records.append(check_engine(name, kernel, plain, *inputs[family],
+                                    cost, tol))
     for family in PAGED:
         records.append(check_paged_engine(
             family, inputs[family], paged_inputs[family], costs[family],
@@ -3305,12 +3519,33 @@ def main() -> int:
                {f: v[1] for f, v in paged_inputs.items()})
     del paged_inputs
 
-    static_wave_probe(inputs["static_gcn"][1])
-    del inputs
+    # the static engine's launch three ways (bare launches and a CUDA graph
+    # in turns; its kernel duration after phase 6), and its plan
+    st_main = inputs["static_gcn"][1]
+    turns_ = step_turns(lambda: [engine.prepare(
+        "static_engine", *st_main, widths=static_widths)], "static_engine",
+        "static_engine main path")
+    B_st, k_st, D_st = st_main[0].shape[0], st_main[0].shape[-1], \
+        st_main[4].shape[-1]
+    lib_plan = engine.library_static_plan(B_st, k_st, D_st)
+    plan = engine.static_plan(B_st, k_st, D_st, static_widths)
+    check(lib_plan == {key: plan[key] for key in lib_plan},
+          f"static_engine plan {plan} != library {lib_plan}")
+    log(f"static_engine main path: {turns_['events']:.4f} ms bare launches, "
+        f"{turns_['graph']:.4f} ms from a CUDA graph a launch (medians of "
+        f"{STEP_SAMPLES} in turns); launch {plan}")
+    rec = next(r for r in records if r["name"] == "static_engine")
+    # beside the wrapper's time (``ms``, as every engine's: index checks and
+    # a host sync included), a prepared launch alone and from a graph
+    rec.update(launch_ms=turns_["events"], graph_ms=turns_["graph"],
+               turns=turns_, plan=lib_plan)
+    static_wave_probe(st_main, static_widths)
+    del inputs, st_main
 
     # phase 3c: the per-step kernels on recorded main-path inputs
     g_calls, s_calls, e_calls = recorded_step_calls(
         params, n_global, stream, np_stream)
+    stacked_one_layer_check(n_global, stream, np_stream)
     e_groups = ell_groups(e_calls)
     idx, _, _, x, h = g_calls[0][:5]
     plan = step_plan_check("gcrn_step", dict(

@@ -1,5 +1,6 @@
 // The gate product and LSTM update of a 32-row x 8-unit CTA, shared by the
-// fused cells (fused_rnn.cu) and the V2 GC-LSTM step (gcrn_step.cu).
+// fused cells (fused_rnn.cu) and the V2 steps (gcrn_step.cu,
+// stacked_step.cu).
 //
 // A CTA owns kRows node rows and kUnits hidden units with all G gates of
 // them (weight columns g H + j0 .. + kUnits for each g). Its weights reach
@@ -137,7 +138,7 @@ __device__ __forceinline__ float gate_sum(const float* red, int s, int r,
 }
 
 // c' = sig(f) c + sig(i) tanh(g), h' = sig(o) tanh(c') of the gates
-// i | f | g | o, with the rounding of engine_common.cuh's lstm_tile.
+// i | f | g | o, every multiply-add spelled out.
 __device__ __forceinline__ void lstm_update(const float (&gate)[4], float c,
                                             float& h_new, float& c_new) {
   c_new = __fmaf_rn(engine::sigmoidf(gate[1]), c,

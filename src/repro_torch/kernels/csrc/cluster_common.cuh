@@ -178,9 +178,10 @@ __device__ __forceinline__ void load_ell_tile(const int* idx,
   }
 }
 
-// ELL sum of one row and column c, as engine::ell_sum (the same chain:
-// coef-0 lanes skipped, the others' src (+ emsg) values added in lane
-// order), with the gathers of kBatch lanes issued before their sums (8
+// ELL sum of one row and column c (one chain: coef-0 lanes skipped, the
+// others' src (+ emsg) values added in lane order, the edge term added
+// before the coef multiplies), with the gathers of kBatch lanes issued
+// before their sums (8
 // covers most rows' live lanes, packed by load_ell_tile, in one round trip
 // to global memory).
 template <int kBatch = 8>

@@ -40,10 +40,10 @@
 //   four K rows and one float2 of weights a gate a K row. The splits'
 //   partial sums meet in shared memory and are added in a fixed order.
 // - The epilogue (bias, then the splits' sums; sigmoid / tanh, c' and h')
-//   runs in registers with the rounding helpers of the engines' cells
-//   (engine_common.cuh lstm_tile / gru_tile), and stores row-major.
+//   runs in registers, every multiply-add spelled out, and stores
+//   row-major.
 // - The K split's product, the partial sums and the LSTM update are
-//   cell_tile.cuh's, which gcrn_step.cu shares.
+//   cell_tile.cuh's, which gcrn_step.cu and stacked_step.cu share.
 // - Edges: rows past Bs, K rows past din or H and units past H are staged
 //   as zeros (cp.async's zero fill) and never stored. The 16-byte copies
 //   need din and H multiples of 4 and 16-byte aligned x, h, wx, wh;

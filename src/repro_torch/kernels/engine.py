@@ -45,10 +45,14 @@ resident and paged) run one stream on a thread-block cluster of
 ``engine_cluster_config`` mirrors that launch and
 ``library_engine_cluster_config`` reads the launcher's own (card only). They
 take any number of node rows a step: a CTA walks a step's tiles in chunks
-of ``CHUNK_ROWS``. ``step_plan`` mirrors the launches of the V2 GC-LSTM
-step (whose unit slices share a row tile's aggregation on a cluster of
-``CLUSTER`` CTAs) and of the ELL SpMM; ``library_step_plan`` reads the
-launchers' own (card only).
+of ``CHUNK_ROWS``. ``step_plan`` mirrors the launches of the V2 steps
+(GC-LSTM and GCN -> GRU, whose unit slices share a row tile's aggregation,
+and the stacked step's node transform, on a cluster of ``CLUSTER`` CTAs)
+and of the ELL SpMM; ``library_step_plan`` reads the launchers' own (card
+only). The static GCN engine runs a slot on a cluster of ``CLUSTER`` CTAs,
+each owning a column slice of every layer at the layer's true width;
+``static_plan`` mirrors its launch, ``library_static_plan`` reads the
+launcher's (card only).
 """
 from __future__ import annotations
 
@@ -84,11 +88,10 @@ SOURCE = {**{name: name for name in KERNELS[:8]},
           "flash_bwd_dkv": "flash_attention_bwd",
           "flash_bwd_dq": "flash_attention_bwd"}
 
-#: the per-step and stacked / tgn / static kernels' register micro-tile:
-#: each thread owns this many node rows. The kernels take any node count;
-#: the evolve kernel needs its square width D to be a multiple of it (its
-#: GRU's gwx / gwh slabs are whole rows of it, and a cluster of 8 CTAs
-#: then splits D evenly), which kernels/ops.py pads to.
+#: the multiple kernels/ops.py rounds the square width D of the evolve and
+#: static packs up to: the evolve kernel needs it (its GRU's gwx / gwh
+#: slabs are whole rows of it, and a cluster of 8 CTAs then splits D
+#: evenly). The kernels take any node count.
 ROW_ALIGN = 8
 #: a CTA's shared memory on Hopper (227 KB)
 SMEM_LIMIT = 232448
@@ -136,12 +139,20 @@ FLASH_THREADS, FLASH_HEAD_DIM = 384, 128
 #: dO, or k / v) and the ring's slots; threads and head_dim as the forward
 FLASH_BWD_CTA_ROWS, FLASH_BWD_TILE_ROWS, FLASH_BWD_STAGES = 128, 64, 3
 FLASH_BWD_KINDS = ("dkv", "dq")
-#: the V2 GC-LSTM step's launch (``gcrn_step.cu``): a CTA owns TILE_ROWS
-#: rows and STEP_UNITS hidden units (all four gates) on STEP_THREADS
+#: the V2 steps' launch (``gcrn_step.cu``, ``stacked_step.cu``): a CTA owns
+#: TILE_ROWS rows and STEP_UNITS hidden units (all gates) on STEP_THREADS
 #: threads, one K split a warp; its weight columns arrive STEP_CHUNK K rows
 #: a slot through a ring of STEP_STAGES slots; the CLUSTER unit slices of a
 #: row tile share its aggregation
 STEP_UNITS, STEP_THREADS, STEP_CHUNK, STEP_STAGES = 8, 256, 64, 3
+#: a cluster CTA's slice of a tile product (``slice_tile.cuh``: the stacked
+#: step's node transform, the static engine's layers): output columns a
+#: pass, and the floats of its 8 K splits' partial sums
+PASS_COLS = 16
+PASS_PART = STEP_THREADS // 32 * TILE_ROWS * PASS_COLS
+#: layers whose true widths a static-engine launch takes (more run at the
+#: square width D)
+STATIC_MAX_LAYERS = 32
 #: the ELL SpMM's launch (``ell_spmm.cu``): threads a CTA; a row takes a
 #: warp, or half of one where it is at most 16 vectors wide
 SPMM_THREADS = 256
@@ -236,7 +247,7 @@ _SIGNATURES = {
     "evolve_engine": (14, 6, 3),
     "stacked_engine": (15, 9, 4),
     "tgn_engine": (14, 7, 3),
-    "static_engine": (9, 5, 2),
+    "static_engine": (10, 5, 2),
     "gcrn_step": (12, 4, 3),
     "stacked_step": (12, 5, 4),
     "ell_spmm": (6, 6, 0),
@@ -307,16 +318,6 @@ def _check_smem(name: str, smem: int, dims: str) -> None:
 
 
 # ------------------------------------------------------ shared memory ----
-
-def _tile(cols: int) -> int:
-    """Bytes of a k-major node tile of ``cols`` columns."""
-    return 4 * cols * TILE_STRIDE
-
-
-def _ell(k: int, words: int) -> int:
-    """Bytes of a tile's ELL lanes, ``words`` 4-byte values a lane."""
-    return TILE_ROWS * k * 4 * words
-
 
 def _ring(depth: int, rows: int, td: int) -> int:
     """Bytes of a paging ring of ``depth`` (rows, td) slots and its
@@ -483,6 +484,71 @@ def _gcrn_step_smem(din: int, H: int) -> int:
     return 4 * max(tile + ring, red)
 
 
+def _k_cols(width: int) -> int:
+    """Columns of a ``slice_tile.cuh`` tile over a K range of ``width``: a
+    multiple of 32 (whole float4s for each of 8 K splits)."""
+    return _round_up(width, 32)
+
+
+def _stacked_step_place(din: int, dmid: int, H: int, wg_smem: bool) -> int:
+    """Bytes of a stacked_step CTA: its row-major agg tile (din rounded up
+    to 32, + 4 a row), its [nt | h] tile (dmid and H rounded up to 8, + 4),
+    its weight ring (3 gates) and, with ``wg_smem``, its Wg column slice
+    (din rounded up to 32 rows x the widest nt slice rounded up to
+    PASS_COLS); or the GRU's partial sums where more."""
+    tiles = TILE_ROWS * (_k_cols(din) + 4 + _round_up(dmid, 8)
+                         + _round_up(H, 8) + 4)
+    ring = STEP_STAGES * STEP_CHUNK * 3 * STEP_UNITS
+    wg = _k_cols(din) * _round_up(_slice_max(dmid), PASS_COLS) if wg_smem \
+        else 0
+    red = STEP_THREADS // 32 * 4 * TILE_ROWS * STEP_UNITS
+    return 4 * max(tiles + ring + wg, red)
+
+
+def stacked_step_wg_in_smem(din: int, dmid: int, H: int) -> bool:
+    """Does a stacked_step CTA hold its Wg column slice in shared memory?
+    Past its room it reads it from global memory (L2), the same sums."""
+    return _stacked_step_place(din, dmid, H, True) <= SMEM_LIMIT
+
+
+def _static_place(D: int, w_smem: bool, rows: int) -> int:
+    """Bytes of a static-engine cluster CTA: two row-major buffers of a
+    pass's ``rows`` (D rounded up to 32, + 4 a row), the partial sums of a
+    product pass for each of its tiles, the live-tile bits, its bias slice
+    and, with ``w_smem``, its W_l column slice (D rounded up to 32 rows x
+    the widest slice rounded up to PASS_COLS)."""
+    ldw = _round_up(_slice_max(D), PASS_COLS)
+    floats = (2 * rows * (_k_cols(D) + 4) + rows // TILE_ROWS * PASS_PART
+              + LIVE_WORDS + ldw)
+    if w_smem:
+        floats += _k_cols(D) * ldw
+    return 4 * floats
+
+
+def _static_variant(D: int) -> tuple:
+    """(W slice in shared memory, rows a pass) of a static-engine launch at
+    D: two tiles a pass with the W slice where both fit, else without it,
+    else one tile a pass without it."""
+    for w_smem, rows in ((True, 2 * TILE_ROWS), (False, 2 * TILE_ROWS)):
+        if _static_place(D, w_smem, rows) <= SMEM_LIMIT:
+            return w_smem, rows
+    return False, TILE_ROWS
+
+
+def static_weights_in_smem(D: int) -> bool:
+    """Does a static-engine CTA hold its W_l column slice in shared memory?
+    Past its room it reads it from global memory (L2), the same sums (up to
+    D 256)."""
+    return _static_variant(D)[0]
+
+
+def static_pass_rows(D: int) -> int:
+    """Node rows a static-engine pass aggregates and all-gathers at once:
+    two 32-row live tiles (a warp's rows on 4 threads each) up to D 384,
+    one past it."""
+    return _static_variant(D)[1]
+
+
 #: each kernel's dynamic shared memory: (argument names of the library's
 #: ``<name>_smem_bytes``, in its order; the same function of them)
 _SMEM = {
@@ -493,13 +559,18 @@ _SMEM = {
     # a cluster CTA (its units' weights where they fit)
     "stacked_engine": (("k", "din", "dmid", "H"), _stacked_cta),
     "tgn_engine": (("k", "din", "H"), _tgn_cta),
-    "static_engine": (("k", "D"), lambda k, D: _tile(2 * D) + _ell(k, 2)),
+    # a cluster CTA (its W_l column slice where it fits); k does not
+    # change it
+    "static_engine": (("k", "D"),
+                      lambda k, D: _static_place(D, *_static_variant(D))),
     # the row-major [agg_x | agg_h] tile and the weight ring, or the K
     # splits' partial sums where more; k does not change it
     "gcrn_step": (("k", "din", "H"), lambda k, din, H: _gcrn_step_smem(din, H)),
+    # the agg and [nt | h] tiles, the weight ring and the Wg slice where it
+    # fits; k does not change it
     "stacked_step": (("k", "din", "dmid", "H"),
-                     lambda k, din, dmid, H: _tile(din + dmid + H)
-                     + _ell(k, 3)),
+                     lambda k, din, dmid, H: _stacked_step_place(
+                         din, dmid, H, stacked_step_wg_in_smem(din, dmid, H))),
     # a cluster CTA; a slot: up to BOX_ROWS gathered h rows and the tile's
     # c rows, td of its own columns
     "gcrn_engine_paged": (("k", "din", "H", "n", "td", "depth"),
@@ -620,26 +691,33 @@ def library_ctas(name: str, Bs: int, H: int) -> int:
 
 #: the arguments of each per-step kernel's ``<name>_plan``, in its order
 _PLAN_ARGS = {"gcrn_step": ("n", "k", "din", "H"),
+              "stacked_step": ("n", "k", "din", "dmid", "H"),
               "ell_spmm": ("L", "n", "d", "aligned")}
 
 
 def step_plan(name: str, **dims) -> dict:
     """The launch of per-step kernel ``name`` at ``dims``: "gcrn_step" over
-    n rows (k, din, H), "ell_spmm" over L graphs of n rows d wide
-    (``aligned``: x, emsg and the output start on 16 bytes). Its CTAs,
-    threads a CTA and dynamic shared memory; for gcrn_step its row tiles,
-    unit slices (padded to whole clusters: a 1-D grid of both, the slices
-    of a tile neighbours) and CTAs a cluster, for the ELL SpMM its grid
-    (row blocks, graphs), the rows a CTA, the threads a row and the floats
-    a vector. It equals the launcher's own (``library_step_plan``, on the
-    card)."""
-    if name == "gcrn_step":
+    n rows (k, din, H), "stacked_step" over n rows (k, din, dmid, H),
+    "ell_spmm" over L graphs of n rows d wide (``aligned``: x, emsg and the
+    output start on 16 bytes). Its CTAs, threads a CTA and dynamic shared
+    memory; for the V2 steps their row tiles, unit slices (padded to whole
+    clusters: a 1-D grid of both, the slices of a tile neighbours) and CTAs
+    a cluster, for stacked_step also whether its Wg slice sits in shared
+    memory (``wg_smem``); for the ELL SpMM its grid (row blocks, graphs),
+    the rows a CTA, the threads a row and the floats a vector. It equals the
+    launcher's own (``library_step_plan``, on the card)."""
+    if name in ("gcrn_step", "stacked_step"):
         n, H = dims["n"], dims["H"]
         tiles = -(-n // TILE_ROWS)
         slices = _round_up(-(-H // STEP_UNITS), CLUSTER)
-        return {"tiles": tiles, "slices": slices, "ctas": tiles * slices,
+        args = {a: dims[a] for a in _SMEM[name][0]}
+        plan = {"tiles": tiles, "slices": slices, "ctas": tiles * slices,
                 "cluster": CLUSTER, "threads": STEP_THREADS,
-                "smem": smem_bytes(name, k=dims["k"], din=dims["din"], H=H)}
+                "smem": smem_bytes(name, **args)}
+        if name == "stacked_step":
+            plan["wg_smem"] = stacked_step_wg_in_smem(dims["din"],
+                                                      dims["dmid"], H)
+        return plan
     if name == "ell_spmm":
         d = dims["d"]
         vec = 4 if d % 4 == 0 and dims["aligned"] else 1
@@ -661,11 +739,52 @@ def library_step_plan(name: str, **dims) -> dict:
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * 7)()
     fn(*(int(dims[a]) for a in args), out)
-    if name == "gcrn_step":
-        return {"tiles": out[0], "slices": out[1], "ctas": out[2],
+    if name in ("gcrn_step", "stacked_step"):
+        plan = {"tiles": out[0], "slices": out[1], "ctas": out[2],
                 "cluster": out[5], "threads": out[3], "smem": out[4]}
+        if name == "stacked_step":
+            plan["wg_smem"] = bool(out[6])
+        return plan
     return {"grid": (out[0], out[1]), "ctas": out[2], "threads": out[3],
             "smem": 0, "rows": out[4], "row_threads": out[5], "vec": out[6]}
+
+
+def static_plan(B: int, k: int, D: int, widths) -> dict:
+    """The static engine's launch over B slots of square width D with the
+    layers' true widths ``widths`` (L + 1: din_0, dout_0 = din_1, ...,
+    dout_{L-1}; past STATIC_MAX_LAYERS layers every width is D): a cluster
+    of CLUSTER CTAs a slot, its CTAs, threads a CTA, dynamic shared memory,
+    whether a CTA holds its W_l slice in shared memory (``weights_smem``),
+    the layers whose true widths a launch takes (``max_layers``), the node
+    rows a pass aggregates at once (``pass_rows``), the widths the kernel
+    runs (``widths``) and the output columns [lo, hi) each CTA owns at each
+    layer (``slices``). The first seven equal the launcher's own
+    (``library_static_plan``, on the card)."""
+    widths = list(widths)
+    if len(widths) > STATIC_MAX_LAYERS + 1:
+        widths = [D] * len(widths)
+    return {"cluster": CLUSTER, "ctas": B * CLUSTER,
+            "threads": CLUSTER_THREADS,
+            "smem": smem_bytes("static_engine", k=k, D=D),
+            "weights_smem": static_weights_in_smem(D),
+            "max_layers": STATIC_MAX_LAYERS,
+            "pass_rows": static_pass_rows(D), "widths": widths,
+            "slices": [list(zip(bounds[:-1], bounds[1:]))
+                       for bounds in map(slice_bounds, widths[1:])]}
+
+
+def library_static_plan(B: int, k: int, D: int) -> dict:
+    """The launcher's own (its ``static_engine_plan``; needs the card):
+    ``static_plan``'s cluster, CTAs, threads, shared memory, weights flag,
+    layers taken and rows a pass."""
+    fn = _library("static_engine").static_engine_plan
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 7)()
+    fn(B, k, D, out)
+    return {"cluster": out[0], "ctas": out[1], "threads": out[2],
+            "smem": out[3], "weights_smem": bool(out[4]),
+            "max_layers": out[5], "pass_rows": out[6]}
 
 
 def flash_config(bh: int, s: int, d: int) -> dict:
@@ -1397,21 +1516,47 @@ def static_plain(idx, coef, x, mask, w, bg, eagg=None):
     return outs
 
 
-def static_engine(idx, coef, x, mask, w, bg, eagg=None):
+def _check_widths(name: str, widths, L: int, D: int) -> list:
+    """The layers' true widths (L + 1 ints in [1, D]), D throughout for
+    None."""
+    if widths is None:
+        return [D] * (L + 1)
+    widths = [int(c) for c in widths]
+    if len(widths) != L + 1 or not all(1 <= c <= D for c in widths):
+        raise ValueError(f"{name}: widths {widths} are not L + 1 = {L + 1} "
+                         f"widths in [1, {D}]")
+    return widths
+
+
+def static_engine(idx, coef, x, mask, w, bg, eagg=None, widths=None):
     """L-layer GCN over B independent snapshot slots (T = 1) in one launch,
-    one CTA a slot.
+    a cluster of CLUSTER CTAs a slot, each owning a column slice of every
+    layer.
 
     idx (B, 1, n, k) int32, coef (B, 1, n, k), x (B, 1, n, D),
     mask (B, 1, n), w (L, D, D) and bg (L, D) shared by the slots,
-    eagg (B, 1, L, n, D) or None; float tensors float32. Returns
-    outs (B, 1, n, D)."""
+    eagg (B, 1, L, n, D) or None; float tensors float32. ``widths``: the
+    layers' true widths (L + 1: din_0, dout_0 = din_1, ..., dout_{L-1};
+    None: D throughout), which the kernel computes alone: x, w, bg and eagg
+    must be zero past them, as the square pack leaves them. Returns
+    outs (B, 1, n, D), zeros past the last width."""
     refuse_grad("static_engine", idx, coef, x, mask, w, bg, eagg)
     name = "static_engine"
-    _check_static_t(idx)
     if _device_kind(name, x) == "cpu":
+        _check_static_t(idx)
+        _check_widths(name, widths, w.shape[0], w.shape[-1])
         return static_plain(idx, coef, x, mask, w, bg, eagg)
+    return launch(_prepare_static_engine(idx, coef, x, mask, w, bg, eagg,
+                                         widths=widths))
+
+
+def _prepare_static_engine(idx, coef, x, mask, w, bg, eagg=None,
+                           widths=None) -> Prepared:
+    name = "static_engine"
+    _check_static_t(idx)
     B, T, n, k = idx.shape
     L, D = w.shape[0], w.shape[-1]
+    widths = _check_widths(name, widths, L, D)
     f32, i32 = torch.float32, torch.int32
     _check(name, x.device, idx=(idx, i32), coef=(coef, f32), x=(x, f32),
            mask=(mask, f32), w=(w, f32), bg=(bg, f32), eagg=(eagg, f32))
@@ -1425,15 +1570,19 @@ def static_engine(idx, coef, x, mask, w, bg, eagg=None):
     _check_smem(name, lib.static_engine_smem_bytes(k, D), f"k={k}, D={D}")
     outs = torch.empty((B, T, n, D), dtype=f32, device=x.device)
     act = torch.empty((B, 2, n, D), dtype=f32, device=x.device)
+    host_widths = (ctypes.c_int * (L + 1))(*widths)
     with torch.cuda.device(x.device):
-        _launch(name, lib, _ptr(idx), _ptr(coef), _ptr(x), _ptr(mask),
-                _ptr(w), _ptr(bg), _ptr(eagg), _ptr(outs), _ptr(act), B, n,
-                k, L, D, _stream_ptr())
-    return outs
+        args = (_ptr(idx), _ptr(coef), _ptr(x), _ptr(mask), _ptr(w),
+                _ptr(bg), _ptr(eagg),
+                ctypes.cast(host_widths, ctypes.c_void_p), _ptr(outs),
+                _ptr(act), B, n, k, L, D, _stream_ptr())
+    return Prepared(name, lib, args, outs,
+                    (idx, coef, x, mask, w, bg, eagg, act, host_widths))
 
 
 # ----------------------------------------- per-step kernels: V2, SpMM ----
-# The per-step kernels take microseconds, so their wrappers split in two:
+# The per-step kernels take microseconds, so their wrappers (and the static
+# engine's, whose one launch a run is timed the same way) split in two:
 # ``prepare`` checks the tensors (index ranges included), allocates the
 # outputs and marshals the C arguments; ``launch`` launches what was
 # prepared (again, if called again: it overwrites the same outputs).
@@ -1459,9 +1608,9 @@ def launch(p: Prepared):
 
 
 def prepare(name: str, *args, **kwargs) -> Prepared:
-    """Check, allocate and marshal one launch of the per-step kernel
-    ``name`` ("gcrn_step", "stacked_step", "ell_spmm", "fused_gru" or
-    "fused_lstm") on CUDA tensors, with that wrapper's arguments."""
+    """Check, allocate and marshal one launch of the kernel ``name``
+    ("gcrn_step", "stacked_step", "ell_spmm", "fused_gru", "fused_lstm" or
+    "static_engine") on CUDA tensors, with that wrapper's arguments."""
     refuse_grad(name, *args, *kwargs.values())
     return _PREPARE[name](*args, **kwargs)
 
@@ -1702,7 +1851,8 @@ def _prepare_fused_lstm(x, h, c, wx, wh, b, *, tb: int = 128) -> Prepared:
     return Prepared(name, lib, args, (h_out, c_out), (x, h, c, wx, wh, b))
 
 
-_PREPARE = {"gcrn_step": _prepare_gcrn_step,
+_PREPARE = {"static_engine": _prepare_static_engine,
+            "gcrn_step": _prepare_gcrn_step,
             "stacked_step": _prepare_stacked_step,
             "ell_spmm": _prepare_ell_spmm,
             "fused_gru": _prepare_fused_gru,

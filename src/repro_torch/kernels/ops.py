@@ -421,9 +421,11 @@ def _static_launch(batched, neigh_idx, neigh_coef, node_feat, node_mask,
                                  node_feat[None], node_mask[None], weights,
                                  b_gcn, ea)
         return (outs[0],)
+    # the layers' true widths, which the kernel computes alone
+    widths = [weights[0].shape[-2]] + [w.shape[-1] for w in weights]
     outs = _engine.static_engine(*_static_pack(
         neigh_idx, neigh_coef, node_feat, node_mask, weights, b_gcn,
-        edge_aggs))
+        edge_aggs), widths=widths)
     return (outs[..., :weights[-1].shape[-1]],)
 
 

@@ -13,10 +13,11 @@
 * The new kernel wrappers refuse devices other than cpu and cuda; on a
   card they match their plain versions at the kernels' edges, bit for bit
   across two calls (skipped here).
-* The launch plans of ``gcrn_step`` and ``ell_spmm`` (``engine.step_plan``):
-  the grid at the main path's shape, shared memory that does not grow with
-  n and takes every width the one-CTA step kernel took; on a card, the
-  library's own plan (skipped here).
+* The launch plans of ``gcrn_step``, ``stacked_step`` and ``ell_spmm``
+  (``engine.step_plan``): the grid at the main path's shape, shared memory
+  that does not grow with n and takes every width the one-CTA step kernels
+  took; on a card, the library's own plan, and stacked_step at the main
+  path's shape, past its Wg room and past 65,536 rows (skipped here).
 """
 import dataclasses
 
@@ -366,9 +367,80 @@ def test_ell_spmm_plan(d, aligned, row_threads, vec):
     assert plan["ctas"] == plan["grid"][0] * 3
 
 
+def test_stacked_step_plan_fills_the_card_at_the_main_shape():
+    """BC-Alpha's stacked V2 step (n 640, k 27, din = dmid = H = 128): 20
+    row tiles x 16 unit slices, 320 CTAs of 256 threads, the 8 slices of a
+    cluster sharing the tile's aggregation and its node transform."""
+    plan = engine.step_plan("stacked_step", n=640, k=27, din=128, dmid=128,
+                            H=128)
+    assert (plan["tiles"], plan["slices"], plan["ctas"]) == (20, 16, 320)
+    assert plan["cluster"] == engine.CLUSTER == 8
+    assert plan["threads"] == engine.STEP_THREADS == 256
+    # the agg tile (32 x 132), the [nt | h] tile (32 x 260), three 64-row
+    # slots of 3 gates x 8 units, and the Wg slice (128 x 16)
+    assert plan["wg_smem"]
+    assert plan["smem"] == 4 * (32 * 132 + 32 * 260 + 3 * 64 * 24 + 128 * 16)
+
+
+@pytest.mark.parametrize("k", [1, 27, 40])
+def test_stacked_step_smem_does_not_grow_with_n_or_k(k):
+    plans = [engine.step_plan("stacked_step", n=n, k=k, din=128, dmid=128,
+                              H=128) for n in (1, 37, 640, 100_000)]
+    assert len({p["smem"] for p in plans}) == 1
+    assert plans[0]["smem"] == engine.smem_bytes(
+        "stacked_step", k=1, din=128, dmid=128, H=128)
+    assert [p["tiles"] for p in plans] == [1, 2, 20, 3125]
+    assert all(p["ctas"] == p["tiles"] * 16 for p in plans)
+
+
+@pytest.mark.parametrize("H, slices", [(8, 8), (20, 8), (64, 8), (72, 16),
+                                       (128, 16)])
+def test_stacked_step_pads_its_unit_slices_to_whole_clusters(H, slices):
+    plan = engine.step_plan("stacked_step", n=37, k=5, din=12, dmid=19, H=H)
+    assert plan["slices"] == slices and plan["ctas"] == 2 * slices
+    assert plan["ctas"] % plan["cluster"] == 0
+
+
+def _one_cta_stacked_smem(k, din, dmid, H):
+    """The shared memory of the one-CTA stacked_step kernel the cluster
+    design replaced: k-major (din + dmid + H, 36) tiles and the tile's ELL
+    lanes (three words a lane)."""
+    return 4 * (din + dmid + H) * engine.TILE_STRIDE \
+        + engine.TILE_ROWS * k * 12
+
+
+@pytest.mark.parametrize("k", [1, 5, 27, 40, 300])
+def test_stacked_step_takes_every_width_the_one_cta_kernel_took(k):
+    """Every (din, dmid, H) the one-CTA kernel took at this k still fits:
+    the widest sums din + dmid + H, split every way over the three."""
+    widest = (engine.SMEM_LIMIT - engine.TILE_ROWS * k * 12) // (
+        4 * engine.TILE_STRIDE)
+    assert _one_cta_stacked_smem(k, 1, 1, widest - 2) <= engine.SMEM_LIMIT
+    assert _one_cta_stacked_smem(k, 1, 1, widest - 1) > engine.SMEM_LIMIT
+    for din in (1, 4, 13, 64, 128, widest // 3, widest // 2, widest - 2):
+        for dmid in (1, 8, 19, 128, (widest - din) // 2, widest - din - 1):
+            H = widest - din - dmid
+            if min(dmid, H) < 1:
+                continue
+            assert engine.smem_bytes("stacked_step", k=k, din=din,
+                                     dmid=dmid, H=H) <= engine.SMEM_LIMIT, \
+                (din, dmid, H)
+
+
+def test_stacked_step_reads_wg_from_l2_past_its_room():
+    """Where the Wg column slice does not fit beside the tiles, it is read
+    from global memory (L2): same launch, the sums unchanged."""
+    assert engine.stacked_step_wg_in_smem(128, 128, 128)
+    assert not engine.stacked_step_wg_in_smem(600, 600, 400)
+    assert engine.step_plan("stacked_step", n=37, k=1, din=600, dmid=600,
+                            H=400)["wg_smem"] is False
+    assert engine.smem_bytes("stacked_step", k=1, din=600, dmid=600,
+                             H=400) <= engine.SMEM_LIMIT
+
+
 def test_step_plan_names_only_the_per_step_kernels():
     with pytest.raises(ValueError, match="has no step plan"):
-        engine.step_plan("stacked_step", n=1)
+        engine.step_plan("fused_gru", Bs=1, H=8)
 
 
 @pytest.mark.cuda
@@ -377,9 +449,42 @@ def test_step_plan_names_only_the_per_step_kernels():
     *[("gcrn_step", dict(n=n, k=k, din=din, H=h))
       for n, k, din, h, _ in EDGE_SHAPES],
     ("gcrn_step", dict(n=37, k=5, din=64, H=1552)),
+    ("stacked_step", dict(n=640, k=27, din=128, dmid=128, H=128)),
+    *[("stacked_step", dict(n=n, k=k, din=din, dmid=din + 7, H=h))
+      for n, k, din, h, _ in EDGE_SHAPES],
+    ("stacked_step", dict(n=37, k=1, din=600, dmid=600, H=400)),
+    ("stacked_step", dict(n=37, k=1, din=16, dmid=8, H=1587)),
     *[("ell_spmm", dict(L=L, n=n, d=d, aligned=a))
       for L, n, d, a in ((1, 640, 64, 1), (1, 640, 128, 1), (3, 37, 13, 1),
                          (2, 37, 64, 0), (1, 37, 12, 1), (1, 5, 256, 1))]])
 def test_step_plan_matches_library_on_card(cuda, name, dims):
     assert engine.library_step_plan(name, **dims) == engine.step_plan(
         name, **dims)
+
+
+# stacked_step on the card at the main path's widths (n 640, k 27, din =
+# dmid = H = 128), past its Wg room (Wg read from L2), at the widest H at k
+# 1, and past 65,536 rows; a third of the rows live, the rest padding (no
+# lanes, h 0: the padding tiles' shortcut)
+STACKED_CARD_SHAPES = [(640, 27, 128, 128, 128), (640, 27, 64, 128, 128),
+                       (37, 1, 600, 600, 400), (37, 1, 16, 8, 1587),
+                       (66_000, 27, 128, 128, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", STACKED_CARD_SHAPES)
+@pytest.mark.parametrize("edges", [False, True])
+def test_stacked_step_wide_matches_plain_on_card(cuda, shape, edges):
+    n, k, din, dmid, h = shape
+    d = _inputs(11, n=n, k=k, din=din, dmid=dmid, h=h)
+    d["coef"][n // 3:] = 0.0
+    d["h"][n // 3:] = 0.0
+    args = [None if a is None else a.to(cuda) for a in _t(
+        d["idx"], d["coef"], d["eidx"], d["x"], d["h"], d["wg"], d["bg"],
+        d["gx"], d["gh"], d["gb"], d["em"] if edges else None)]
+    got, again = (tops.stacked_fused_step(*args) for _ in range(2))
+    want = tops.stacked_fused_step(*args, force_ref=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again), "two calls differ"
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               atol=1e-4)
