@@ -93,6 +93,32 @@ Phases (any failure exits non-zero):
      The launch counts are set to 0 just before each path and read just
      after it; each path's results are held against its force-ref run on
      the card (<= 1e-3; <= 1e-4 for the cells).
+     Then the serve layer (serve_phase) on the 137 raw BC-Alpha COO
+     snapshots, every result held against the offline run of the same
+     snapshots padded into one bucket through run_plan with force_ref on
+     the card (outputs on each snapshot's real rows and final states,
+     <= 1e-3; <= 1e-4 for the static express lane), every fault-free path
+     with no degraded launch and its engine's launch count equal to the
+     server's: (1) BoosterSession.serve of the whole stream for GCRN-M2,
+     EvolveGCN-O and the stacked GCN -> GRU at v3, chunks of 8, in one
+     fixed bucket (640) and in DEFAULT_BUCKETS; (2) serve_multi's round
+     scheduler, eight GCRN-M2 tenants (a window of ~17 snapshots each) with
+     DEFAULT_BUCKETS and promote_buckets 4.0 under the static and the
+     measured guard (its per-bucket times printed beside bucket_cost; its
+     calibration launches, two a bucket, counted), the callers' state
+     tensors unchanged; (3) the express lane, a static GCN session serving
+     four tenants beside four GCRN-M2 ones (static_engine launches equal
+     to express_launches); (4) four fault plans under supervision
+     "isolate": a persistent launch fault on one tenant (quarantined, the
+     others equal offline), a transient one retried, a kernel-scoped one
+     served by the degradation ladder's oracle rung (no engine launch
+     reached), a mid-commit evolve fault on EvolveGCN-O rolled back (bit
+     for bit the fault-free serve); (5) python -m
+     repro_torch.launch.serve --dgnn gcrn-m2 in a process of its own. Paths
+     1-3 print ms a snapshot of staging + launch (a chunk's stacking,
+     copy to the card, launch and synchronize over its live snapshots),
+     host preprocessing ms and snapshots/s beside the card's name and
+     power limit.
   5. the device's busy share of one run at baseline, v2 and v3, resident
      and paged (kernel time over wall time, torch.profiler), with the CTAs
      a v3 launch of each stateful family uses.
@@ -172,6 +198,7 @@ import contextlib
 import dataclasses
 import functools
 import json
+import os
 import re
 import subprocess
 import sys
@@ -195,7 +222,9 @@ from repro_torch.core.dataflow import (build_model, init_states_batched,  # noqa
                                        run_plan, run_plan_batched,
                                        stack_time)
 from repro_torch.core.evolvegcn import layer_dims  # noqa: E402
-from repro_torch.graph import (generate_temporal_graph, max_in_degree,  # noqa: E402
+from repro_torch.graph import (DEFAULT_BUCKETS, bucket_cost,  # noqa: E402
+                               choose_bucket, generate_temporal_graph,
+                               max_in_degree,
                                pad_event_block, pad_snapshot,
                                renumber_and_normalize, slice_snapshots)
 from repro_torch.graph.padding import PaddedSnapshot, stack_ragged  # noqa: E402
@@ -212,7 +241,8 @@ from repro_torch.nn import attention as attention_mod  # noqa: E402
 from repro_torch.nn.layers import embed_lookup  # noqa: E402
 from repro_torch.optim import (AdamWConfig, global_norm,  # noqa: E402
                                init_opt_state, tree_leaves)
-from repro_torch.serve import generate  # noqa: E402
+from repro_torch.serve import (FaultPlan, FaultSpec, InjectedFault,  # noqa: E402
+                               SnapshotServer, generate)
 from repro_torch.train import (TrainLoopConfig, make_train_step,  # noqa: E402
                                train)
 
@@ -3400,6 +3430,359 @@ def train_loop_path():
     return counts
 
 
+# ------------------------------------------------------ the serve phase ----
+# The DGNN serve layer (serve/engine.py) on the card: BoosterSession.serve,
+# serve_multi (the round scheduler) with promotion under both guards, the
+# express lane, four fault plans and the DGNN launcher, on the raw BC-Alpha
+# COO snapshots. Each result is held against the offline run of the same
+# snapshots, padded into one bucket, through run_plan with force_ref on the
+# card (outputs on each snapshot's real rows, and the final state).
+
+SERVE_CHUNK = 8
+# the fixed bucket that covers the stream; the plan's default one
+SERVE_FIXED = dict(n_pad=N_PAD, e_pad=4096, k_max=64)
+SERVE_BUCKET = (N_PAD, 4096, 64)
+# serve_multi: eight GCRN-M2 tenants, a window of the stream each
+SERVE_WINDOWS = ((0, 17), (17, 34), (34, 51), (51, 68), (68, 85), (85, 102),
+                 (102, 119), (119, 137))
+SERVE_PROMOTE = 4.0
+# the express lane: four static tenants beside four recurrent ones; the
+# fault plans: four tenants
+SERVE_SMALL = 4
+SERVE_FAMILIES = (GCRN_M2, EVOLVEGCN, STACKED)
+
+
+def bc_alpha_coo():
+    """The raw BC-Alpha COO snapshots and the global feature table."""
+    tg, feat = generate_temporal_graph(BC_ALPHA, feat_dim=GCRN_M2.in_dim)
+    return slice_snapshots(tg, 1.0), feat, tg.n_global_nodes
+
+
+def serve_offline(cfg, params, n_global, snaps, feat):
+    """The offline reference: ``snaps`` padded into SERVE_BUCKET through
+    run_plan with force_ref on the card. Returns (outputs (T, n_pad, out)
+    on the host, final state); no kernel launches."""
+    model = build_model(cfg, n_global=n_global)
+    pads = [pad_snapshot(renumber_and_normalize(s), feat, *SERVE_BUCKET)
+            for s in snaps]
+    engine.reset_launches()
+    state, outs = run_plan(model, params, model.init_state(params,
+                                                           mode="v3"),
+                           stack_time(pads).to("cuda"),
+                           api.plan(cfg, level="v3"), force_ref=True)
+    torch.cuda.synchronize()
+    check(not any(engine.LAUNCHES.values()),
+          f"{cfg.name} offline force_ref reached a kernel")
+    return outs.cpu().numpy(), state
+
+
+def serve_errs(outs, state, snaps, ref) -> tuple:
+    """Largest |served - offline| over each output's real rows, and over
+    the final state (0 for a stateless tenant)."""
+    ref_outs, ref_state = ref
+    check(len(outs) == len(snaps), "served one output a snapshot")
+    rows = [renumber_and_normalize(s).n_nodes for s in snaps]
+    check(all(np.isfinite(o).all() for o in outs), "served outputs finite")
+    out_err = max(float(np.abs(o[:n] - r[:n]).max())
+                  for o, r, n in zip(outs, ref_outs, rows))
+    return out_err, (max_err(state, ref_state) if state else 0.0)
+
+
+def serve_session(cfg, params, n_global, feat, **plan_kw):
+    plan = api.plan(cfg, level="v3", stream_chunk=SERVE_CHUNK, **plan_kw)
+    return api.BoosterSession(cfg, plan, n_global=n_global, feat_table=feat,
+                              params=params, device="cuda")
+
+
+def serve_counts(label, stats, want: dict) -> dict:
+    """The launch counts of the serve path just run: nonzero ones equal
+    ``want`` exactly (every served chunk went through its engine), and no
+    launch degraded to the plain path."""
+    counts = {k: v for k, v in engine.LAUNCHES.items() if v}
+    log(f"serve {label}: launches {counts}, stats.launches "
+        f"{stats.launches} {stats.launches_by_family}, degraded "
+        f"{stats.degraded_launches}")
+    check(stats.degraded_launches == 0, f"serve {label} degraded a launch")
+    check(counts == want, f"serve {label} launches {counts} != {want}")
+    return counts
+
+
+def serve_timing(label, stats, card) -> None:
+    served = len(stats.per_snapshot_ms)
+    log(f"serve {label}: {stats.mean_latency_ms:.4f} ms/snapshot staging + "
+        f"launch, host preprocessing "
+        f"{float(np.mean(stats.preprocess_ms)):.4f} "
+        f"ms/snapshot, {served / (stats.total_ms / 1e3):.1f} snapshots/s "
+        f"({served} in {stats.total_ms:.1f} ms; live "
+        f"{stats.live_snapshots}, padded {stats.padded_snapshots}, "
+        f"promoted {stats.promoted_chunks}, launches {stats.launches}); "
+        f"{card}")
+
+
+def serve_check(label, errs, tol) -> None:
+    log(f"serve {label} vs offline force_ref: outputs {errs[0]:.3e}, "
+        f"final state {errs[1]:.3e} (tol {tol})")
+    check(all(np.isfinite(e) and e <= tol for e in errs),
+          f"serve {label} vs offline {errs}")
+
+
+def serve_windows(snaps, wins) -> dict:
+    return {f"t{i}": snaps[a:b] for i, (a, b) in enumerate(wins)}
+
+
+def serve_streams(params, n_global, snaps, feat, buckets, card) -> dict:
+    """Path 1: BoosterSession.serve, one stream of all 137 snapshots, for
+    GCRN-M2, EvolveGCN-O and the stacked GCN -> GRU at v3, chunks of 8: a
+    fixed bucket, then the bucket set."""
+    launches = {}
+    for cfg in SERVE_FAMILIES:
+        p = params[cfg.name]
+        ref = serve_offline(cfg, p, n_global, snaps, feat)
+        name = ENGINE[api.family_for(cfg)]
+        for how, kw in (("fixed 640", SERVE_FIXED),
+                        ("buckets", dict(buckets=buckets))):
+            label = f"{cfg.name} serve {how}"
+            sess = serve_session(cfg, p, n_global, feat, **kw)
+            engine.reset_launches()
+            outs, stats = sess.serve(snaps)
+            torch.cuda.synchronize()
+            counts = serve_counts(label, stats, {name: stats.launches})
+            serve_timing(label, stats, card)
+            serve_check(label, serve_errs(outs, sess.state, snaps, ref),
+                        TOL_STREAM)
+            for k, v in counts.items():
+                launches[k] = launches.get(k, 0) + v
+    return launches
+
+
+def serve_multi_paths(params, n_global, snaps, feat, buckets, card) -> dict:
+    """Path 2: serve_multi, the round scheduler: eight GCRN-M2 tenants from
+    fresh state, a window each, with the bucket set and promote_buckets
+    4.0, under the static guard and then the measured one (its per-bucket
+    times printed beside bucket_cost). The caller's state tensors must be
+    untouched by the serve (the reference checkpoint's premise)."""
+    cfg, p = GCRN_M2, params[GCRN_M2.name]
+    streams = serve_windows(snaps, SERVE_WINDOWS)
+    refs = {sid: serve_offline(cfg, p, n_global, s, feat)
+            for sid, s in streams.items()}
+    launches = {}
+    for guard in ("static", "measured"):
+        label = f"{cfg.name} serve_multi x{len(streams)} {guard} guard"
+        sess = serve_session(cfg, p, n_global, feat, buckets=buckets,
+                             promote_buckets=SERVE_PROMOTE,
+                             promotion_guard=guard)
+        srv = SnapshotServer(session=sess)
+        states = {sid: sess.model.init_state(p, mode="v3")
+                  for sid in streams}
+        held = {sid: {k: v.clone() for k, v in st.items()}
+                for sid, st in states.items()}
+        ins = dict(states)
+        engine.reset_launches()
+        states, outs, stats = srv.run_multi(p, states, streams)
+        torch.cuda.synchronize()
+        calib = 2 * len(buckets) if guard == "measured" else 0
+        counts = serve_counts(label, stats, {
+            ENGINE["gcrn"]: stats.launches + calib})
+        serve_timing(label, stats, card)
+        check(all(bitwise(ins[sid], held[sid]) for sid in streams),
+              f"{label} changed a caller's state tensor")
+        check(not stats.tenant_errors, f"{label} tenant errors")
+        errs = [serve_errs(outs[sid], states[sid], s, refs[sid])
+                for sid, s in streams.items()]
+        serve_check(label, (max(e[0] for e in errs), max(e[1] for e in errs)),
+                    TOL_STREAM)
+        if guard == "measured":
+            check(stats.calibration_fallback is None,
+                  f"{label} calibration fell back")
+            ms = srv._bucket_ms
+            log(f"serve measured guard, per-bucket step ms (calibration: an "
+                "empty chunk of 8 a bucket) beside bucket_cost: " + "; ".join(
+                    f"{b}: {ms[b]:.4f} ms, cost {bucket_cost(b)}"
+                    for b in buckets)
+                + f"; measured ratios "
+                + ", ".join(f"{ms[b2] / ms[b1]:.3f}" for b1, b2
+                            in zip(buckets, buckets[1:]))
+                + ", static " + ", ".join(
+                    f"{bucket_cost(b2) / bucket_cost(b1):.3f}"
+                    for b1, b2 in zip(buckets, buckets[1:])))
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    return launches
+
+
+def serve_express_path(params, n_global, snaps, feat, card) -> dict:
+    """Path 3: the express lane: a static GCN session as ``express=``,
+    four express tenants beside four recurrent GCRN-M2 ones (fixed
+    bucket)."""
+    cfg, p = GCRN_M2, params[GCRN_M2.name]
+    xcfg, xp = STATIC_GCN, params[STATIC_GCN.name]
+    wins = SERVE_WINDOWS
+    streams = serve_windows(snaps, wins[:SERVE_SMALL])
+    xstreams = {f"x{i}": snaps[a:b]
+                for i, (a, b) in enumerate(wins[SERVE_SMALL:])}
+    sess = serve_session(cfg, p, n_global, feat, **SERVE_FIXED)
+    xsess = api.BoosterSession(xcfg, api.plan(xcfg, level="v3",
+                                              **SERVE_FIXED),
+                               n_global=n_global, feat_table=feat,
+                               params=xp, device="cuda")
+    srv = SnapshotServer(session=sess, express=xsess)
+    refs = {sid: serve_offline(cfg, p, n_global, s, feat)
+            for sid, s in streams.items()}
+    xrefs = {sid: serve_offline(xcfg, xp, n_global, s, feat)
+             for sid, s in xstreams.items()}
+    states = {sid: sess.model.init_state(p, mode="v3") for sid in streams}
+    label = (f"express lane: {len(xstreams)} {xcfg.name} beside "
+             f"{len(streams)} {cfg.name}")
+    engine.reset_launches()
+    states, outs, stats = srv.run_multi(p, states, streams,
+                                        express_streams=xstreams,
+                                        express_params=xp)
+    torch.cuda.synchronize()
+    check(stats.express_launches > 0, f"{label}: no express launch")
+    check(stats.launches_by_family.get("static_gcn") == stats.express_launches,
+          f"{label}: {stats.launches_by_family}")
+    counts = serve_counts(label, stats, {
+        ENGINE["gcrn"]: stats.launches_by_family["gcrn"],
+        "static_engine": stats.express_launches})
+    serve_timing(label, stats, card)
+    check(not stats.tenant_errors, f"{label} tenant errors")
+    errs = [serve_errs(outs[sid], states[sid], s, refs[sid])
+            for sid, s in streams.items()]
+    serve_check(f"{label}, recurrent",
+                (max(e[0] for e in errs), max(e[1] for e in errs)),
+                TOL_STREAM)
+    xerrs = [serve_errs(outs[sid], {}, s, xrefs[sid])
+             for sid, s in xstreams.items()]
+    serve_check(f"{label}, express", (max(e[0] for e in xerrs), 0.0),
+                TOL_KERNEL)
+    return counts
+
+
+def serve_faults(params, n_global, snaps, feat) -> dict:
+    """Path 4: four fault plans under supervision="isolate", four tenants:
+    a persistent launch fault on one tenant (quarantined, the others equal
+    offline), a transient one with max_retries=1 (retried, rolled back,
+    equal offline), a kernel-scoped fault with degrade=True (served by the
+    oracle rung, counted), and a mid-commit ``evolve`` fault on
+    EvolveGCN-O (rolled back; bit for bit the fault-free serve)."""
+    streams = serve_windows(snaps, SERVE_WINDOWS[:SERVE_SMALL])
+    launches = {}
+    refs = {}
+    for cfg in (GCRN_M2, EVOLVEGCN):
+        refs[cfg.name] = {sid: serve_offline(cfg, params[cfg.name], n_global,
+                                             s, feat)
+                          for sid, s in streams.items()}
+
+    def serve(label, cfg, specs, **kw):
+        p = params[cfg.name]
+        fp = FaultPlan(specs=tuple(FaultSpec(**s) for s in specs),
+                       seed=SEED) if specs else None
+        sess = serve_session(cfg, p, n_global, feat, supervision="isolate",
+                             retry_backoff_ms=1.0, fault_plan=fp,
+                             **SERVE_FIXED, **kw)
+        states = {sid: sess.model.init_state(p, mode="v3")
+                  for sid in streams}
+        engine.reset_launches()
+        with deterministic():
+            res = SnapshotServer(session=sess).run_multi(p, states, streams)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in engine.LAUNCHES.items() if v}
+        stats = res[2]
+        log(f"serve fault plan {label}: launches {counts}, stats.launches "
+            f"{stats.launches}, retries {stats.retries}, rollbacks "
+            f"{stats.rollbacks}, degraded {stats.degraded_launches}, "
+            f"quarantined {sorted(stats.tenant_errors)}")
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        return res
+
+    def offline_errs(cfg, res, sids):
+        states, outs, _ = res
+        errs = [serve_errs(outs[sid], states[sid], streams[sid],
+                           refs[cfg.name][sid]) for sid in sids]
+        return max(e[0] for e in errs), max(e[1] for e in errs)
+
+    sids = sorted(streams)
+    # (a) a persistent launch fault on t1
+    res = serve("persistent launch fault on t1", GCRN_M2,
+                [dict(site="launch", tenant="t1", index=0, count=99)])
+    err = res[2].tenants["t1"].error
+    check(isinstance(err, InjectedFault)
+          and res[2].tenants["t1"].failed_site == "launch"
+          and set(res[2].tenant_errors) == {"t1"},
+          f"persistent fault: t1 not quarantined alone ({err!r})")
+    serve_check("persistent launch fault, the others",
+                offline_errs(GCRN_M2, res, [s for s in sids if s != "t1"]),
+                TOL_STREAM)
+    # (b) a transient launch fault, retried once
+    res = serve("transient launch fault", GCRN_M2,
+                [dict(site="launch", index=0, count=1)], max_retries=1)
+    check(not res[2].tenant_errors and res[2].retries >= 1
+          and res[2].rollbacks >= 1, "transient fault: retried, rolled back")
+    serve_check("transient launch fault", offline_errs(GCRN_M2, res, sids),
+                TOL_STREAM)
+    # (c) a kernel-scoped fault: the ladder's oracle rung serves
+    res = serve("kernel-scoped fault, degrade", GCRN_M2,
+                [dict(site="launch", scope="kernel", index=0, count=999)],
+                degrade=True)
+    check(not res[2].tenant_errors
+          and res[2].degraded_launches >= len(sids)
+          and engine.LAUNCHES[ENGINE["gcrn"]] == 0,
+          "kernel-scoped fault: served by the oracle rung, counted, no "
+          "kernel launch reached")
+    serve_check("kernel-scoped fault, oracle rung",
+                offline_errs(GCRN_M2, res, sids), TOL_STREAM)
+    # (d) a mid-commit evolve fault on EvolveGCN-O: rolled back, exact
+    clean = serve("EvolveGCN-O fault-free", EVOLVEGCN, [])
+    res = serve("mid-commit evolve fault on t1", EVOLVEGCN,
+                [dict(site="evolve", tenant="t1", index=0, count=1)],
+                max_retries=1)
+    check(not res[2].tenant_errors and res[2].rollbacks >= 1,
+          "mid-commit fault: rolled back, no tenant lost")
+    same = all(bitwise(res[0][sid], clean[0][sid])
+               and all(np.array_equal(a, b) for a, b
+                       in zip(res[1][sid], clean[1][sid])) for sid in sids)
+    log(f"serve mid-commit evolve fault: bit for bit the fault-free serve "
+        f"{same}")
+    check(same, "mid-commit fault: not exact")
+    serve_check("mid-commit evolve fault",
+                offline_errs(EVOLVEGCN, res, sids), TOL_STREAM)
+    return launches
+
+
+def serve_launcher() -> None:
+    """Path 5: python -m repro_torch.launch.serve --dgnn gcrn-m2, a
+    process of its own, exits 0."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    run = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                          "--dgnn", "gcrn-m2"], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=600)
+    log(f"launch.serve --dgnn gcrn-m2: rc {run.returncode}: "
+        f"{run.stdout.strip()} {run.stderr.strip()[-2000:]}")
+    check(run.returncode == 0, "launch.serve --dgnn gcrn-m2 exits 0")
+
+
+def serve_phase(params, card) -> dict:
+    """The serve phase; returns the kernels' launch counts of its serve
+    paths (the offline force-ref references launch nothing)."""
+    snaps, feat, n_global = bc_alpha_coo()
+    buckets = DEFAULT_BUCKETS
+    for s in snaps:
+        ls = renumber_and_normalize(s)
+        choose_bucket(ls.n_nodes, ls.src.shape[0], max_in_degree(ls),
+                      buckets)  # the bucket set covers every snapshot
+    launches = {}
+    for part in (serve_streams(params, n_global, snaps, feat, buckets, card),
+                 serve_multi_paths(params, n_global, snaps, feat, buckets,
+                                   card),
+                 serve_express_path(params, n_global, snaps, feat, card),
+                 serve_faults(params, n_global, snaps, feat)):
+        for k, v in part.items():
+            launches[k] = launches.get(k, 0) + v
+    serve_launcher()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3671,6 +4054,13 @@ def main() -> int:
             launches[name] += v
     log(f"phase 4 (paged paths, capacity, RNN cells): "
         f"{time.time() - t0:.1f} s")
+
+    # phase 4, serve: the DGNN serve layer on the stream engines, counts
+    # read around each serve path
+    t0 = time.time()
+    for name, v in serve_phase(params, card).items():
+        launches[name] += v
+    log(f"phase 4 (serve): {time.time() - t0:.1f} s")
 
     # phase 6: where a live node tile's time goes, run before phase 5: no
     # host-dispatched timing follows a profiler window (a traced process

@@ -3,15 +3,20 @@
 The same surface as the JAX package's ``repro.api``: callers build one
 frozen, validated :class:`StreamPlan` with :func:`plan` and hand it to a
 :class:`BoosterSession` (``run`` one stream, ``run_batched`` B ragged
-streams in one launch) or to :func:`run_arrays` (pre-padded ELL arrays).
-``plan()`` accepts and validates every field the JAX one does, with the
-same messages. Every level of ``FAMILY_LEVELS`` runs for every family:
-gcrn, evolve and stacked on padded snapshot streams, tgn on padded event
-batches (graph/events.py), static_gcn on independent snapshots; the
-stateful families at v3 also with ``state_residency="hbm_paged"`` (their
-paged engines). What the port cannot execute yet raises
-``NotImplementedError`` naming its ROADMAP item when it is executed: a
-sharded ``DeviceSpec`` and the serve layer.
+streams in one launch, ``serve`` / ``serve_multi`` raw COO snapshot
+iterators through the serve engine, serve/engine.py) or to
+:func:`run_arrays` (pre-padded ELL arrays). ``plan()`` accepts and
+validates every field the JAX one does, with the same messages. Every
+level of ``FAMILY_LEVELS`` runs for every family: gcrn, evolve and stacked
+on padded snapshot streams, tgn on padded event batches (graph/events.py),
+static_gcn on independent snapshots; the stateful families at v3 also with
+``state_residency="hbm_paged"`` (their paged engines). The serve-policy
+fields steer the serve engine and are ignored by ``run`` /
+``run_batched`` / ``run_arrays``, as in the JAX package. What the port
+cannot execute yet raises ``NotImplementedError`` naming its ROADMAP item
+when it is executed: a sharded ``DeviceSpec`` and the continuous
+scheduler's fields (``scheduler="continuous"``, ``state_pool_pages``,
+``prefill_chunk``).
 
 The torch device is an argument of the session (and of ``run_arrays``),
 not a plan field. It defaults to "cuda" and raises when there is no card;
@@ -21,15 +26,15 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Iterable, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.configs.dgnn import DGNNConfig
-from repro_torch.core.dataflow import (SERVE_ITEM, _check_executable,
-                                       build_model, init_states_batched,
-                                       run_plan, run_plan_batched)
+from repro_torch.core.dataflow import (_check_executable, build_model,
+                                       init_states_batched, run_plan,
+                                       run_plan_batched)
 from repro_torch.graph.padding import stack_ragged
 from repro_torch.kernels import engine as _engine
 from repro_torch.kernels import ops as _ops
@@ -78,11 +83,6 @@ class DeviceSpec:
     axis: str = "data"
 
 
-def _serve(default):
-    """A serve-policy field of :class:`StreamPlan`."""
-    return field(default=default, metadata={"serve": True})
-
-
 @dataclass(frozen=True)
 class StreamPlan:
     """A validated, immutable execution plan (see ``repro.api.StreamPlan``
@@ -98,25 +98,27 @@ class StreamPlan:
     batch: int = 1
     lengths: Optional[tuple] = None
     device: DeviceSpec = field(default_factory=DeviceSpec)
-    # serve policy: validated here; executing a plan that sets one off its
-    # default raises (core/dataflow.py), as serving is not ported yet
-    n_pad: int = _serve(640)
-    e_pad: int = _serve(4096)
-    k_max: int = _serve(64)
-    buckets: Optional[tuple] = _serve(None)
-    stream_chunk: int = _serve(8)
-    queue_depth: int = _serve(2)
-    promote_buckets: Optional[float] = _serve(None)
-    promotion_guard: str = _serve("static")
-    scheduler: str = _serve("rounds")
-    state_pool_pages: Optional[int] = _serve(None)
-    prefill_chunk: Optional[int] = _serve(None)
-    supervision: str = _serve("strict")
-    max_retries: int = _serve(0)
-    retry_backoff_ms: float = _serve(10.0)
-    launch_timeout_ms: Optional[float] = _serve(None)
-    degrade: bool = _serve(False)
-    fault_plan: Optional[object] = _serve(None)
+    # serve policy (SnapshotServer consumes these)
+    n_pad: int = 640
+    e_pad: int = 4096
+    k_max: int = 64
+    buckets: Optional[tuple] = None   # ((n, e, k), ...) smallest-first
+    stream_chunk: int = 8             # snapshots per v3 chunk launch
+    queue_depth: int = 2              # host->device queue (ping-pong = 2)
+    promote_buckets: Optional[float] = None  # max promotion overhead ratio
+    promotion_guard: str = "static"   # "static" proxy | "measured" times
+    # multi-tenant scheduling: "continuous" and its two knobs validate but
+    # raise on execution (core/dataflow.py)
+    scheduler: str = "rounds"
+    state_pool_pages: Optional[int] = None
+    prefill_chunk: Optional[int] = None
+    # fault isolation / recovery (serve/supervision.py)
+    supervision: str = "strict"       # "strict" raise | "isolate" per tenant
+    max_retries: int = 0              # chunk-launch retries (rolled back)
+    retry_backoff_ms: float = 10.0    # exponential backoff base
+    launch_timeout_ms: Optional[float] = None  # per-launch deadline
+    degrade: bool = False             # solo / oracle degradation ladder
+    fault_plan: Optional[object] = None  # serve.faults.FaultPlan (chaos)
 
     def __post_init__(self):
         _validate(self)
@@ -274,7 +276,11 @@ def _validate(p: StreamPlan) -> None:
     if not isinstance(p.degrade, bool):
         raise ValueError(f"degrade={p.degrade!r}: need a bool")
     if p.fault_plan is not None:
-        raise NotImplementedError(f"fault_plan: {SERVE_ITEM}")
+        from repro_torch.serve.faults import FaultPlan
+
+        if not isinstance(p.fault_plan, FaultPlan):
+            raise ValueError(f"fault_plan={p.fault_plan!r}: need a "
+                             "serve.faults.FaultPlan")
 
 
 def plan(cfg: Optional[DGNNConfig] = None, *, family: Optional[str] = None,
@@ -346,12 +352,14 @@ class BoosterSession:
     and one torch device.
 
     ``run`` advances the session's own state; ``run_batched`` is stateless
-    by default (pass ``states`` to continue earlier chunks).
+    by default (pass ``states`` to continue earlier chunks); ``serve`` /
+    ``serve_multi`` run raw COO snapshot iterators through the serve
+    engine, which needs the global node-feature table (``feat_table``).
     """
 
     def __init__(self, cfg: DGNNConfig, plan: Optional[StreamPlan] = None,
-                 *, n_global: int = 4096, params=None, gen=None,
-                 device="cuda", force_ref: bool = False):
+                 *, n_global: int = 4096, feat_table=None, params=None,
+                 gen=None, device="cuda", force_ref: bool = False):
         self.device = _ops.resolve_device(device)
         self.cfg = cfg
         self.plan = plan if plan is not None else _plan_builder(cfg)
@@ -361,6 +369,7 @@ class BoosterSession:
                              f"serve cfg {cfg.name!r} (family {fam!r})")
         self.model = build_model(cfg, n_global=n_global)
         self.n_global = n_global
+        self.feat_table = feat_table
         self.force_ref = force_ref
         self.params = None
         self.state = None
@@ -419,11 +428,38 @@ class BoosterSession:
                                            force_ref=self.force_ref)
         return states, [outs_BT[b, :lens[b]] for b in range(B)]
 
-    def serve(self, snaps):
-        raise NotImplementedError(f"BoosterSession.serve: {SERVE_ITEM}")
+    # ------------------------------------------------------ serving ----
+
+    def _server(self):
+        from repro_torch.serve.engine import SnapshotServer
+
+        if self.feat_table is None:
+            raise RuntimeError("serving needs the global feat_table: pass "
+                               "feat_table= to BoosterSession")
+        return SnapshotServer(session=self)
+
+    def serve(self, snaps: Iterable):
+        """Serve a raw COO snapshot iterator through the engine (host
+        preprocessing overlapped with device launches), advancing the
+        session state. Returns ``(outputs, ServeStats)``; the outputs are
+        host numpy arrays, one a snapshot."""
+        self._need_params()
+        if self.state is None:
+            self.reset_state()
+        self.state, outs, stats = self._server().run(self.params, self.state,
+                                                     snaps)
+        return outs, stats
 
     def serve_multi(self, streams: dict, states: Optional[dict] = None):
-        raise NotImplementedError(f"BoosterSession.serve_multi: {SERVE_ITEM}")
+        """Serve many independent client streams concurrently (one
+        recurrent state per tenant; same-bucket chunks co-batched into one
+        launch). Returns ``(states, {sid: [outputs]}, ServeStats)``."""
+        self._need_params()
+        if states is None:
+            states = {sid: self.model.init_state(self.params,
+                                                 mode=self.plan.level)
+                      for sid in streams}
+        return self._server().run_multi(self.params, states, streams)
 
 
 _plan_builder = plan

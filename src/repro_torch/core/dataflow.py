@@ -23,6 +23,7 @@ snapshots onto the batch axis at v3.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Any
 
 import torch
@@ -57,15 +58,21 @@ def build_model(cfg: DGNNConfig, impl: str = "xla",
     raise ValueError(cfg.dgnn_type)
 
 
-SERVE_ITEM = "not ported yet (ROADMAP.md queue 1, the serve layer)"
+CONTINUOUS_ITEM = ("not ported yet (ROADMAP queue 1, the continuous "
+                   "scheduler)")
 
 
 def _check_executable(plan) -> None:
-    """Raise for plan fields the port cannot execute yet."""
-    for f in dataclasses.fields(plan):
-        value = getattr(plan, f.name)
-        if f.metadata.get("serve") and value != f.default:
-            raise NotImplementedError(f"{f.name}={value!r}: {SERVE_ITEM}")
+    """Raise for plan fields the port cannot execute yet: the continuous
+    scheduler's (``scheduler="continuous"``, ``state_pool_pages``,
+    ``prefill_chunk``) and a sharded ``DeviceSpec``. The other serve-policy
+    fields steer the serve engine (serve/engine.py); the plan executors
+    ignore them, as the JAX package's do."""
+    for name, default in (("scheduler", "rounds"), ("state_pool_pages", None),
+                          ("prefill_chunk", None)):
+        value = getattr(plan, name)
+        if value != default:
+            raise NotImplementedError(f"{name}={value!r}: {CONTINUOUS_ITEM}")
     if plan.device.n_devices > 1:
         raise NotImplementedError(
             "DeviceSpec sharding is not ported yet (ROADMAP.md queue 1, "
@@ -201,3 +208,44 @@ def stack_time(padded_snaps: list):
     """Stack per-step padded snapshots or event blocks (same bucket) along
     a leading T axis."""
     return stack_streams(padded_snaps)
+
+
+# ------------------------------------------------- deprecated shims ----
+# The historical mode-string surface of the JAX package. New code builds a
+# typed plan (repro_torch.api.plan / BoosterSession); these shims build the
+# equivalent plan and execute it, so their results equal the plan path's.
+
+def _shim_plan(model: Model, mode: str, batch: int = 1):
+    from repro_torch import api
+
+    return api.plan(family=model.stream_family, level=mode,
+                    td=model.cfg.stream_td, batch=batch)
+
+
+def run_stream(model: Model, params, state0, snaps_T, mode: str = "baseline"):
+    """Deprecated: build a repro_torch.api.StreamPlan instead (this shim
+    does, then executes it). Returns (final_state, outputs (T, n_pad,
+    out_dim))."""
+    warnings.warn(
+        "core.dataflow.run_stream is deprecated: build a typed plan "
+        "(repro_torch.api.plan / BoosterSession.run) instead",
+        DeprecationWarning, stacklevel=2)
+    return run_plan(model, params, state0, snaps_T, _shim_plan(model, mode))
+
+
+def run_batched(model: Model, params, states0, snaps_TB,
+                mode: str = "baseline"):
+    """Deprecated: build a repro_torch.api.StreamPlan instead (this shim
+    does, then executes it). Batched streams in the historical (T, B, ...)
+    layout; see ``run_plan_batched`` for the (B, T, ...) plan executor."""
+    warnings.warn(
+        "core.dataflow.run_batched is deprecated: build a typed plan "
+        "(repro_torch.api.plan / BoosterSession.run_batched) instead",
+        DeprecationWarning, stacklevel=2)
+    snaps_BT = type(snaps_TB)(**{
+        f.name: getattr(snaps_TB, f.name).transpose(0, 1)
+        for f in dataclasses.fields(snaps_TB)})
+    B = (_leaves(states0) or _leaves(snaps_BT))[0].shape[0]
+    state, outs_BT = run_plan_batched(model, params, states0, snaps_BT,
+                                      _shim_plan(model, mode, batch=B))
+    return state, outs_BT.transpose(0, 1)

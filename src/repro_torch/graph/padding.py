@@ -24,6 +24,23 @@ def round_up(n: int, m: int) -> int:
     return ((n + m - 1) // m) * m
 
 
+def pow2_target(real: int, cap: int | None = None) -> int:
+    """Next power of two >= ``real`` (>= 1), optionally capped: the padded
+    chunk lengths and batch sizes of the serve engine's launches.
+
+    The result is always >= ``real``: a ``cap`` below ``real`` would
+    truncate live data, so it raises ``ValueError``; a satisfiable cap
+    clamps the power of two down to ``cap`` (still >= ``real``)."""
+    if cap is not None and cap < real:
+        raise ValueError(
+            f"pow2_target: cap={cap} < real={real} — a padding target "
+            "smaller than the real length would truncate live data")
+    target = 1
+    while target < real:
+        target *= 2
+    return max(min(target, cap), 1) if cap is not None else target
+
+
 @dataclass
 class PaddedSnapshot:
     """Device-ready snapshot: every array has a static shape. Leaves may
@@ -124,6 +141,12 @@ def empty_padded(n_pad: int, e_pad: int, k_max: int, din: int,
     )
 
 
+def empty_like_padded(ps: PaddedSnapshot) -> PaddedSnapshot:
+    """An all-padding snapshot in the same bucket as ``ps``."""
+    return empty_padded(ps.n_pad, ps.e_pad, ps.k_max, ps.node_feat.shape[1],
+                        ps.edge_feat.shape[1])
+
+
 def stack_streams(snaps: list):
     """Stack padded snapshots or event blocks (same bucket, one type) along
     a new leading axis: T steps of one stream, or B streams."""
@@ -155,3 +178,88 @@ def stack_ragged(streams: list, device):
         f.name: torch.stack([fill(getattr(s, f.name), t)
                              for s, t in zip(on_dev, lens)])
         for f in dataclasses.fields(kind)}), lens)
+
+
+def unpad_snapshot(ps: PaddedSnapshot) -> dict:
+    """Strip the padding from a host PaddedSnapshot back to ragged arrays:
+    the live COO slice and the per-node arrays (keys src, dst, coef,
+    edge_feat, node_feat, renumber); ``pad_snapshot``'s inverse up to the
+    ELL conversion."""
+    n = int(ps.n_nodes)
+    e = int(ps.n_edges)
+    return {
+        "src": np.asarray(ps.src)[:e],
+        "dst": np.asarray(ps.dst)[:e],
+        "coef": np.asarray(ps.coef)[:e],
+        "edge_feat": np.asarray(ps.edge_feat)[:e],
+        "node_feat": np.asarray(ps.node_feat)[:n],
+        "renumber": np.asarray(ps.renumber)[:n],
+    }
+
+
+# ------------------------------------------------------------ buckets ----
+# Host-side numpy code: the serve engine's producer threads call it, so
+# nothing here touches a device.
+
+def choose_bucket(n: int, e: int, k: int,
+                  buckets: tuple[tuple[int, int, int], ...]) -> tuple[int, int, int]:
+    """The smallest (n_pad, e_pad, k_max) bucket that fits a snapshot of n
+    nodes, e edges and in-degree k."""
+    for b in buckets:
+        if n <= b[0] and e <= b[1] and k <= b[2]:
+            return b
+    raise ValueError(f"no bucket fits snapshot ({n},{e},k={k})")
+
+
+def choose_bucket_batch(dims: "list[tuple[int, int, int]]",
+                        buckets: tuple[tuple[int, int, int], ...]
+                        ) -> tuple[int, int, int]:
+    """The smallest bucket covering EVERY (n, e, k) in ``dims``: one shape
+    for a chunk of snapshots, so it can batch with same-bucket chunks of
+    other streams (the chunk pays the max of its members)."""
+    if not dims:
+        raise ValueError("empty chunk: no dims to bucket")
+    n = max(d[0] for d in dims)
+    e = max(d[1] for d in dims)
+    k = max(d[2] for d in dims)
+    return choose_bucket(n, e, k, buckets)
+
+
+def bucket_cost(bucket: tuple[int, int, int]) -> int:
+    """Padded per-snapshot compute proxy of a bucket: ELL aggregation lanes
+    (n_pad * k_max) plus the per-node transform rows (n_pad)."""
+    n_pad, _, k_max = bucket
+    return n_pad * (k_max + 1)
+
+
+def promote_bucket_groups(groups: dict, buckets: tuple,
+                          max_overhead: float, cost=bucket_cost) -> dict:
+    """Cross-bucket batching by bucket promotion.
+
+    ``groups`` maps bucket -> [(sid, chunk, bucket), ...] queued for one
+    batched launch each. A smaller-bucket group joins the next-larger
+    occupied bucket when cost(target) <= max_overhead * cost(own) holds for
+    every member's ORIGINAL bucket; promotion chains up the buckets while
+    every hop honours that guard. Returns a new groups dict with the
+    members re-tagged to their target bucket. ``cost`` is the static proxy
+    ``bucket_cost`` or the serve engine's measured per-bucket step times.
+    """
+    order = {b: i for i, b in enumerate(buckets)}
+    merged: dict = {b: list(members) for b, members in groups.items()}
+    # ascending visit order: merges only move members into LATER buckets,
+    # so every visited key is still present
+    for b in sorted(merged, key=order.get):
+        bigger = [b2 for b2 in merged if b2 != b and order[b2] > order[b]]
+        if not bigger:
+            continue
+        target = min(bigger, key=order.get)
+        if any(cost(target) > max_overhead * cost(own)
+               for _, _, own in merged[b]):
+            continue
+        merged[target] = merged[target] + merged[b]
+        del merged[b]
+    return {b: [(sid, chunk, b) for sid, chunk, _ in members]
+            for b, members in merged.items()}
+
+
+DEFAULT_BUCKETS = ((128, 512, 32), (320, 1024, 48), (640, 4096, 96))

@@ -11,8 +11,9 @@ with the state resident (``state_residency="vmem"``) or paged
 ``buffer_depth``-deep ring of td-wide windows, bit-identical results).
 This layer owns what surrounds the kernels: moving the
 arguments to the device, the global-row table, the evolve pack/unpack
-(``pack`` builds a stream kernel wrapper's inputs), ragged ``lengths``, and
-the force-ref gate. Under ``force_ref=True`` the plain oracle
+(``pack`` builds a stream kernel wrapper's inputs), ragged ``lengths``, the
+force-ref gate, and the serve engine's launch-site fault hook
+(``set_fault_hook``). Under ``force_ref=True`` the plain oracle
 (kernels/ref.py) runs on the raw arguments and no kernel wrapper is
 reached; otherwise the arguments are packed and handed to the kernel
 wrapper (kernels/engine.py), which launches the CUDA kernel for CUDA
@@ -62,6 +63,29 @@ def resolve_device(device) -> torch.device:
             f"device={device!r} but no CUDA device is available; pass "
             "device='cpu' to run the plain PyTorch path")
     return dev
+
+
+# ------------------------------------------------------- fault hook ----
+# Launch-site fault injection for the serve engine's chaos harness
+# (serve/faults.py). The JAX package embeds an io_callback ahead of the
+# launch in its traced program; the port has no trace boundary, so
+# ``_stream_dispatch`` calls the installed hook on the host, once per
+# stream-engine launch and just before it, on the kernel route and the
+# force-ref route alike. With no hook installed the launch path does
+# nothing more than read one module global.
+
+_FAULT_HOOK = None
+
+
+def set_fault_hook(hook):
+    """Install (or clear, with None) the stream-launch fault hook:
+    ``hook(family=..., batched=..., force_ref=...)``, called before every
+    stream-engine launch. Returns the previous hook so callers can scope
+    the installation (the serve engine installs it around its run loops).
+    Chaos testing only."""
+    global _FAULT_HOOK
+    prev, _FAULT_HOOK = _FAULT_HOOK, hook
+    return prev
 
 
 def to_device(obj, device):
@@ -524,6 +548,8 @@ def _stream_dispatch(family: str, batched: bool, args, kwargs, *, tn, td,
     oracles, launch = _STREAM_DISPATCH[family][:2]
     if batched and lengths is not None:
         args = _apply_lengths(family, args, lengths)
+    if _FAULT_HOOK is not None:
+        _FAULT_HOOK(family=family, batched=batched, force_ref=force_ref)
     if force_ref:
         # the one force-ref gate: no kernel wrapper is reachable from here
         return oracles[1 if batched else 0](*args, **kwargs)

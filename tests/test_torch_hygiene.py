@@ -359,3 +359,68 @@ def test_training_entry_points_default_to_cuda_and_raise(no_cuda, entry):
                 cfg, 1, 4))}[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
+
+
+# ------------------------------------------------------ the serve layer ----
+
+@pytest.mark.parametrize("entry", ["SnapshotServer", "BoosterSession.serve",
+                                   "launch.serve --dgnn"])
+def test_serve_entry_points_default_to_cuda_and_raise(no_cuda, entry):
+    """The snapshot server lives on its session's device, the card unless
+    the caller asks for the CPU; without a card the default raises before
+    any producer thread starts."""
+    import contextlib
+    import threading
+
+    from repro_torch.graph.coo import COOSnapshot
+    from repro_torch.launch import serve as launch
+    from repro_torch.serve import SnapshotServer
+
+    ft = np.zeros((16, GCRN_M2.in_dim), np.float32)
+    snap = COOSnapshot(src=np.asarray([0, 1]), dst=np.asarray([1, 2]),
+                       edge_feat=np.zeros((2, GCRN_M2.edge_dim), np.float32),
+                       t_index=0)
+    call = {
+        "SnapshotServer": lambda: SnapshotServer(GCRN_M2, ft, n_global=16),
+        "BoosterSession.serve": lambda: api.BoosterSession(
+            GCRN_M2, api.plan(GCRN_M2, level="v3"), n_global=16,
+            feat_table=ft, gen=torch.Generator().manual_seed(0)).serve([snap]),
+        "launch.serve --dgnn": lambda: launch.main(
+            ["--dgnn", "gcrn-m2", "--snapshots", "2"]),
+    }[entry]
+    expect = (pytest.warns(DeprecationWarning, match="keyword surface")
+              if entry == "SnapshotServer" else contextlib.nullcontext())
+    with expect, pytest.raises(RuntimeError, match="no CUDA device"):
+        call()
+    assert not [t for t in threading.enumerate()
+                if t.name.startswith("dgnn-serve")]
+    # on the CPU, when asked for
+    sess = api.BoosterSession(GCRN_M2, api.plan(GCRN_M2, level="v3"),
+                              n_global=16, feat_table=ft,
+                              gen=torch.Generator().manual_seed(0),
+                              device="cpu")
+    outs, stats = sess.serve([snap])
+    assert len(outs) == 1 and stats.launches == 1
+
+
+SERVE_FILES = sorted((ROOT / "src" / "repro_torch" / "serve").rglob("*.py"))
+
+
+def test_port_serve_layer_is_lint_clean():
+    """``python -m repro.analysis``'s lint rules over the port's serve
+    layer: zero findings and zero suppressions. The supervised runner, the
+    calibration fallback and the consumer loops catch
+    ``faults.SUPERVISED`` (the analyzer's broad-except allowlist names the
+    JAX engine only), and the producer threads hand their errors on
+    through a context manager, not a broad except."""
+    from repro.analysis import core, lint
+
+    files = [p.relative_to(ROOT).as_posix() for p in SERVE_FILES]
+    assert "src/repro_torch/serve/engine.py" in files
+    report = core.Report(rules_run=tuple(sorted(lint.RULES)))
+    findings = core.apply_suppressions(
+        lint.run_lint(ROOT, files=files, rules=frozenset(lint.RULES)), ROOT,
+        report)
+    assert findings == [] and report.suppressed == 0
+    for path in SERVE_FILES:
+        assert "booster: ignore" not in path.read_text(), path

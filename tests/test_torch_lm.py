@@ -299,14 +299,18 @@ def test_training_is_not_ported():
     assert ce.shape == () and bool(torch.isfinite(ce))
 
 
-def test_encoder_only_launch_is_refused_and_dgnn_serve_not_ported():
+def test_encoder_only_launch_is_refused_and_dgnn_serve_not_ported(capsys):
+    """The launcher refuses an encoder-only LM; its DGNN mode (ported with
+    the serve layer; the name is kept from when it was not) serves
+    synthetic snapshots through the snapshot server on the CPU."""
     from repro_torch.launch import serve as launch
 
     with pytest.raises(SystemExit, match="encoder-only"):
         launch.main(["--lm", "hubert-xlarge", "--device", "cpu"])
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP queue 1, the serve layer"):
-        launch.main(["--dgnn", "gcrn-m2"])
+    launch.main(["--dgnn", "gcrn-m2", "--device", "cpu", "--snapshots", "3"])
+    out = capsys.readouterr().out
+    assert "gcrn-m2 (v2) on uci, cpu: 3 snapshots" in out
+    assert "ms/snapshot staging + launch" in out and "ms total" in out
 
 
 def test_launch_serve_generates_on_the_cpu(capsys):

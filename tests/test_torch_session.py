@@ -185,27 +185,75 @@ def _assert_paged_session_runs(case, plan_kwargs):
                                    rtol=0)
 
 
+def _serve_snaps(cfg, n_global, T=3, seed=0):
+    """T random COO snapshots over ``n_global`` nodes and a feature
+    table for them."""
+    from repro_torch.graph.coo import COOSnapshot
+
+    rng = np.random.default_rng(seed)
+    ft = rng.normal(size=(n_global, cfg.in_dim)).astype(np.float32)
+    snaps = [COOSnapshot(src=rng.integers(0, n_global, 6),
+                         dst=rng.integers(0, n_global, 6),
+                         edge_feat=rng.normal(size=(6, cfg.edge_dim)).astype(
+                             np.float32), t_index=t) for t in range(T)]
+    return ft, snaps
+
+
+CONTINUOUS = "ROADMAP queue 1, the continuous scheduler"
+
+
+# The ids are the ones these cases had while the serve layer was unported
+# (their match strings then), kept so each case keeps its name.
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(level="o1", stream_chunk=4), "stream_chunk=4: .*the serve layer"),
-    # hbm_paged is ported: this plan now executes (match None)
+    pytest.param(dict(level="o1", stream_chunk=4), "serves",
+                 id="kwargs0-stream_chunk=4: .*the serve layer"),
+    # hbm_paged is ported: this plan executes and serves (match None)
     pytest.param(dict(level="v3", state_residency="hbm_paged", td=8), None,
                  id="kwargs1-item 11"),
-    (dict(scheduler="continuous", level="v3"), "scheduler='continuous': .*the serve layer"),
-    (dict(max_retries=2, level="v3"), "max_retries=2: .*the serve layer"),
-    (dict(n_pad=256, level="v3"), "n_pad=256: .*the serve layer"),
+    pytest.param(dict(scheduler="continuous", level="v3"),
+                 "scheduler='continuous': .*the continuous scheduler",
+                 id="kwargs2-scheduler='continuous': .*the serve layer"),
+    pytest.param(dict(max_retries=2, level="v3"), "serves",
+                 id="kwargs3-max_retries=2: .*the serve layer"),
+    pytest.param(dict(n_pad=256, level="v3"), "serves",
+                 id="kwargs4-n_pad=256: .*the serve layer"),
 ])
 def test_unported_plan_fields_raise_on_execution(kwargs, match):
+    """The serve layer is ported: a plan's serve-policy fields steer
+    ``serve`` and are ignored by ``run`` (as in the JAX package), so such
+    a plan runs, equal to the plan without them, and serves. The
+    continuous scheduler's fields still raise on execution, in ``run``
+    and in ``serve``, naming their ROADMAP item."""
     case = harness.make_case("gcrn-m2", T=2, B=1)
     cfg = _port_cfg(case.cfg)
     p = tapi.plan(cfg, **kwargs)
+    ft, snaps = _serve_snaps(cfg, case.n_global)
     sess = tapi.BoosterSession(cfg, p, n_global=case.n_global,
+                               feat_table=ft,
                                gen=torch.Generator().manual_seed(0),
                                device="cpu")
     if match is None:
         _assert_paged_session_runs(case, kwargs)
+    elif match == "serves":
+        bare = dict(kwargs)
+        for name in ("stream_chunk", "max_retries", "n_pad"):
+            bare.pop(name, None)
+        plain = tapi.BoosterSession(cfg, tapi.plan(cfg, **bare),
+                                    n_global=case.n_global,
+                                    params=sess.params, device="cpu")
+        snaps_T = _port_snaps(case.stacked[0])
+        np.testing.assert_array_equal(sess.run(snaps_T).numpy(),
+                                      plain.run(snaps_T).numpy())
     else:
         with pytest.raises(NotImplementedError, match=match):
             sess.run(_port_snaps(case.stacked[0]))
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue 1, the serve layer"):
-        sess.serve([])
+        with pytest.raises(NotImplementedError, match=CONTINUOUS):
+            sess.serve(snaps)
+        return
+    sess.reset_state()
+    outs, stats = sess.serve(snaps)
+    assert len(outs) == len(snaps)
+    assert all(o.shape == (p.n_pad, cfg.out_dim) and np.isfinite(o).all()
+               for o in outs)
+    assert stats.launches == (0 if p.level != "v3" else 1)
+    assert stats.degraded_launches == 0
