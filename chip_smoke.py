@@ -113,12 +113,32 @@ Phases (any failure exits non-zero):
      others equal offline), a transient one retried, a kernel-scoped one
      served by the degradation ladder's oracle rung (no engine launch
      reached), a mid-commit evolve fault on EvolveGCN-O rolled back (bit
-     for bit the fault-free serve); (5) python -m
-     repro_torch.launch.serve --dgnn gcrn-m2 in a process of its own. Paths
-     1-3 print ms a snapshot of staging + launch (a chunk's stacking,
-     copy to the card, launch and synchronize over its live snapshots),
-     host preprocessing ms and snapshots/s beside the card's name and
-     power limit.
+     for bit the fault-free serve); (6) the continuous scheduler
+     (serve_continuous): (a) GCRN-M2, EvolveGCN-O and the stacked GCN -> GRU,
+     the eight tenants of (2) in the fixed bucket with state_pool_pages 2
+     and prefill_chunk 2, outputs and final states bit for bit the round
+     scheduler's on the same plan, tenants evicted and recovered (an
+     eviction's and a recovery's ms printed); (d) GCRN-M2's device memory
+     in that run: the peak from the first tick to the flush within
+     (capacity + the largest launch's B) x a tenant's state bytes + a
+     launch's working set, the allocation back at its base once the states
+     are dropped; (b) DEFAULT_BUCKETS with promote_buckets 4.0 (static
+     guard); (c) twelve tenants on an hbm_paged plan (td 16) with one
+     nominal page (capacity 8): evictions as that capacity implies,
+     gcrn_engine_paged launched, bit for bit its round run, its memory as
+     (d); (e) the express lane beside four tenants (static_engine launches
+     equal to express_launches); (f) a persistent and a transient launch
+     fault under "isolate", the survivors bit for bit (a)'s run; (g)
+     benchmarks/kernel_bench.py's skewed workload (a backlog of all 137
+     snapshots beside three tenants whose 24 snapshots arrive one every 20
+     ms) under both schedulers, a warm run and two paced ones each: the
+     incremental tenants' p50 / p99 sojourn (commit ms minus arrival),
+     snapshots/s, ticks, prefill chunks, launches, and the two schedulers'
+     outputs bit for bit; (5) python -m repro_torch.launch.serve --dgnn
+     gcrn-m2 in a process of its own. Paths 1-3 and 6 print ms a snapshot
+     of staging + launch (a chunk's stacking, copy to the card, launch and
+     synchronize over its live snapshots), host preprocessing ms and
+     snapshots/s beside the card's name and power limit.
   5. the device's busy share of one run at baseline, v2 and v3, resident
      and paged (kernel time over wall time, torch.profiler), with the CTAs
      a v3 launch of each stateful family uses.
@@ -227,7 +247,8 @@ from repro_torch.graph import (DEFAULT_BUCKETS, bucket_cost,  # noqa: E402
                                max_in_degree,
                                pad_event_block, pad_snapshot,
                                renumber_and_normalize, slice_snapshots)
-from repro_torch.graph.padding import PaddedSnapshot, stack_ragged  # noqa: E402
+from repro_torch.graph.padding import (PaddedSnapshot, pow2_target,  # noqa: E402
+                                       stack_ragged)
 from repro_torch.kernels import engine, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
@@ -243,6 +264,7 @@ from repro_torch.optim import (AdamWConfig, global_norm,  # noqa: E402
                                init_opt_state, tree_leaves)
 from repro_torch.serve import (FaultPlan, FaultSpec, InjectedFault,  # noqa: E402
                                SnapshotServer, generate)
+from repro_torch.serve.state_pool import HBM_PAGE_FACTOR  # noqa: E402
 from repro_torch.train import (TrainLoopConfig, make_train_step,  # noqa: E402
                                train)
 
@@ -3433,8 +3455,9 @@ def train_loop_path():
 # ------------------------------------------------------ the serve phase ----
 # The DGNN serve layer (serve/engine.py) on the card: BoosterSession.serve,
 # serve_multi (the round scheduler) with promotion under both guards, the
-# express lane, four fault plans and the DGNN launcher, on the raw BC-Alpha
-# COO snapshots. Each result is held against the offline run of the same
+# express lane, four fault plans, the continuous scheduler
+# (serve/scheduler.py) and the DGNN launcher, on the raw BC-Alpha COO
+# snapshots. Each result is held against the offline run of the same
 # snapshots, padded into one bucket, through run_plan with force_ref on the
 # card (outputs on each snapshot's real rows, and the final state).
 
@@ -3750,6 +3773,447 @@ def serve_faults(params, n_global, snaps, feat) -> dict:
     return launches
 
 
+# Path 6, the continuous scheduler (serve/scheduler.py): the fields of its
+# plans (a pool of 2 tenants' pages, backlogs served 2 snapshots a tick)
+SERVE_CONTINUOUS = dict(scheduler="continuous", state_pool_pages=2,
+                        prefill_chunk=2)
+# (c): this many GCRN-M2 tenants on an hbm_paged plan with one nominal page
+SERVE_PAGED_TENANTS = 12
+# (g): the skewed workload of benchmarks/kernel_bench.py's scheduler rows:
+# one backlog tenant with the whole stream at t = 0 beside incremental
+# tenants whose snapshots arrive one every SKEW_INTERVAL_MS
+SKEW_INC = 3
+SKEW_INC_SNAPS = 24
+SKEW_INTERVAL_MS = 20.0
+SKEW_PLAN = dict(prefill_chunk=2, state_pool_pages=4, queue_depth=64)
+SKEW_PACED = 2
+
+
+@contextlib.contextmanager
+def pool_probe():
+    """Instruments the state pool for the serve runs inside it: the host ms
+    of each eviction and recovery (the copies synchronize), and the device
+    memory from the first tick to the flush (the peak reset as the first
+    tick acquires its working set, read as the flush begins, before it
+    brings every spilled tenant back)."""
+    from repro_torch.serve.state_pool import TenantStatePool
+    from repro_torch.serve.supervision import TenantSupervisor
+
+    rec = {"evict_ms": [], "recover_ms": [], "peak": None, "resident": None,
+           "capacity": None, "ticking": False}
+    saved = {(TenantSupervisor, "evict_to_host"): "evict_ms",
+             (TenantSupervisor, "recover_from_host"): "recover_ms",
+             (TenantStatePool, "acquire"): None,
+             (TenantStatePool, "flush"): None}
+    orig = {key: getattr(*key) for key in saved}
+
+    def timed(fn, into):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            rec[into].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return call
+
+    def acquire(self, sids):
+        if not rec["ticking"]:
+            rec["ticking"] = True
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        return orig[(TenantStatePool, "acquire")](self, sids)
+
+    def flush(self):
+        torch.cuda.synchronize()
+        rec.update(peak=torch.cuda.max_memory_allocated(),
+                   resident=len(self.resident), capacity=self.capacity)
+        return orig[(TenantStatePool, "flush")](self)
+
+    for (cls, name), into in saved.items():
+        setattr(cls, name, timed(orig[(cls, name)], into) if into
+                else {"acquire": acquire, "flush": flush}[name])
+    try:
+        yield rec
+    finally:
+        for (cls, name), fn in orig.items():
+            setattr(cls, name, fn)
+
+
+def launch_working_set(srv, params, streams, B) -> int:
+    """Device bytes one staged launch of B tenants' first chunks takes
+    beyond their states (the stacked chunk and states, the engine's state
+    clones, the outputs and packs): its peak over what was allocated
+    before it."""
+    sids = sorted(streams)[:B]
+    group = [(sid, [pad_snapshot(renumber_and_normalize(s), srv.feat_table,
+                                 *SERVE_BUCKET)
+                    for s in streams[sid][:srv.stream_chunk]], SERVE_BUCKET)
+             for sid in sids]
+    states = {sid: srv.model.init_state(params, mode="v3") for sid in sids}
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    staged = srv._stage_group(params, states, group)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    del staged, states
+    return peak
+
+
+def served_equal(a, b, sids) -> bool:
+    """Two serve_multi results: every tenant's outputs and final state bit
+    for bit."""
+    (st_a, outs_a, _), (st_b, outs_b, _) = a, b
+    return all(bitwise(st_a[sid], st_b[sid])
+               and len(outs_a[sid]) == len(outs_b[sid])
+               and all(np.array_equal(x, y)
+                       for x, y in zip(outs_a[sid], outs_b[sid]))
+               for sid in sids)
+
+
+def continuous_stats(label, stats, probe=None) -> None:
+    ev = probe["evict_ms"] if probe else []
+    rc = probe["recover_ms"] if probe else []
+    log(f"serve {label}: ticks {stats.ticks}, prefill chunks "
+        f"{stats.prefill_chunks}, evictions {stats.evictions}, recoveries "
+        f"{stats.recoveries}"
+        + (f"; an eviction {float(np.mean(ev)):.4f} ms (median "
+           f"{float(np.median(ev)):.4f}, {len(ev)}), a recovery "
+           f"{float(np.mean(rc)):.4f} ms (median {float(np.median(rc)):.4f},"
+           f" {len(rc)}; the flush's included), {sum(ev) + sum(rc):.2f} ms "
+           f"of paging in {stats.total_ms:.1f} ms" if ev else ""))
+
+
+def serve_multi_run(label, cfg, params, n_global, feat, streams, card,
+                    want=None, probe=False, **plan_kw) -> tuple:
+    """One serve_multi on a fresh server and fresh states, deterministic
+    algorithms on; its launch counts held to ``want`` (the family's engine
+    at stats.launches by default). With ``probe`` the pool is instrumented
+    (pool_probe) and the device memory read around the run. Returns
+    (result, counts, probe record, memory record)."""
+    sess = serve_session(cfg, params, n_global, feat, **plan_kw)
+    srv = SnapshotServer(session=sess)
+    mem = {}
+    if probe:
+        B = pow2_target(min(len(streams), srv.state_pool_pages
+                            * (HBM_PAGE_FACTOR if sess.plan.state_residency
+                               == "hbm_paged" else 1)))
+        mem["B"] = B
+        mem["working_set"] = launch_working_set(srv, params, streams, B)
+    torch.cuda.synchronize()
+    mem["before"] = torch.cuda.memory_allocated()
+    states = {sid: sess.model.init_state(params, mode="v3")
+              for sid in streams}
+    mem["state_bytes"] = sum(t.nbytes for t in flat(states[min(streams)]))
+    engine.reset_launches()
+    with deterministic(), (pool_probe() if probe
+                           else contextlib.nullcontext({})) as rec:
+        res = srv.run_multi(params, states, streams)
+    torch.cuda.synchronize()
+    del states
+    stats = res[2]
+    if want is None:
+        want = {ENGINE[api.family_for(cfg)] if sess.plan.state_residency
+                != "hbm_paged" else PAGED[api.family_for(cfg)]:
+                stats.launches}
+    counts = serve_counts(label, stats, want)
+    serve_timing(label, stats, card)
+    if sess.plan.scheduler == "continuous":
+        continuous_stats(label, stats, rec if probe else None)
+    return res, counts, rec, mem
+
+
+def memory_check(label, rec, mem, res) -> None:
+    """(d): the peak device memory from the first tick to the flush stays
+    within (the pool's capacity + the largest launch's B) x a tenant's
+    state bytes + one launch's working set over what was allocated before
+    the tenants' states; and once the run's states are dropped the
+    allocation falls back to that."""
+    S, B, W = mem["state_bytes"], mem["B"], mem["working_set"]
+    cap = rec["capacity"]
+    used = rec["peak"] - mem["before"]
+    bound = (cap + B) * S + W
+    log(f"serve {label} device memory: {S / 2**20:.3f} MB of state a tenant, "
+        f"pool capacity {cap} ({rec['resident']} resident as the flush "
+        f"begins), largest launch B {B}, a launch's working set "
+        f"{W / 2**20:.3f} MB; peak from the first tick to the flush "
+        f"{used / 2**20:.3f} MB over the states' base (bound (capacity + B)"
+        f" x state + working set = {bound / 2**20:.3f} MB; all "
+        f"{len(res[0])} tenants' states {len(res[0]) * S / 2**20:.3f} MB)")
+    check(used <= bound, f"serve {label}: peak {used} B over the bound {bound}")
+    res[0].clear()
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated() - mem["before"]
+    log(f"serve {label}: {after} B allocated over the base once the run's "
+        "states are dropped (the server's session, and its own state, went "
+        "with them)")
+    check(after <= 2**20, f"serve {label}: {after} B left after the states "
+          "were dropped")
+
+
+def serve_continuous(params, n_global, snaps, feat, buckets, card) -> dict:
+    """Path 6: serve_multi on the continuous scheduler. (a) GCRN-M2,
+    EvolveGCN-O and the stacked GCN -> GRU, the eight windows of path 2 in
+    the fixed bucket, a pool of 2 pages and prefill chunks of 2: bit for bit
+    the round scheduler on the same plan, within 1e-3 of offline, tenants
+    evicted and recovered; (d) GCRN-M2's device memory in that run; (b)
+    DEFAULT_BUCKETS with promotion under the static guard; (c) twelve
+    tenants on an hbm_paged plan (td 16) with one nominal page (capacity
+    8): bit for bit its round run, its memory as (d); (e) the express lane
+    beside four tenants; (f) two fault plans; (g) the skewed workload."""
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    streams = serve_windows(snaps, SERVE_WINDOWS)
+    base = None
+    for cfg in SERVE_FAMILIES:
+        p = params[cfg.name]
+        refs = {sid: serve_offline(cfg, p, n_global, s, feat)
+                for sid, s in streams.items()}
+        runs = {}
+        for sched, kw in (("rounds", {}), ("continuous", SERVE_CONTINUOUS)):
+            label = (f"{cfg.name} serve_multi x{len(streams)} {sched}"
+                     + (" (2 pages, prefill 2)" if kw else ""))
+            probe = bool(kw) and cfg is GCRN_M2
+            res, counts, rec, mem = serve_multi_run(
+                label, cfg, p, n_global, feat, streams, card, probe=probe,
+                **SERVE_FIXED, **kw)
+            add(counts)
+            check(not res[2].tenant_errors, f"{label} tenant errors")
+            errs = [serve_errs(res[1][sid], res[0][sid], s, refs[sid])
+                    for sid, s in streams.items()]
+            serve_check(label, (max(e[0] for e in errs),
+                                max(e[1] for e in errs)), TOL_STREAM)
+            runs[sched] = (res, rec, mem)
+        res_c = runs["continuous"][0]
+        same = served_equal(runs["rounds"][0], res_c, streams)
+        log(f"serve {cfg.name} continuous vs rounds, outputs and final "
+            f"states bit for bit: {same}")
+        check(same, f"{cfg.name}: continuous != rounds")
+        check(res_c[2].evictions > 0
+              and res_c[2].recoveries == res_c[2].evictions,
+              f"{cfg.name} continuous: evictions {res_c[2].evictions}, "
+              f"recoveries {res_c[2].recoveries}")
+        if cfg is GCRN_M2:
+            # host copies: the memory check drops the run's states
+            base = {sid: (ops.to_device(res_c[0][sid], "cpu"), res_c[1][sid])
+                    for sid in streams}
+            memory_check(f"{cfg.name} continuous", *runs["continuous"][1:],
+                         res_c)
+        del runs
+
+    # (b) buckets and promotion under the static guard
+    cfg, p = GCRN_M2, params[GCRN_M2.name]
+    refs = {sid: serve_offline(cfg, p, n_global, s, feat)
+            for sid, s in streams.items()}
+    label = (f"{cfg.name} serve_multi x{len(streams)} continuous, buckets, "
+             "promote 4.0 static guard")
+    res, counts, _, _ = serve_multi_run(
+        label, cfg, p, n_global, feat, streams, card, buckets=buckets,
+        promote_buckets=SERVE_PROMOTE, **SERVE_CONTINUOUS)
+    add(counts)
+    check(not res[2].tenant_errors, f"{label} tenant errors")
+    errs = [serve_errs(res[1][sid], res[0][sid], s, refs[sid])
+            for sid, s in streams.items()]
+    serve_check(label, (max(e[0] for e in errs), max(e[1] for e in errs)),
+                TOL_STREAM)
+
+    # (c) the paged plan: 12 tenants, 1 nominal page = capacity 8
+    cuts = np.linspace(0, len(snaps), SERVE_PAGED_TENANTS + 1).astype(int)
+    pstreams = serve_windows(snaps, tuple(zip(cuts[:-1], cuts[1:])))
+    prefs = {sid: serve_offline(cfg, p, n_global, s, feat)
+             for sid, s in pstreams.items()}
+    runs = {}
+    for sched, kw in (("rounds", {}),
+                      ("continuous", dict(scheduler="continuous",
+                                          state_pool_pages=1))):
+        label = (f"{cfg.name} hbm_paged d2 serve_multi "
+                 f"x{SERVE_PAGED_TENANTS} {sched}"
+                 + (" (1 page: capacity 8)" if kw else ""))
+        res, counts, rec, mem = serve_multi_run(
+            label, cfg, p, n_global, feat, pstreams, card, probe=bool(kw),
+            **SERVE_FIXED, **paged_plan(2), **kw)
+        add(counts)
+        check(not res[2].tenant_errors, f"{label} tenant errors")
+        errs = [serve_errs(res[1][sid], res[0][sid], s, prefs[sid])
+                for sid, s in pstreams.items()]
+        serve_check(label, (max(e[0] for e in errs), max(e[1] for e in errs)),
+                    TOL_STREAM)
+        runs[sched] = (res, rec, mem)
+    res_c = runs["continuous"][0]
+    same = served_equal(runs["rounds"][0], res_c, pstreams)
+    over = SERVE_PAGED_TENANTS - HBM_PAGE_FACTOR
+    log(f"serve {cfg.name} hbm_paged continuous vs rounds bit for bit: {same};"
+        f" evictions {res_c[2].evictions} (>= {over}: {SERVE_PAGED_TENANTS} "
+        f"tenants over a capacity of {HBM_PAGE_FACTOR})")
+    check(same, f"{cfg.name} hbm_paged: continuous != rounds")
+    check(res_c[2].evictions >= over
+          and res_c[2].recoveries == res_c[2].evictions,
+          f"{cfg.name} hbm_paged continuous: evictions")
+    memory_check(f"{cfg.name} hbm_paged continuous", *runs["continuous"][1:],
+                 res_c)
+    del runs, res_c
+
+    # (e) the express lane under ticks
+    xcfg, xp = STATIC_GCN, params[STATIC_GCN.name]
+    wins = SERVE_WINDOWS
+    estreams = serve_windows(snaps, wins[:SERVE_SMALL])
+    xstreams = {f"x{i}": snaps[a:b]
+                for i, (a, b) in enumerate(wins[SERVE_SMALL:])}
+    sess = serve_session(cfg, p, n_global, feat, **SERVE_FIXED,
+                         scheduler="continuous", state_pool_pages=2)
+    xsess = api.BoosterSession(xcfg, api.plan(xcfg, level="v3",
+                                              **SERVE_FIXED),
+                               n_global=n_global, feat_table=feat,
+                               params=xp, device="cuda")
+    xrefs = {sid: serve_offline(xcfg, xp, n_global, s, feat)
+             for sid, s in xstreams.items()}
+    states = {sid: sess.model.init_state(p, mode="v3") for sid in estreams}
+    label = (f"express lane, continuous: {len(xstreams)} {xcfg.name} beside "
+             f"{len(estreams)} {cfg.name}")
+    engine.reset_launches()
+    states, outs, stats = SnapshotServer(session=sess, express=xsess) \
+        .run_multi(p, states, estreams, express_streams=xstreams,
+                   express_params=xp)
+    torch.cuda.synchronize()
+    check(stats.express_launches > 0
+          and stats.launches_by_family.get("static_gcn")
+          == stats.express_launches, f"{label}: {stats.launches_by_family}")
+    add(serve_counts(label, stats, {
+        ENGINE["gcrn"]: stats.launches_by_family["gcrn"],
+        "static_engine": stats.express_launches}))
+    serve_timing(label, stats, card)
+    continuous_stats(label, stats)
+    check(not stats.tenant_errors, f"{label} tenant errors")
+    errs = [serve_errs(outs[sid], states[sid], s, refs[sid])
+            for sid, s in estreams.items()]
+    serve_check(f"{label}, recurrent", (max(e[0] for e in errs),
+                                        max(e[1] for e in errs)), TOL_STREAM)
+    xerrs = [serve_errs(outs[sid], {}, s, xrefs[sid])
+             for sid, s in xstreams.items()]
+    serve_check(f"{label}, express", (max(e[0] for e in xerrs), 0.0),
+                TOL_KERNEL)
+    del states, outs
+
+    # (f) faults under ticks: survivors bit for bit the fault-free run (a)
+    fsids = sorted(estreams)
+    for what, specs, kw in (
+            ("persistent launch fault on t1",
+             [dict(site="launch", tenant="t1", index=0, count=99)], {}),
+            ("transient launch fault",
+             [dict(site="launch", index=0, count=1)], dict(max_retries=1))):
+        label = f"{cfg.name} continuous, {what}"
+        fp = FaultPlan(specs=tuple(FaultSpec(**s) for s in specs), seed=SEED)
+        sess = serve_session(cfg, p, n_global, feat, supervision="isolate",
+                             retry_backoff_ms=1.0, fault_plan=fp,
+                             **SERVE_FIXED, **SERVE_CONTINUOUS, **kw)
+        states = {sid: sess.model.init_state(p, mode="v3")
+                  for sid in estreams}
+        engine.reset_launches()
+        with deterministic():
+            states, outs, stats = SnapshotServer(session=sess).run_multi(
+                p, states, estreams)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in engine.LAUNCHES.items() if v}
+        add(counts)
+        log(f"serve {label}: launches {counts}, stats.launches "
+            f"{stats.launches}, retries {stats.retries}, rollbacks "
+            f"{stats.rollbacks}, quarantined {sorted(stats.tenant_errors)}")
+        if kw:
+            check(not stats.tenant_errors and stats.retries >= 1
+                  and stats.rollbacks >= 1, f"{label}: retried, rolled back")
+            survivors = fsids
+        else:
+            err = stats.tenants["t1"].error
+            check(isinstance(err, InjectedFault)
+                  and set(stats.tenant_errors) == {"t1"},
+                  f"{label}: t1 not quarantined alone ({err!r})")
+            survivors = [s for s in fsids if s != "t1"]
+        same = all(bitwise(ops.to_device(states[sid], "cpu"), base[sid][0])
+                   and len(outs[sid]) == len(base[sid][1])
+                   and all(np.array_equal(x, y)
+                           for x, y in zip(outs[sid], base[sid][1]))
+                   for sid in survivors)
+        log(f"serve {label}: {survivors} bit for bit the fault-free "
+            f"continuous run {same}")
+        check(same, f"{label}: survivors differ from the fault-free run")
+        del states, outs
+    del base
+    add(serve_skewed(params, n_global, snaps, feat, card))
+    return launches
+
+
+def serve_skewed(params, n_global, snaps, feat, card) -> dict:
+    """(g) benchmarks/kernel_bench.py's skewed workload on BC-Alpha
+    GCRN-M2, fixed bucket, chunks of 8: one backlog tenant with all the
+    snapshots at t = 0, SKEW_INC incremental tenants whose SKEW_INC_SNAPS
+    snapshots arrive one every SKEW_INTERVAL_MS. Each scheduler: one
+    unpaced warm run, then SKEW_PACED paced runs; the incremental tenants'
+    sojourn (commit ms minus the arrival clock) p50 / p99, snapshots/s,
+    ticks, prefill chunks and launches. No limit is set; the two
+    schedulers' outputs must agree bit for bit."""
+    cfg, p = GCRN_M2, params[GCRN_M2.name]
+    inc = [f"inc{i}" for i in range(SKEW_INC)]
+    tenant = {"backlog": snaps}
+    for i, sid in enumerate(inc):
+        tenant[sid] = snaps[i * SKEW_INC_SNAPS:(i + 1) * SKEW_INC_SNAPS]
+
+    def paced(sid, arrivals):
+        for i, s in enumerate(tenant[sid]):
+            time.sleep(SKEW_INTERVAL_MS / 1e3)
+            arrivals[(sid, i)] = time.perf_counter()
+            yield s
+
+    launches, served = {}, {}
+    for sched, kw in (("rounds", dict(queue_depth=SKEW_PLAN["queue_depth"])),
+                      ("continuous", dict(scheduler="continuous",
+                                          **SKEW_PLAN))):
+        sess = serve_session(cfg, p, n_global, feat, **SERVE_FIXED, **kw)
+        srv = SnapshotServer(session=sess)
+        for run in range(1 + SKEW_PACED):
+            arrivals: dict = {}
+            streams = {sid: (paced(sid, arrivals) if run and sid in inc
+                             else list(s)) for sid, s in tenant.items()}
+            states = {sid: sess.model.init_state(p, mode="v3")
+                      for sid in streams}
+            engine.reset_launches()
+            with deterministic():
+                res = srv.run_multi(p, states, streams)
+            torch.cuda.synchronize()
+            stats = res[2]
+            for k, v in engine.LAUNCHES.items():
+                if v:
+                    launches[k] = launches.get(k, 0) + v
+            check(not stats.tenant_errors
+                  and all(len(res[1][sid]) == len(tenant[sid])
+                          for sid in tenant), f"skewed {sched}: served all")
+            check(engine.LAUNCHES[ENGINE["gcrn"]] == stats.launches,
+                  f"skewed {sched}: launches")
+            n = sum(len(v) for v in stats.commit_ms.values())
+            line = (f"serve skewed {sched} {'paced' if run else 'warm'}: "
+                    f"{n / (stats.total_ms / 1e3):.1f} snapshots/s ({n} in "
+                    f"{stats.total_ms:.1f} ms), ticks {stats.ticks}, prefill "
+                    f"chunks {stats.prefill_chunks}, launches "
+                    f"{stats.launches}, evictions {stats.evictions}")
+            if run:
+                soj = [stats.commit_ms[sid][i]
+                       - (arrivals[(sid, i)] - srv._t0_run) * 1e3
+                       for sid in inc for i in range(len(tenant[sid]))]
+                line += (f"; incremental sojourn p50 "
+                         f"{float(np.percentile(soj, 50)):.2f} ms, p99 "
+                         f"{float(np.percentile(soj, 99)):.2f} ms")
+            log(line + f"; {card}")
+            served[sched] = res
+        if sched == "continuous":
+            check(stats.prefill_chunks > 0, "skewed continuous: no prefill")
+    same = served_equal(served["rounds"], served["continuous"], tenant)
+    log(f"serve skewed: continuous vs rounds bit for bit {same}")
+    check(same, "skewed: continuous != rounds")
+    return launches
+
+
 def serve_launcher() -> None:
     """Path 5: python -m repro_torch.launch.serve --dgnn gcrn-m2, a
     process of its own, exits 0."""
@@ -3776,7 +4240,9 @@ def serve_phase(params, card) -> dict:
                  serve_multi_paths(params, n_global, snaps, feat, buckets,
                                    card),
                  serve_express_path(params, n_global, snaps, feat, card),
-                 serve_faults(params, n_global, snaps, feat)):
+                 serve_faults(params, n_global, snaps, feat),
+                 serve_continuous(params, n_global, snaps, feat, buckets,
+                                  card)):
         for k, v in part.items():
             launches[k] = launches.get(k, 0) + v
     serve_launcher()

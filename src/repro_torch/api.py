@@ -12,11 +12,12 @@ on padded snapshot streams, tgn on padded event batches (graph/events.py),
 static_gcn on independent snapshots; the stateful families at v3 also with
 ``state_residency="hbm_paged"`` (their paged engines). The serve-policy
 fields steer the serve engine and are ignored by ``run`` /
-``run_batched`` / ``run_arrays``, as in the JAX package. What the port
-cannot execute yet raises ``NotImplementedError`` naming its ROADMAP item
-when it is executed: a sharded ``DeviceSpec`` and the continuous
-scheduler's fields (``scheduler="continuous"``, ``state_pool_pages``,
-``prefill_chunk``).
+``run_batched`` / ``run_arrays``, as in the JAX package; the continuous
+scheduler's (``scheduler="continuous"``, ``state_pool_pages``,
+``prefill_chunk``) steer ``serve_multi`` and are ignored by the
+single-stream ``serve`` too. What the port cannot execute yet, a sharded
+``DeviceSpec``, raises ``NotImplementedError`` naming its ROADMAP item when
+it is executed.
 
 The torch device is an argument of the session (and of ``run_arrays``),
 not a plan field. It defaults to "cuda" and raises when there is no card;
@@ -107,8 +108,7 @@ class StreamPlan:
     queue_depth: int = 2              # host->device queue (ping-pong = 2)
     promote_buckets: Optional[float] = None  # max promotion overhead ratio
     promotion_guard: str = "static"   # "static" proxy | "measured" times
-    # multi-tenant scheduling: "continuous" and its two knobs validate but
-    # raise on execution (core/dataflow.py)
+    # multi-tenant scheduling (serve/scheduler.py)
     scheduler: str = "rounds"
     state_pool_pages: Optional[int] = None
     prefill_chunk: Optional[int] = None

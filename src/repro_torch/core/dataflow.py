@@ -58,21 +58,12 @@ def build_model(cfg: DGNNConfig, impl: str = "xla",
     raise ValueError(cfg.dgnn_type)
 
 
-CONTINUOUS_ITEM = ("not ported yet (ROADMAP queue 1, the continuous "
-                   "scheduler)")
-
-
 def _check_executable(plan) -> None:
-    """Raise for plan fields the port cannot execute yet: the continuous
-    scheduler's (``scheduler="continuous"``, ``state_pool_pages``,
-    ``prefill_chunk``) and a sharded ``DeviceSpec``. The other serve-policy
-    fields steer the serve engine (serve/engine.py); the plan executors
-    ignore them, as the JAX package's do."""
-    for name, default in (("scheduler", "rounds"), ("state_pool_pages", None),
-                          ("prefill_chunk", None)):
-        value = getattr(plan, name)
-        if value != default:
-            raise NotImplementedError(f"{name}={value!r}: {CONTINUOUS_ITEM}")
+    """Raise for a plan field the port cannot execute yet: a sharded
+    ``DeviceSpec``. The serve-policy fields (the continuous scheduler's
+    ``scheduler``, ``state_pool_pages`` and ``prefill_chunk`` among them)
+    steer the serve engine (serve/engine.py, serve/scheduler.py); the plan
+    executors ignore them, as the JAX package's do."""
     if plan.device.n_devices > 1:
         raise NotImplementedError(
             "DeviceSpec sharding is not ported yet (ROADMAP.md queue 1, "

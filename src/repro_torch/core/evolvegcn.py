@@ -97,12 +97,30 @@ class EvolveGCN:
         (edge_feat @ w_edge_l)[eidx[v,k]], shape (..., n, din_l). It is
         additive in the ELL aggregation, so it factors out of the kernel;
         it is linear in the edge features, so they are aggregated once
-        (width De) and each layer's w_edge applies to that aggregate."""
+        (width De) and each layer's w_edge applies to that aggregate.
+
+        Both sums run as elementwise adds in a fixed order (lane by lane,
+        then edge feature by edge feature), so a snapshot's term has the
+        same bits whatever the launch's B and T: a reduction kernel's or a
+        GEMM's summation order follows the tensor's shape (on an H100,
+        ``agg @ w_edge`` of a T 2 chunk and of a T 8 chunk differed in the
+        last bit), and the serve engine's chunking, tick by tick under the
+        continuous scheduler, must not change what a tenant is served."""
         if not self.cfg.edge_dim:
             return None
-        agg = _ref.ell_spmm(snaps.neigh_eidx, snaps.neigh_coef,
-                            snaps.neigh_eidx, snaps.edge_feat)
-        return [agg @ p["w_edge"] for p in params["gcn"]]
+        msgs = _ref.ell_gather_msgs(snaps.neigh_eidx, snaps.neigh_coef,
+                                    snaps.neigh_eidx, snaps.edge_feat)
+        agg = msgs[..., 0, :]
+        for k in range(1, msgs.shape[-2]):
+            agg = agg + msgs[..., k, :]
+        terms = []
+        for p in params["gcn"]:
+            w = p["w_edge"]
+            term = agg[..., :1] * w[0]
+            for d in range(1, w.shape[0]):
+                term = term + agg[..., d:d + 1] * w[d]
+            terms.append(term)
+        return terms
 
     def stream_args(self, params: dict, state: dict,
                     snaps: PaddedSnapshot) -> tuple:

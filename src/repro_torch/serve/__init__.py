@@ -1,11 +1,12 @@
 """Serving: the DGNN snapshot server (``SnapshotServer``: buckets and
 promotion, the round scheduler, the express lane, supervision and fault
-injection) and the LM scaffold's greedy decode (``lm_serve``).
+injection), its continuous-batching scheduler (``ContinuousScheduler``)
+with the paged tenant-state pool (``TenantStatePool``, ``PoolOverflow``),
+and the LM scaffold's greedy decode (``lm_serve``).
 
-The JAX package's continuous scheduler (``ContinuousScheduler``) and its
-paged tenant-state pool (``TenantStatePool``, ``PoolOverflow``) wait for the
-next slice (ROADMAP queue 1, the continuous scheduler); a plan asking for
-them raises ``NotImplementedError`` when served.
+``__all__`` is the JAX package's ``repro.serve.__all__``. ``SUPERVISED``
+(the exception classes a supervised step catches, serve/faults.py) is the
+port's own and is importable from here without being part of it.
 """
 from repro_torch.serve.engine import ServeStats, SnapshotServer
 from repro_torch.serve.faults import (
@@ -22,6 +23,8 @@ from repro_torch.serve.faults import (
     validate_snapshot,
 )
 from repro_torch.serve.lm_serve import generate, make_serve_step
+from repro_torch.serve.scheduler import ContinuousScheduler
+from repro_torch.serve.state_pool import PoolOverflow, TenantStatePool
 from repro_torch.serve.supervision import (
     SupervisionPolicy,
     TenantResult,
@@ -29,6 +32,7 @@ from repro_torch.serve.supervision import (
 )
 
 __all__ = [
+    "ContinuousScheduler",
     "FAULT_SCOPES",
     "FAULT_SITES",
     "FaultInjector",
@@ -36,13 +40,14 @@ __all__ = [
     "FaultSpec",
     "InjectedFault",
     "LaunchTimeout",
-    "SUPERVISED",
+    "PoolOverflow",
     "ServeFault",
     "ServeStats",
     "SnapshotServer",
     "SnapshotValidationError",
     "SupervisionPolicy",
     "TenantResult",
+    "TenantStatePool",
     "TenantSupervisor",
     "generate",
     "make_serve_step",

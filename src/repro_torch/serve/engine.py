@@ -66,9 +66,15 @@ exception (the JAX package catches ``Exception``): anything else — a
 programming fault — propagates out of ``run`` / ``run_multi`` after the
 producer threads are shut down.
 
-The continuous scheduler (``scheduler="continuous"``, ``state_pool_pages``,
-``prefill_chunk``) is not ported: a plan carrying it raises
-``NotImplementedError`` when served (core/dataflow.py).
+Continuous batching (``scheduler="continuous"``, serve/scheduler.py):
+``run_multi`` hands over to ``ContinuousScheduler``, which composes each
+launch from whatever snapshots are ready (no round barrier), serves a
+backlog ``prefill_chunk`` snapshots a tick, and keeps per-tenant state in a
+paged pool (``state_pool_pages``, serve/state_pool.py) that spills the
+least-recently-scheduled tenants to the host. Its outputs and final states
+equal the round scheduler's bit for bit. A committed tenant state owns its
+storage (``_commit_group``), so a spilled tenant frees its bytes on the
+card.
 """
 from __future__ import annotations
 
@@ -139,9 +145,7 @@ class ServeStats:
     # measured-guard calibration fell back to the static proxy (repr of
     # the LAST error; None = calibration ok or never requested)
     calibration_fallback: Optional[str] = None
-    # continuous-scheduler signals: 0 under the round scheduler (the only
-    # one ported); kept so the stats compare field by field with the JAX
-    # package's
+    # continuous-scheduler signals (0 under the round scheduler)
     ticks: int = 0
     prefill_chunks: int = 0
     evictions: int = 0
@@ -564,7 +568,11 @@ class SnapshotServer:
         staged_states, staged_outs, dt, live, padded_slots = staged
         for sid, _, _ in group:
             self._probe("evolve", tenant=sid)
-            states[sid] = staged_states[sid]
+            # a copy of the tenant's rows, not a view into the launch's
+            # (B, ...) batch: a view would keep the whole batch alive for as
+            # long as any co-batched tenant's state lives, so the state pool
+            # could bound nothing and an evicted tenant would free nothing
+            states[sid] = map_state(torch.clone, staged_states[sid])
         # commit wall-clock (ms since run start) recorded per snapshot —
         # only after the whole evolve loop, so a rolled-back commit never
         # stamps timestamps for outputs it did not serve
@@ -1083,11 +1091,19 @@ class SnapshotServer:
         ServeStats). Outputs per stream are in that stream's snapshot
         order, as host numpy arrays.
 
-        The round scheduler: rounds of up to ``stream_chunk`` snapshots a
-        stream with a barrier between rounds; same-bucket chunks from
-        different streams batch into one V3 launch. (The JAX package's
-        continuous scheduler is not ported: a plan with
-        ``scheduler="continuous"`` raises NotImplementedError here.)
+        ``plan.scheduler`` picks the device loop:
+
+        ``"rounds"`` (default): rounds of up to ``stream_chunk`` snapshots
+        a stream with a barrier between rounds; same-bucket chunks from
+        different streams batch into one V3 launch.
+
+        ``"continuous"``: iteration-level scheduling: no round barrier; a
+        tick composes a fresh batch from whatever is READY, long backlogs
+        are served in ``prefill_chunk``-bounded chunks interleaved with
+        other tenants' steps, and per-tenant recurrent state lives in a
+        paged pool (``state_pool_pages``) with LRU eviction to the host and
+        recovery onto the card (serve/scheduler.ContinuousScheduler).
+        Outputs and final states equal the round scheduler's bit for bit.
 
         Supervised per the plan's fault-isolation policy: with
         ``supervision="isolate"`` a failing tenant is quarantined — its
@@ -1101,12 +1117,19 @@ class SnapshotServer:
         ``express_streams`` ({sid: iterable of COOSnapshot}, disjoint from
         ``streams``) are served through it with ``express_params``. Each
         round co-batches ALL ready express snapshots into one launch with
-        no checkpoint / rollback around it, counted in
-        ``ServeStats.express_launches`` / ``launches_by_family``. Express
-        outputs land in the same outputs dict, in stream order.
+        no checkpoint / rollback around it (each tick, under the continuous
+        scheduler), counted in ``ServeStats.express_launches`` /
+        ``launches_by_family``. Express outputs land in the same outputs
+        dict, in stream order.
         """
         x_sids = self._check_express_args(streams, express_streams)
         _check_executable(self.plan)
+        if self.plan.scheduler == "continuous":
+            from repro_torch.serve.scheduler import ContinuousScheduler
+
+            return ContinuousScheduler(self).run(
+                params, states, streams, express_streams=express_streams,
+                express_params=express_params)
         return self._run_multi_rounds(params, states, streams,
                                       express_streams if x_sids else None,
                                       express_params)
@@ -1114,7 +1137,8 @@ class SnapshotServer:
     def _run_multi_rounds(self, params, states: dict, streams: dict,
                           express_streams: Optional[dict] = None,
                           express_params=None) -> tuple:
-        """The round-based multi-tenant device loop; see ``run_multi``."""
+        """The round-based multi-tenant device loop (plan.scheduler ==
+        "rounds"); see ``run_multi``."""
         sids = sorted(streams)
         x_sids = sorted(express_streams or {})
         t_start = time.perf_counter()

@@ -29,8 +29,8 @@ into a tenant's state tensors, and nothing does:
     ``_stacked_cuda``, ``_tgn_cuda``; the paged engines' page writes and
     EvolveGCN's weight update land in that clone), and the plain versions
     and the force-ref oracles build new tensors;
-  * a commit replaces dict entries with views of the launch's output; it
-    never writes into the tensors a checkpoint holds.
+  * a commit replaces dict entries with copies of the tenant's rows of the
+    launch's output; it never writes into the tensors a checkpoint holds.
 
 ``tests/test_torch_chaos.py`` pins this: a launch leaves its input states
 bit for bit unchanged on the kernel route and the force-ref route, resident

@@ -412,8 +412,13 @@ def test_port_serve_layer_is_lint_clean():
     calibration fallback and the consumer loops catch
     ``faults.SUPERVISED`` (the analyzer's broad-except allowlist names the
     JAX engine only), and the producer threads hand their errors on
-    through a context manager, not a broad except."""
+    through a context manager, not a broad except. Its public surface,
+    ``repro_torch.serve.__all__``, is the JAX package's."""
+    import repro.serve
+    import repro_torch.serve
     from repro.analysis import core, lint
+
+    assert repro_torch.serve.__all__ == repro.serve.__all__
 
     files = [p.relative_to(ROOT).as_posix() for p in SERVE_FILES]
     assert "src/repro_torch/serve/engine.py" in files

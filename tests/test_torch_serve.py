@@ -457,22 +457,68 @@ def test_tgn_session_serve_fails_as_in_jax(uci):
     _no_serve_threads()
 
 
-def test_continuous_scheduler_raises_when_served(uci):
+def test_continuous_scheduler_raises_when_served(uci, monkeypatch):
+    """The continuous scheduler is ported (the name is the one this case
+    had while it was not): a plan with ``scheduler="continuous"`` and its
+    two knobs serves. ``serve`` ignores the fields, as the JAX package's
+    does, and equals the round plan's serve bit for bit; ``serve_multi``
+    runs ticks, equal to the round scheduler's serve_multi bit for bit and
+    within 3e-4 of the JAX continuous server. A sharded DeviceSpec still
+    raises when served."""
     tg, ft, snaps = uci
-    pcfg = _port_cfg(GCRN_M2)
+    streams = {"a": snaps[:5], "b": snaps[3:7]}
+    rounds = Pair(GCRN_M2, tg.n_global_nodes, ft, level="v3",
+                  stream_chunk=2)
+    _, (_, solo, _) = rounds.run(snaps[:3])
+    _, (r_st, r_outs, _) = rounds.run_multi(streams)
     for kw in (dict(scheduler="continuous"),
-               dict(scheduler="continuous", state_pool_pages=2),
-               dict(scheduler="continuous", prefill_chunk=2)):
+               dict(scheduler="continuous", state_pool_pages=1),
+               dict(scheduler="continuous", prefill_chunk=1)):
+        pair = Pair(GCRN_M2, tg.n_global_nodes, ft, level="v3",
+                    stream_chunk=2, **kw)
+        _, (_, outs, stats) = pair.run(snaps[:3])
+        assert stats.ticks == 0
+        assert all(np.array_equal(a, b) for a, b in zip(outs, solo))
+        j, t = pair.run_multi(streams)
+        (jst, jouts, jstats), (tst, touts, tstats) = j, t
+        assert tstats.ticks > 0 and jstats.ticks > 0
+        assert tstats.live_snapshots == jstats.live_snapshots
+        assert tstats.recoveries == tstats.evictions
+        if kw.get("state_pool_pages"):
+            assert tstats.evictions > 0
+        for sid in streams:
+            assert_outs_close(touts[sid], jouts[sid], f"{kw} {sid}")
+            assert_state_close(tst[sid], jst[sid], f"{kw} {sid}")
+            # the round scheduler on the same plan: equal up to the CPU
+            # plain path's batch-dependent last bits (a tick's B and T are
+            # not a round's; test_torch_scheduler.py,
+            # test_plain_step_bits_on_the_cpu)
+            for a, b in zip(touts[sid], r_outs[sid]):
+                np.testing.assert_allclose(a, b, atol=1e-6, rtol=0)
+            for k in r_st[sid]:
+                np.testing.assert_allclose(tst[sid][k].numpy(),
+                                           r_st[sid][k].numpy(), atol=1e-6,
+                                           rtol=0)
         sess = tapi.BoosterSession(
-            pcfg, tapi.plan(pcfg, level="v3", **kw),
+            pair.pcfg, tapi.plan(pair.pcfg, level="v3", **kw),
             n_global=tg.n_global_nodes, feat_table=ft,
-            gen=torch.Generator().manual_seed(0), device="cpu")
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP queue 1, the continuous scheduler"):
-            sess.serve_multi({"a": _port_snaps(snaps[:2])})
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP queue 1, the continuous scheduler"):
-            sess.serve(_port_snaps(snaps[:2]))
+            params=pair.tparams, device="cpu")
+        _, outs, stats = sess.serve_multi({"a": _port_snaps(snaps[:2])})
+        assert len(outs["a"]) == 2 and stats.ticks > 0
+    # plan() refuses a DeviceSpec wider than the host's cards
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    sess = tapi.BoosterSession(
+        rounds.pcfg, tapi.plan(rounds.pcfg, level="v3", batch=2,
+                               device=tapi.DeviceSpec(n_devices=2)),
+        n_global=tg.n_global_nodes, feat_table=ft, params=rounds.tparams,
+        device="cpu")
+    padded = stack_time([tpad.pad_snapshot(renumber_and_normalize(s), ft,
+                                           640, 4096, 64)
+                         for s in _port_snaps(snaps[:2])])
+    with pytest.raises(NotImplementedError, match="device sharding"):
+        sess.run(padded)
+    with pytest.raises(ValueError, match="does not shard its launches"):
+        sess.serve_multi({"a": _port_snaps(snaps[:2])})
     _no_serve_threads()
 
 

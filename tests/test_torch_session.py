@@ -199,9 +199,6 @@ def _serve_snaps(cfg, n_global, T=3, seed=0):
     return ft, snaps
 
 
-CONTINUOUS = "ROADMAP queue 1, the continuous scheduler"
-
-
 # The ids are the ones these cases had while the serve layer was unported
 # (their match strings then), kept so each case keeps its name.
 @pytest.mark.parametrize("kwargs,match", [
@@ -210,8 +207,8 @@ CONTINUOUS = "ROADMAP queue 1, the continuous scheduler"
     # hbm_paged is ported: this plan executes and serves (match None)
     pytest.param(dict(level="v3", state_residency="hbm_paged", td=8), None,
                  id="kwargs1-item 11"),
-    pytest.param(dict(scheduler="continuous", level="v3"),
-                 "scheduler='continuous': .*the continuous scheduler",
+    # the continuous scheduler is ported: this plan runs and serves
+    pytest.param(dict(scheduler="continuous", level="v3"), "serves",
                  id="kwargs2-scheduler='continuous': .*the serve layer"),
     pytest.param(dict(max_retries=2, level="v3"), "serves",
                  id="kwargs3-max_retries=2: .*the serve layer"),
@@ -222,8 +219,8 @@ def test_unported_plan_fields_raise_on_execution(kwargs, match):
     """The serve layer is ported: a plan's serve-policy fields steer
     ``serve`` and are ignored by ``run`` (as in the JAX package), so such
     a plan runs, equal to the plan without them, and serves. The
-    continuous scheduler's fields still raise on execution, in ``run``
-    and in ``serve``, naming their ROADMAP item."""
+    continuous scheduler's fields too: ``serve`` ignores them, as the JAX
+    package's does, and ``serve_multi`` runs ticks."""
     case = harness.make_case("gcrn-m2", T=2, B=1)
     cfg = _port_cfg(case.cfg)
     p = tapi.plan(cfg, **kwargs)
@@ -236,7 +233,7 @@ def test_unported_plan_fields_raise_on_execution(kwargs, match):
         _assert_paged_session_runs(case, kwargs)
     elif match == "serves":
         bare = dict(kwargs)
-        for name in ("stream_chunk", "max_retries", "n_pad"):
+        for name in ("stream_chunk", "max_retries", "n_pad", "scheduler"):
             bare.pop(name, None)
         plain = tapi.BoosterSession(cfg, tapi.plan(cfg, **bare),
                                     n_global=case.n_global,
@@ -244,12 +241,6 @@ def test_unported_plan_fields_raise_on_execution(kwargs, match):
         snaps_T = _port_snaps(case.stacked[0])
         np.testing.assert_array_equal(sess.run(snaps_T).numpy(),
                                       plain.run(snaps_T).numpy())
-    else:
-        with pytest.raises(NotImplementedError, match=match):
-            sess.run(_port_snaps(case.stacked[0]))
-        with pytest.raises(NotImplementedError, match=CONTINUOUS):
-            sess.serve(snaps)
-        return
     sess.reset_state()
     outs, stats = sess.serve(snaps)
     assert len(outs) == len(snaps)
@@ -257,3 +248,9 @@ def test_unported_plan_fields_raise_on_execution(kwargs, match):
                for o in outs)
     assert stats.launches == (0 if p.level != "v3" else 1)
     assert stats.degraded_launches == 0
+    assert stats.ticks == 0
+    if p.scheduler == "continuous":
+        _, multi, stats = sess.serve_multi({"a": snaps, "b": snaps[1:]})
+        assert stats.ticks > 0 and stats.degraded_launches == 0
+        for a, b in zip(multi["a"], outs):
+            np.testing.assert_allclose(a, b, atol=1e-6, rtol=0)
