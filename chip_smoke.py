@@ -56,7 +56,19 @@ Phases (any failure exits non-zero):
         its plain version; 0 spill bytes in ptxas's report for the stacked
         and TGN kernels; a B 1 launch one cluster of >= 8 CTAs, and
         resident and paged d1 / d2 / d4 timed in turns at B 1 and at the
-        V3_WINDOWS batch (B 4; TGN: EVENT_V3_WINDOWS);
+        V3_WINDOWS batch (B 4; TGN: EVENT_V3_WINDOWS); then the static
+        checker (analysis_phase): python -m repro_torch.analysis's run on
+        the card with zero findings (the library's shared memory, cluster
+        launch and static plan equal to the port's at every sweep point;
+        each stateful sweep point launched with its protocol log and
+        replayed), each sweep point's device log equal row for row to its
+        plain version (engine.protocol_plain), and the main path's own
+        launches with the log (the four resident engines, and the paged
+        ones at td 16, depths 1, 2 and 4): replayed clean (the paged rings
+        and EvolveGCN's GRU slab ring and W planes), no overflow, the plain
+        version's rows, the results bit for bit those without the log;
+        with --parent DIR, the eight engine variants (the paged ones at
+        every depth) timed in turns with DIR's build of its sources;
      c. the three per-step kernels (V2 steps, ELL SpMM) on the inputs the
         main path hands them at full width, recorded from one run of a path
         that launches each, every step of the stream (<= 1e-4; stacked_step
@@ -209,11 +221,15 @@ Then, with the serving weights freed, the LM training path:
      blow-up only); (e) the reduced phi3 trains 4 steps with a checkpoint every 2 into a
      temporary directory, the restored tensors equal the trained ones,
      and a second run resumes from step 4 to 6.
-Prints ms/snapshot per path, a {"kernels": [...]} line with all eighteen
-kernels and, last, the device line.
+Prints ms/snapshot per path, an {"analysis": {...}} line (sweep points,
+findings, log rows; with --parent, the turns), a {"kernels": [...]} line
+with all eighteen kernels and, last, the device line.
+
+    python3 chip_smoke.py [--parent DIR]
 
 Imports nothing of the JAX package.
 """
+import argparse
 import contextlib
 import dataclasses
 import functools
@@ -234,7 +250,8 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-from repro_torch import api  # noqa: E402
+from repro_torch import analysis, api  # noqa: E402
+from repro_torch.analysis import contracts  # noqa: E402
 from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.configs.dgnn import (BC_ALPHA, EVOLVEGCN, GCRN_M2,  # noqa: E402
                                       STACKED, STATIC_GCN, TGN)
@@ -871,6 +888,131 @@ def check_paged_engine(family, resident_inp, paged_inp, cost, ms_resident):
                                 if lb.startswith("T=8")))
 
 
+# ------------------------------------------------- the static checker ----
+# repro_torch.analysis on the card: its whole run (the contract pass
+# launches every stateful sweep point with its protocol log and holds the
+# libraries' shared memory, cluster launches and static plan against the
+# port's mirrors), each sweep point's device log against its plain version
+# row for row, and the main path's own launches with the log: the four
+# paged engines at every depth and the four resident ones, full width.
+
+# samples of the eight engine variants timed in turns with another
+# checkout's build (``--parent DIR``)
+TURN_SAMPLES = 9
+
+
+def logged_launch(name, inp, label, **ring) -> int:
+    """Engine ``name`` on ``inp`` with its protocol log and without: the
+    results bit for bit equal, the log its plain version's rows (that of
+    the same launch, recorded), replayed clean and not overflowed. Returns
+    its rows."""
+    kernel = getattr(engine, name)
+    got = kernel(*inp, **ring, proto=True)
+    base = kernel(*inp, **ring)
+    torch.cuda.synchronize()
+    plog = got[-1]
+    with engine.recording_launches() as recorded:
+        kernel(*inp, **ring)
+    plain = engine.protocol_of(recorded[0])
+    findings = contracts.replay(plog, label)
+    for f in findings[:5]:
+        log(f"  {f.rule}: {f.message}")
+    rings = sorted({int(r) for r in plog.rows[:, 1]})
+    log(f"{label}: {len(plog.rows)} log rows (rings {rings}, capacity "
+        f"{plog.capacity}), {len(findings)} finding(s), the plain log's "
+        f"rows {np.array_equal(plog.rows, plain.rows)}, results bit for bit "
+        f"{bitwise(got[:-1], base)}")
+    check(not findings and not plog.overflow, f"{label}: protocol replay")
+    check(np.array_equal(plog.rows, plain.rows),
+          f"{label}: the device log is its plain version's")
+    check(bitwise(got[:-1], base), f"{label}: results with the log")
+    return len(plog.rows)
+
+
+def parent_engine(root: Path):
+    """``kernels/engine.py`` of another checkout at ``root`` (its sources,
+    its build directory under ``root``)."""
+    import importlib.util
+
+    path = root / "src" / "repro_torch" / "kernels" / "engine.py"
+    spec = importlib.util.spec_from_file_location("parent_engine", path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod  # its dataclasses look their module up
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def parent_turns(parent: Path, inputs, paged_inputs) -> dict:
+    """The eight engine variants (resident; paged at td 16, depths 1 / 2 /
+    4) on the main path's inputs, this tree's build and ``parent``'s in
+    turns (parent, this, this, parent; medians of TURN_SAMPLES rounds of
+    2 calls): {label: (parent ms, this ms)}."""
+    other = parent_engine(parent)
+    other.build(tuple(ENGINE[f] for f in PAGED))
+    out = {}
+    for family in PAGED:
+        variants = [(ENGINE[family], inputs[family][1], {})] + [
+            (PAGED[family], paged_inputs[family][1],
+             dict(td=PAGED_TD, depth=d)) for d in engine.RING_DEPTHS]
+        for name, inp, ring in variants:
+            a = lambda n=name, i=inp, r=ring: getattr(other, n)(*i, **r)
+            b = lambda n=name, i=inp, r=ring: getattr(engine, n)(*i, **r)
+            check(bitwise(a(), b()), f"{name} {ring}: parent's bits")
+            a1, b1, b2, a2 = interleaved_ms([a, b, b, a], 2, TURN_SAMPLES)
+            label = name + (f" d{ring['depth']}" if ring else "")
+            out[label] = ((a1 + a2) / 2, (b1 + b2) / 2)
+            log(f"turns {label}: parent {out[label][0]:.4f} ms, this "
+                f"{out[label][1]:.4f} ms (proto null; {a1:.4f} / {b1:.4f} / "
+                f"{b2:.4f} / {a2:.4f})")
+    return out
+
+
+def analysis_phase(inputs, paged_inputs, parent=None) -> dict:
+    """The static checker on the card (zero findings), then the sweep's
+    and the main path's protocol logs; with ``parent``, the eight engine
+    variants in turns with that checkout's build. Returns the summary
+    that chip_smoke prints as its ``{"analysis": ...}`` line."""
+    t0 = time.time()
+    report = analysis.run_all(device="cuda")
+    log(f"repro_torch.analysis --device cuda: {report.to_text()}")
+    check(not report.findings and not report.suppressed,
+          "the analyzer on the card: 0 findings")
+    points = contracts.registry_points()
+    rows = 0
+    for point in points:
+        (rec,) = contracts.record_point(point)
+        if rec.name not in engine.CLUSTER_ENGINES:
+            continue
+        plog = contracts.launch_logged(rec)
+        same = np.array_equal(plog.rows, engine.protocol_of(rec).rows)
+        check(same and not plog.overflow,
+              f"{point.label()}: the device log is its plain version's")
+        rows += len(plog.rows)
+    log(f"analysis: {len(points)} sweep points, {rows} device log rows, "
+        "each its plain version's")
+    main_rows = {}
+    for family in PAGED:
+        name = ENGINE[family]
+        main_rows[name] = logged_launch(name, inputs[family][1],
+                                        f"{name} main path")
+        for d in engine.RING_DEPTHS:
+            label = f"{PAGED[family]} d{d}"
+            main_rows[label] = logged_launch(
+                PAGED[family], paged_inputs[family][1], f"{label} main path",
+                td=PAGED_TD, depth=d)
+    check(all(main_rows[ENGINE[f]] == 0 for f in ("gcrn", "stacked", "tgn")),
+          "resident GCRN, stacked and TGN launches log nothing")
+    summary = {"points": len(points), "findings": len(report.findings),
+               "suppressed": report.suppressed,
+               "rules": len(report.rules_run), "sweep_log_rows": rows,
+               "main_log_rows": main_rows}
+    if parent is not None:
+        summary["turns_ms"] = {k: list(v) for k, v in parent_turns(
+            parent, inputs, paged_inputs).items()}
+    log(f"analysis phase: {time.time() - t0:.1f} s")
+    return summary
+
+
 # ------------------------------------------------- the cluster engines ----
 # The four stateful engines, resident and paged, run one stream on a
 # thread-block cluster of engine.CLUSTER CTAs, each owning a slice of the
@@ -1213,9 +1355,10 @@ def cluster_engine_checks(main_inputs) -> dict:
     for source in NO_SPILL:
         spills = spill_bytes(source)
         log(f"{source}: ptxas spill bytes {spills}")
+        # resident, paged, and paged with its protocol log
         engine_fns = [f for f in spills if "engine_kernel" in f]
-        check(len(engine_fns) == 2 and not any(spills[f] for f in engine_fns),
-              f"{source}: 0 spill bytes in both kernels ({spills})")
+        check(len(engine_fns) == 3 and not any(spills[f] for f in engine_fns),
+              f"{source}: 0 spill bytes in all three kernels ({spills})")
     worst = {family: 0.0 for family in CLUSTER_FAMILIES}
     cases = cluster_narrow_cases()
     for family, label, args, resident in cases:
@@ -4249,7 +4392,14 @@ def serve_phase(params, card) -> dict:
     return launches
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="smoke run of the port on one "
+                                 "CUDA card")
+    ap.add_argument("--parent", type=Path, default=None, metavar="DIR",
+                    help="another checkout (e.g. the parent commit's git "
+                         "archive) whose stream engines the analyzer phase "
+                         "times in turns with this tree's")
+    parent = ap.parse_args(argv).parent
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -4346,6 +4496,8 @@ def main() -> int:
         records.append(check_paged_engine(
             family, inputs[family], paged_inputs[family], costs[family],
             next(r["ms"] for r in records if r["name"] == ENGINE[family])))
+    # the static checker on the card and the protocol logs
+    analysis_summary = analysis_phase(inputs, paged_inputs, parent)
     # the cluster engines: narrow cases, launch configs, B 1 / 4 in turns
     cluster_inputs = {}
     for cfg in (GCRN_M2, EVOLVEGCN, STACKED, TGN):
@@ -4643,6 +4795,7 @@ def main() -> int:
     check({r["name"] for r in records} == set(engine.KERNELS),
           "a record for every kernel")
 
+    log(json.dumps({"analysis": analysis_summary}))
     log(json.dumps({"kernels": records}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -851,21 +851,71 @@ __device__ __forceinline__ void zero_dead_rows(float* out, float* store,
 // sweep issues its first depth windows, and after each window is consumed
 // (and a block barrier) the window depth further on, so while one window
 // is read the next depth - 1 are in flight.
+//
+// The protocol log. Where a launch is given one (the engines' `proto`
+// argument; null on every launch of the main path), the launcher runs the
+// kernel's logging build (its kLog instantiation, whose rings carry the
+// log; the main path's build has a null log, a compile-time constant, and
+// no logging code), in which the ring's logging thread (the one that
+// issues) appends a row at each issue (`ring_issue`) and at each wait
+// (`ring_wait`), and EvolveGCN one at each read and write of a W plane:
+// (CTA, ring, seq, slot, parity, window, event), `window` the entry's
+// place in its sweep. The log is int32: a header (rows
+// appended, an overflow flag, the capacity in rows) and then rows of
+// kRowInts; a row past the capacity is dropped and sets the flag. One
+// thread logs a (CTA, ring) pair, so the pair's rows are in its program
+// order (kernels/engine.py reads them back, analysis/contracts.py replays
+// them).
+
+namespace proto {
+
+constexpr int kHeader = 8;
+constexpr int kRowInts = 8;
+// rings: the paged state ring, EvolveGCN's GRU slab ring, and its W planes
+// (reads and the final copy by the GCN's thread 0; writes by the GRU's)
+enum Ring { kStateRing = 0, kGruRing = 1, kPlaneRead = 2, kPlaneWrite = 3 };
+enum Event { kIssue = 0, kWait = 1, kRead = 2, kWrite = 3, kFinal = 4 };
+
+__device__ __forceinline__ void append(int* log, int ring, int seq, int slot,
+                                       int parity, int window, int event) {
+  const int i = atomicAdd(log, 1);
+  if (i >= log[2]) {
+    atomicExch(log + 1, 1);
+    return;
+  }
+  int* row = log + kHeader + (size_t)i * kRowInts;
+  row[0] = (int)blockIdx.x;
+  row[1] = ring;
+  row[2] = seq;
+  row[3] = slot;
+  row[4] = parity;
+  row[5] = window;
+  row[6] = event;
+  row[7] = 0;
+}
+
+}  // namespace proto
 
 struct Ring {
   float* slots;
   uint64_t* bars;
   int depth, slot_floats;
   unsigned seq;
+  int* log;     // the protocol log, or null
+  int id;       // its ring id in the log (proto::Ring)
+  int log_tid;  // the thread that issues, and logs
 };
 
 __device__ __forceinline__ Ring ring_make(float* slots, uint64_t* bars,
-                                          int depth, int slot_floats) {
+                                          int depth, int slot_floats,
+                                          int* log = nullptr,
+                                          int id = proto::kStateRing,
+                                          int log_tid = 0) {
   if (threadIdx.x == 0) {
     for (int s = 0; s < depth; ++s) hopper::mbar_init(hopper::smem_u32(bars + s), 1);
     hopper::mbar_fence_init();
   }
-  return Ring{slots, bars, depth, slot_floats, 0u};
+  return Ring{slots, bars, depth, slot_floats, 0u, log, id, log_tid};
 }
 
 __device__ __forceinline__ float* ring_slot(const Ring& r, unsigned seq) {
@@ -876,8 +926,29 @@ __device__ __forceinline__ uint32_t ring_bar(const Ring& r, unsigned seq) {
   return hopper::smem_u32(r.bars + seq % (unsigned)r.depth);
 }
 
-__device__ __forceinline__ void ring_wait(const Ring& r, unsigned seq) {
+__device__ __forceinline__ void ring_log(const Ring& r, unsigned seq,
+                                         int window, int event) {
+  if (r.log != nullptr && (int)threadIdx.x == r.log_tid)
+    proto::append(r.log, r.id, (int)seq, (int)(seq % (unsigned)r.depth),
+                  (int)((seq / (unsigned)r.depth) & 1u), window, event);
+}
+
+// Entry `seq` of the ring, window `window` of its sweep, by the issuing
+// thread: its barrier expects `bytes`; returns the barrier, on which the
+// caller's copies complete.
+__device__ __forceinline__ uint32_t ring_issue(const Ring& r, unsigned seq,
+                                               int window, uint32_t bytes) {
+  const uint32_t bar = ring_bar(r, seq);
+  ring_log(r, seq, window, proto::kIssue);
+  hopper::mbar_expect_tx(bar, bytes);
+  return bar;
+}
+
+// Every thread that reads entry `seq` (window `window` of its sweep).
+__device__ __forceinline__ void ring_wait(const Ring& r, unsigned seq,
+                                          int window) {
   hopper::mbar_wait(ring_bar(r, seq), (seq / (unsigned)r.depth) & 1u);
+  ring_log(r, seq, window, proto::kWait);
 }
 
 // Each thread: order its earlier generic global stores before later reads

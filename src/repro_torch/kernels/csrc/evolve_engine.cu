@@ -108,6 +108,7 @@ struct EvolveArgs {
   float* w;           // (B, L, D, D), W0 on entry, final W on exit
   float* act;         // (B, 2, n, D) scratch
   float* wpage;       // paged: (B, L, C, D, dsp) each CTA's columns of W
+  int* proto;         // the rings' and planes' protocol log, or null
   int T, n, k, L, D;
   int td, depth;      // paged: window width and ring depth
 };
@@ -206,8 +207,7 @@ __device__ __forceinline__ void issue_slab(const Ring& g, unsigned seq,
   const size_t row0 = (size_t)(s % nslab) * kGwRows * 3 * D;
   const uint32_t bytes = (uint32_t)kGwRows * 3 * D * sizeof(float);
   float* slot = ring_slot(g, seq);
-  const uint32_t bar = ring_bar(g, seq);
-  hopper::mbar_expect_tx(bar, 2 * bytes);
+  const uint32_t bar = ring_issue(g, seq, s, 2 * bytes);
   bulk_load(slot, gwx + row0, bytes, bar);
   bulk_load(slot + (size_t)kGwRows * 3 * D, gwh + row0, bytes, bar);
 }
@@ -252,7 +252,7 @@ __device__ __forceinline__ void evolve_columns(const float* wsrc, int wstride,
         for (int r = 0; r < 4; ++r) acc[j][q][r] = 0.0f;
     for (int s = 0; s < nslab; ++s) {
       const unsigned seq = g.seq;
-      ring_wait(g, seq);
+      ring_wait(g, seq, (int)(seq - base));
       const float* slab = ring_slot(g, seq);
       if (has) {
 #pragma unroll
@@ -338,8 +338,7 @@ __device__ __forceinline__ void evolve_columns_xh(
     const uint32_t bytes = (uint32_t)rows * 3 * D * sizeof(float);
     const float* src = (sp < half ? gwx : gwh) + (size_t)sl * kSlabRows * 3 * D;
     const unsigned seq = base + s;
-    const uint32_t mbar = ring_bar(g, seq);
-    hopper::mbar_expect_tx(mbar, bytes);
+    const uint32_t mbar = ring_issue(g, seq, s, bytes);
     bulk_load(ring_slot(g, seq), src, bytes, mbar);
   };
   if (t == 0)
@@ -358,7 +357,7 @@ __device__ __forceinline__ void evolve_columns_xh(
           for (int r = 0; r < 4; ++r) acc[j][q][r] = 0.0f;
       for (int sl = 0; sl < half; ++sl) {
         const unsigned seq = g.seq;
-        ring_wait(g, seq);
+        ring_wait(g, seq, (int)(seq - base));
         const float* slab = ring_slot(g, seq);
         const int rows = min(kSlabRows, D - sl * kSlabRows);
         if (has) {
@@ -425,7 +424,7 @@ __device__ __forceinline__ void evolve_columns_xh(
   }
 }
 
-template <bool kPaged>
+template <bool kPaged, bool kLog = false>
 __global__ void __launch_bounds__(engine_threads<kPaged>(), 1)
     evolve_engine_kernel(const __grid_constant__ CUtensorMap wmap,
                          EvolveArgs a) {
@@ -462,14 +461,18 @@ __global__ void __launch_bounds__(engine_threads<kPaged>(), 1)
     return a.wpage + ((((size_t)b * L + l) * kCluster + rank) * D) * dsp;
   };
 
+  // the GRU's slab ring, issued (and logged) by its first thread
   Ring gring = ring_make(smem + lay.gw,
                          reinterpret_cast<uint64_t*>(smem + lay.gbars),
-                         kGwSlots, 2 * kGwRows * 3 * D);
+                         kGwSlots, 2 * kGwRows * 3 * D,
+                         kLog ? a.proto : nullptr,
+                         proto::kGruRing, kPaged ? 0 : kThreads);
   Ring ring{};
   if constexpr (kPaged) {
     ring = ring_make(smem + lay.ring,
                      reinterpret_cast<uint64_t*>(smem + lay.rbars), a.depth,
-                     lay.nbox * lay.box_rows * td);
+                     lay.nbox * lay.box_rows * td,
+                     kLog ? a.proto : nullptr);
     // the own columns of W0 into the CTA's pages (zero padding columns),
     // which the ring reads through the async proxy
     for (int p = tid; p < L * D * dsp; p += kAll) {
@@ -549,6 +552,10 @@ __global__ void __launch_bounds__(engine_threads<kPaged>(), 1)
         for (int l = 0; l < L; ++l) {
           const float* wnow = planes + (size_t)(2 * l + ((cur >> l) & 1)) * D * dsp;
           float* wnext = planes + (size_t)(2 * l + (((cur >> l) & 1) ^ 1)) * D * dsp;
+          if (kLog && tid == kThreads)  // the plane written
+            proto::append(a.proto, proto::kPlaneWrite, t,
+                          (int)((wnext - planes) / ((size_t)D * dsp)) - 2 * l,
+                          0, l, proto::kWrite);
           evolve_columns_xh<kSplitGroups>(
               wnow, dsp, ds, D, a.gwx + (size_t)l * D * 3 * D,
               a.gwh + (size_t)l * D * 3 * D, a.gb + (size_t)l * 3 * D, wnext,
@@ -568,6 +575,12 @@ __global__ void __launch_bounds__(engine_threads<kPaged>(), 1)
       const float* bias = a.bias + (size_t)l * D + d0;
       const int page = (b * L + l) * kCluster + (int)rank;  // W_l's pages
       const float* wplane = planes + (size_t)(2 * l + ((cur >> l) & 1)) * D * dsp;
+      if (kLog && tid == 0)  // the plane read; paged: the pages
+        proto::append(a.proto, proto::kPlaneRead, t,
+                      kPaged ? 0
+                             : (int)((wplane - planes) / ((size_t)D * dsp)) -
+                                   2 * l,
+                      0, l, proto::kRead);
       // the layer's tiles, a chunk of kChunkTiles at a time (one chunk up to
       // n 65,536, whose bits are taken above)
       for (int q0 = 0; q0 < ntiles; q0 += kChunkTiles) {
@@ -582,8 +595,7 @@ __global__ void __launch_bounds__(engine_threads<kPaged>(), 1)
           const unsigned seq = sweep0 + (unsigned)w;
           const int cw = w % ncw;
           float* slot = ring_slot(ring, seq);
-          const uint32_t bar = ring_bar(ring, seq);
-          hopper::mbar_expect_tx(bar, wbytes);
+          const uint32_t bar = ring_issue(ring, seq, w, wbytes);
           for (int j = 0; j < lay.nbox; ++j)
             hopper::tma_load_3d(
                 hopper::smem_u32(slot + (size_t)j * lay.box_rows * td), &wmap,
@@ -634,7 +646,7 @@ __global__ void __launch_bounds__(engine_threads<kPaged>(), 1)
           if constexpr (kPaged) {
             for (int cw = 0; cw < ncw; ++cw) {
               const unsigned seq = ring.seq;
-              ring_wait(ring, seq);
+              ring_wait(ring, seq, (int)(seq - sweep0));
               gcn_columns(tile, D, ring_slot(ring, seq), td,
                           min(td, ds - cw * td), bias + cw * td, last,
                           s_mask + buf * kTileRows, r0, n, dst + cw * td, tid,
@@ -666,18 +678,20 @@ __global__ void __launch_bounds__(engine_threads<kPaged>(), 1)
           auto issue_gru = [&](int w) {  // thread 0
             const unsigned seq = gru0 + (unsigned)w;
             float* slot = ring_slot(ring, seq);
-            const uint32_t bar = ring_bar(ring, seq);
-            hopper::mbar_expect_tx(bar, wbytes);
+            const uint32_t bar = ring_issue(ring, seq, w, wbytes);
             for (int j = 0; j < lay.nbox; ++j)
               hopper::tma_load_3d(
                   hopper::smem_u32(slot + (size_t)j * lay.box_rows * td),
                   &wmap, bar, w * td, j * lay.box_rows, page);
           };
+          if (kLog && tid == 0)  // in place: the one plane
+            proto::append(a.proto, proto::kPlaneWrite, t, 0, 0, l,
+                          proto::kWrite);
           if (tid == 0)
             for (int w = 0; w < min(a.depth, ncw); ++w) issue_gru(w);
           for (int cw = 0; cw < ncw; ++cw) {
             const unsigned seq = ring.seq;
-            ring_wait(ring, seq);
+            ring_wait(ring, seq, cw);
             evolve_columns<kGruGroups>(
                 ring_slot(ring, seq), td, min(td, ds - cw * td), D, gwx, gwh,
                 gb, wpage(l) + cw * td, dsp, gring, tid, kThreads);
@@ -697,6 +711,10 @@ __global__ void __launch_bounds__(engine_threads<kPaged>(), 1)
     if (live) cur ^= (1u << L) - 1u;
   }
   // the final W of the own columns
+  if (kLog && tid == 0)
+    for (int l = 0; l < L; ++l)
+      proto::append(a.proto, proto::kPlaneRead, a.T,
+                    kPaged ? 0 : (int)((cur >> l) & 1u), 0, l, proto::kFinal);
   for (int p = tid; p < L * D * ds; p += kAll) {
     const int c = p % ds, m = (p / ds) % D, l = p / (ds * D);
     a.w[(((size_t)b * L + l) * D + m) * D + d0 + c] =
@@ -717,6 +735,12 @@ int launch(const EvolveArgs& a, int B, void* stream) {
                                        B * a.L * kCluster, a.td, lay.box_rows);
     if (err != cudaSuccess) return (int)err;
   }
+  // a launch with a protocol log runs the kernel's logging build; the main
+  // path's (proto null) holds no logging code
+  if (a.proto != nullptr)
+    return cluster::launch(evolve_engine_kernel<kPaged, true>, B,
+                           engine_threads<kPaged>(), lay.bytes, stream, wmap,
+                           a);
   return cluster::launch(evolve_engine_kernel<kPaged>, B,
                          engine_threads<kPaged>(), lay.bytes, stream, wmap,
                          a);
@@ -727,7 +751,8 @@ EvolveArgs make_args(const void* idx, const void* coef, const void* x,
                      const void* bias,
                      const void* gwx, const void* gwh, const void* gb,
                      const void* eagg, void* out, void* w, void* act,
-                     void* wpage, int T, int n, int k, int L, int D) {
+                     void* wpage, void* proto, int T, int n, int k, int L,
+                     int D) {
   EvolveArgs a;
   a.idx = static_cast<const int*>(idx);
   a.coef = static_cast<const float*>(coef);
@@ -744,6 +769,7 @@ EvolveArgs make_args(const void* idx, const void* coef, const void* x,
   a.w = static_cast<float*>(w);
   a.act = static_cast<float*>(act);
   a.wpage = static_cast<float*>(wpage);
+  a.proto = static_cast<int*>(proto);
   a.T = T; a.n = n; a.k = k; a.L = L; a.D = D;
   a.td = 8; a.depth = 1;
   return a;
@@ -791,12 +817,12 @@ int evolve_engine_launch(const void* idx, const void* coef, const void* x,
                          const void* tiles, const void* bias,
                          const void* gwx, const void* gwh, const void* gb,
                          const void* eagg, void* out, void* w, void* act,
-                         int B, int T, int n, int k, int L, int D,
+                         void* proto, int B, int T, int n, int k, int L, int D,
                          void* stream) {
   if (tiles == nullptr) return (int)cudaErrorInvalidValue;
   const EvolveArgs a = make_args(idx, coef, x, mask, live, tiles, bias, gwx,
-                                 gwh, gb, eagg, out, w, act, nullptr, T, n, k,
-                                 L, D);
+                                 gwh, gb, eagg, out, w, act, nullptr, proto, T,
+                                 n, k, L, D);
   return launch<false>(a, B, stream);
 }
 
@@ -806,14 +832,14 @@ int evolve_engine_paged_launch(const void* idx, const void* coef,
                                const void* bias, const void* gwx,
                                const void* gwh, const void* gb,
                                const void* eagg, void* out, void* w,
-                               void* act, void* wpage, int B, int T, int n,
-                               int k, int L, int D, int td, int depth,
-                               void* stream) {
+                               void* act, void* wpage, void* proto, int B,
+                               int T, int n, int k, int L, int D, int td,
+                               int depth, void* stream) {
   if (td <= 0 || td % 8 != 0 || td > kBoxRows || depth < 1 ||
       depth > engine::kMaxDepth || tiles == nullptr)
     return (int)cudaErrorInvalidValue;
   EvolveArgs a = make_args(idx, coef, x, mask, live, tiles, bias, gwx, gwh,
-                           gb, eagg, out, w, act, wpage, T, n, k, L, D);
+                           gb, eagg, out, w, act, wpage, proto, T, n, k, L, D);
   a.td = td; a.depth = depth;
   return launch<true>(a, B, stream);
 }

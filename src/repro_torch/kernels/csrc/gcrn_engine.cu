@@ -87,6 +87,7 @@ struct GcrnArgs {
   float* c_store;     // (B, G, H), c0 on entry, final c on exit
   float* h_rows;      // paged: (B C, n, hmp) scratch, the gathered t-1 h
   float* c_rows;      // paged: (B C, n, hmp) scratch, the gathered t-1 c
+  int* proto;         // the ring's protocol log (cluster_common.cuh), or null
   int T, n, k, din, H, G, e;
   int td, depth;      // paged: window width and ring depth
 };
@@ -144,7 +145,7 @@ __host__ __device__ inline Layout layout(bool paged, int k, int din, int H,
   return L;
 }
 
-template <bool kPaged>
+template <bool kPaged, bool kLog = false>
 __global__ void __launch_bounds__(kThreads, 1)
     gcrn_engine_kernel(const __grid_constant__ CUtensorMap hmap,
                        const __grid_constant__ CUtensorMap cmap, GcrnArgs a) {
@@ -190,7 +191,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   Ring ring{};
   if constexpr (kPaged)
     ring = ring_make(smem + lay.ring, reinterpret_cast<uint64_t*>(smem + lay.bars),
-                     a.depth, (wr + kTileRows) * td);
+                     a.depth, (wr + kTileRows) * td,
+                     kLog ? a.proto : nullptr);
   // peers' shared memory is live before the first DSMEM store
   cluster::sync();
 
@@ -311,10 +313,9 @@ __global__ void __launch_bounds__(kThreads, 1)
           const unsigned seq = sweep0 + (unsigned)issued;
           const int cw = p_w / nrw, rw = p_w - cw * nrw;
           float* slot = ring_slot(ring, seq);
-          const uint32_t bar = ring_bar(ring, seq);
           const uint32_t hbytes = (uint32_t)wr * td * sizeof(float);
           const uint32_t cbytes = rw == 0 ? kTileRows * td * sizeof(float) : 0u;
-          hopper::mbar_expect_tx(bar, hbytes + cbytes);
+          const uint32_t bar = ring_issue(ring, seq, issued, hbytes + cbytes);
           const int plane = b * kCluster + (int)rank;
           hopper::tma_load_3d(hopper::smem_u32(slot), &hmap, bar, cw * td,
                               rw * wr, plane);
@@ -377,7 +378,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           float* ct = smem + lay.ct;
           for (int w = 0; w < nw; ++w) {
             const unsigned seq = ring.seq;
-            ring_wait(ring, seq);
+            ring_wait(ring, seq, (int)(seq - sweep0));
             const float* slot = ring_slot(ring, seq);
             const int cw = w / nrw, rw = w - cw * nrw;
             const int wc = min(td, hs - cw * td);
@@ -490,6 +491,12 @@ int launch(const GcrnArgs& a, int B, void* stream) {
                        kTileRows);
     if (err != cudaSuccess) return (int)err;
   }
+  // a launch with a protocol log runs the paged kernel's logging build;
+  // the main path's (proto null) holds no logging code, and a resident
+  // one has no ring to log
+  if (a.proto != nullptr)
+    return cluster::launch(gcrn_engine_kernel<kPaged, kPaged>, B, kThreads,
+                           lay.bytes, stream, hmap, cmap, a);
   return cluster::launch(gcrn_engine_kernel<kPaged>, B, kThreads, lay.bytes,
                          stream, hmap, cmap, a);
 }
@@ -498,8 +505,8 @@ GcrnArgs make_args(const void* idx, const void* coef, const void* eidx,
                    const void* x, const void* rowg, const void* mask,
                    const void* wx, const void* wh, const void* bias,
                    const void* emsg, void* out, void* h_store, void* c_store,
-                   void* h_rows, void* c_rows, int T, int n, int k, int din,
-                   int H, int G, int e) {
+                   void* h_rows, void* c_rows, void* proto, int T, int n,
+                   int k, int din, int H, int G, int e) {
   GcrnArgs a;
   a.idx = static_cast<const int*>(idx);
   a.coef = static_cast<const float*>(coef);
@@ -516,6 +523,7 @@ GcrnArgs make_args(const void* idx, const void* coef, const void* eidx,
   a.c_store = static_cast<float*>(c_store);
   a.h_rows = static_cast<float*>(h_rows);
   a.c_rows = static_cast<float*>(c_rows);
+  a.proto = static_cast<int*>(proto);
   a.T = T; a.n = n; a.k = k; a.din = din; a.H = H; a.G = G; a.e = e;
   a.td = 1; a.depth = 1;
   return a;
@@ -568,12 +576,12 @@ int gcrn_engine_launch(const void* idx, const void* coef, const void* eidx,
                        const void* x, const void* rowg, const void* mask,
                        const void* wx, const void* wh, const void* bias,
                        const void* emsg, void* out, void* h_store,
-                       void* c_store, void* h_rows, void* c_rows, int B, int T,
-                       int n, int k, int din, int H, int G, int e,
+                       void* c_store, void* h_rows, void* c_rows, void* proto,
+                       int B, int T, int n, int k, int din, int H, int G, int e,
                        void* stream) {
   const GcrnArgs a = make_args(idx, coef, eidx, x, rowg, mask, wx, wh, bias,
-                               emsg, out, h_store, c_store, h_rows, c_rows, T,
-                               n, k, din, H, G, e);
+                               emsg, out, h_store, c_store, h_rows, c_rows,
+                               proto, T, n, k, din, H, G, e);
   return launch<false>(a, B, stream);
 }
 
@@ -582,15 +590,15 @@ int gcrn_engine_paged_launch(const void* idx, const void* coef,
                              const void* mask, const void* wx, const void* wh,
                              const void* bias, const void* emsg, void* out,
                              void* h_store, void* c_store, void* h_rows,
-                             void* c_rows, int B, int T, int n, int k, int din,
-                             int H, int G, int e, int td, int depth,
-                             void* stream) {
+                             void* c_rows, void* proto, int B, int T, int n,
+                             int k, int din, int H, int G, int e, int td,
+                             int depth, void* stream) {
   if (td <= 0 || td % 8 != 0 || td > kBoxRows || depth < 1 ||
       depth > engine::kMaxDepth)
     return (int)cudaErrorInvalidValue;
   GcrnArgs a = make_args(idx, coef, eidx, x, rowg, mask, wx, wh, bias, emsg,
-                         out, h_store, c_store, h_rows, c_rows, T, n, k, din,
-                         H, G, e);
+                         out, h_store, c_store, h_rows, c_rows, proto, T, n, k,
+                         din, H, G, e);
   a.td = td; a.depth = depth;
   return launch<true>(a, B, stream);
 }

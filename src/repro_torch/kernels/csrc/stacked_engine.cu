@@ -92,6 +92,7 @@ struct StackedArgs {
   float* out;         // (B, T, n, H) per-step h
   float* h_store;     // (B, G, H), h0 on entry, final h on exit
   float* h_rows;      // paged: (B C, n, hmp) scratch, the gathered t-1 h
+  int* proto;         // the ring's protocol log (cluster_common.cuh), or null
   int T, n, k, din, dmid, H, G, e;
   int td, depth;      // paged: window width and ring depth
 };
@@ -160,7 +161,7 @@ __host__ __device__ inline Layout layout(bool paged, int k, int din, int dmid,
   return W.bytes <= kSmemLimit ? W : L;
 }
 
-template <bool kPaged>
+template <bool kPaged, bool kLog = false>
 __global__ void __launch_bounds__(kThreads, 1)
     stacked_engine_kernel(const __grid_constant__ CUtensorMap hmap,
                           StackedArgs a) {
@@ -201,7 +202,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   if constexpr (kPaged)
     ring = ring_make(smem + lay.ring,
                      reinterpret_cast<uint64_t*>(smem + lay.bars), a.depth,
-                     kTileRows * td);
+                     kTileRows * td, kLog ? a.proto : nullptr);
   // peers' shared memory is live before the first DSMEM store
   cluster::sync();
   // PROF_INIT
@@ -260,8 +261,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         if (p_w == 0) p_tile = next_live(s_live, q0, p_tile + 1, n);
         if ((tid & 31) == 0) {
           const unsigned seq = sweep0 + (unsigned)issued;
-          const uint32_t bar = ring_bar(ring, seq);
-          hopper::mbar_expect_tx(bar, kTileRows * td * sizeof(float));
+          const uint32_t bar =
+              ring_issue(ring, seq, issued, kTileRows * td * sizeof(float));
           hopper::tma_load_3d(hopper::smem_u32(ring_slot(ring, seq)), &hmap,
                               bar, p_w * td, p_tile * kTileRows, plane);
         }
@@ -310,7 +311,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           // the own units' t-1 h, window by window through the ring
           for (int w = 0; w < nw; ++w) {
             const unsigned seq = ring.seq;
-            ring_wait(ring, seq);
+            ring_wait(ring, seq, (int)(seq - sweep0));
             const float* slot = ring_slot(ring, seq);
             const int wc = min(td, hs - w * td);
             for (int p = tid; p < kTileRows * wc; p += kThreads) {
@@ -387,6 +388,12 @@ int launch(const StackedArgs& a, int B, void* stream) {
                                        B * kCluster, a.td, kTileRows);
     if (err != cudaSuccess) return (int)err;
   }
+  // a launch with a protocol log runs the paged kernel's logging build;
+  // the main path's (proto null) holds no logging code, and a resident
+  // one has no ring to log
+  if (a.proto != nullptr)
+    return cluster::launch(stacked_engine_kernel<kPaged, kPaged>, B, kThreads,
+                           lay.bytes, stream, hmap, a);
   return cluster::launch(stacked_engine_kernel<kPaged>, B, kThreads,
                          lay.bytes, stream, hmap, a);
 }
@@ -395,8 +402,9 @@ StackedArgs make_args(const void* idx, const void* coef, const void* eidx,
                       const void* x, const void* rowg, const void* mask,
                       const void* wg, const void* bg, const void* wx,
                       const void* wh, const void* bias, const void* emsg,
-                      void* out, void* h_store, void* h_rows, int T, int n,
-                      int k, int din, int dmid, int H, int G, int e) {
+                      void* out, void* h_store, void* h_rows, void* proto,
+                      int T, int n, int k, int din, int dmid, int H, int G,
+                      int e) {
   StackedArgs a;
   a.idx = static_cast<const int*>(idx);
   a.coef = static_cast<const float*>(coef);
@@ -413,6 +421,7 @@ StackedArgs make_args(const void* idx, const void* coef, const void* eidx,
   a.out = static_cast<float*>(out);
   a.h_store = static_cast<float*>(h_store);
   a.h_rows = static_cast<float*>(h_rows);
+  a.proto = static_cast<int*>(proto);
   a.T = T; a.n = n; a.k = k; a.din = din; a.dmid = dmid; a.H = H; a.G = G;
   a.e = e; a.td = 1; a.depth = 1;
   return a;
@@ -467,12 +476,12 @@ int stacked_engine_launch(const void* idx, const void* coef, const void* eidx,
                           const void* x, const void* rowg, const void* mask,
                           const void* wg, const void* bg, const void* wx,
                           const void* wh, const void* bias, const void* emsg,
-                          void* out, void* h_store, void* h_rows, int B, int T,
-                          int n, int k, int din, int dmid, int H, int G, int e,
-                          void* stream) {
+                          void* out, void* h_store, void* h_rows, void* proto,
+                          int B, int T, int n, int k, int din, int dmid, int H,
+                          int G, int e, void* stream) {
   const StackedArgs a = make_args(idx, coef, eidx, x, rowg, mask, wg, bg, wx,
-                                  wh, bias, emsg, out, h_store, h_rows, T, n,
-                                  k, din, dmid, H, G, e);
+                                  wh, bias, emsg, out, h_store, h_rows, proto,
+                                  T, n, k, din, dmid, H, G, e);
   return launch<false>(a, B, stream);
 }
 
@@ -482,15 +491,16 @@ int stacked_engine_paged_launch(const void* idx, const void* coef,
                                 const void* wg, const void* bg,
                                 const void* wx, const void* wh,
                                 const void* bias, const void* emsg, void* out,
-                                void* h_store, void* h_rows, int B, int T,
-                                int n, int k, int din, int dmid, int H, int G,
-                                int e, int td, int depth, void* stream) {
+                                void* h_store, void* h_rows, void* proto,
+                                int B, int T, int n, int k, int din, int dmid,
+                                int H, int G, int e, int td, int depth,
+                                void* stream) {
   if (td <= 0 || td % 8 != 0 || td > kBoxRows || depth < 1 ||
       depth > engine::kMaxDepth)
     return (int)cudaErrorInvalidValue;
   StackedArgs a = make_args(idx, coef, eidx, x, rowg, mask, wg, bg, wx, wh,
-                            bias, emsg, out, h_store, h_rows, T, n, k, din,
-                            dmid, H, G, e);
+                            bias, emsg, out, h_store, h_rows, proto, T, n, k,
+                            din, dmid, H, G, e);
   a.td = td; a.depth = depth;
   return launch<true>(a, B, stream);
 }

@@ -97,6 +97,7 @@ struct TgnArgs {
   float* rows;        // paged: (B C, n, hmp) scratch, the batch's t-1 rows
   int T, n, k, din, H, G;
   int td, depth;      // paged: window width and ring depth
+  int* proto;         // the ring's protocol log (cluster_common.cuh), or null
 };
 
 // Shared memory of one CTA, in floats from the 128-byte aligned base.
@@ -205,7 +206,7 @@ __device__ __forceinline__ float encode(const int* lt, const float* lc,
   return acc;
 }
 
-template <bool kPaged>
+template <bool kPaged, bool kLog = false>
 __global__ void __launch_bounds__(kThreads, 1)
     tgn_engine_kernel(const __grid_constant__ CUtensorMap wmap,
                       const __grid_constant__ CUtensorMap omap, TgnArgs a) {
@@ -251,7 +252,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   if constexpr (kPaged)
     ring = ring_make(smem + lay.ring,
                      reinterpret_cast<uint64_t*>(smem + lay.bars), a.depth,
-                     (wr + kTileRows) * td);
+                     (wr + kTileRows) * td,
+                     kLog ? a.proto : nullptr);
   // peers' shared memory is live before the first DSMEM store
   cluster::sync();
   // PROF_INIT
@@ -312,10 +314,9 @@ __global__ void __launch_bounds__(kThreads, 1)
           const unsigned seq = sweep0 + (unsigned)issued;
           const int cw = p_w / nrw, rw = p_w - cw * nrw;
           float* slot = ring_slot(ring, seq);
-          const uint32_t bar = ring_bar(ring, seq);
           const uint32_t pbytes = (uint32_t)wr * td * sizeof(float);
           const uint32_t obytes = rw == 0 ? kTileRows * td * sizeof(float) : 0u;
-          hopper::mbar_expect_tx(bar, pbytes + obytes);
+          const uint32_t bar = ring_issue(ring, seq, issued, pbytes + obytes);
           hopper::tma_load_3d(hopper::smem_u32(slot), &wmap, bar, cw * td,
                               rw * wr, plane);
           if (rw == 0)
@@ -366,7 +367,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           // partners and own rows, window by window through the ring
           for (int w = 0; w < nw; ++w) {
             const unsigned seq = ring.seq;
-            ring_wait(ring, seq);
+            ring_wait(ring, seq, (int)(seq - sweep0));
             const float* slot = ring_slot(ring, seq);
             const int cw = w / nrw, rw = w - cw * nrw;
             const int wc = min(td, hs - cw * td);
@@ -460,6 +461,12 @@ int launch(const TgnArgs& a, int B, void* stream) {
   } else if (a.gidx == nullptr) {
     return (int)cudaErrorInvalidValue;
   }
+  // a launch with a protocol log runs the paged kernel's logging build;
+  // the main path's (proto null) holds no logging code, and a resident
+  // one has no ring to log
+  if (a.proto != nullptr)
+    return cluster::launch(tgn_engine_kernel<kPaged, kPaged>, B, kThreads,
+                           lay.bytes, stream, wmap, omap, a);
   return cluster::launch(tgn_engine_kernel<kPaged>, B, kThreads, lay.bytes,
                          stream, wmap, omap, a);
 }
@@ -468,8 +475,8 @@ TgnArgs make_args(const void* gidx, const void* lid, const void* coef,
                   const void* ts, const void* x, const void* rowg,
                   const void* mask, const void* freq, const void* w_in,
                   const void* wx, const void* wh, const void* bias, void* out,
-                  void* store, void* rows, int T, int n, int k, int din,
-                  int H, int G) {
+                  void* store, void* rows, void* proto, int T, int n, int k,
+                  int din, int H, int G) {
   TgnArgs a;
   a.gidx = static_cast<const int*>(gidx);
   a.lid = static_cast<const int*>(lid);
@@ -486,6 +493,7 @@ TgnArgs make_args(const void* gidx, const void* lid, const void* coef,
   a.out = static_cast<float*>(out);
   a.store = static_cast<float*>(store);
   a.rows = static_cast<float*>(rows);
+  a.proto = static_cast<int*>(proto);
   a.T = T; a.n = n; a.k = k; a.din = din; a.H = H; a.G = G;
   a.td = 1; a.depth = 1;
   return a;
@@ -537,11 +545,11 @@ int tgn_engine_launch(const void* gidx, const void* idx, const void* coef,
                       const void* ts, const void* x, const void* rowg,
                       const void* mask, const void* freq, const void* w_in,
                       const void* wx, const void* wh, const void* bias,
-                      void* out, void* store, int B, int T, int n, int k,
-                      int din, int H, int G, void* stream) {
+                      void* out, void* store, void* proto, int B, int T,
+                      int n, int k, int din, int H, int G, void* stream) {
   const TgnArgs a = make_args(gidx, idx, coef, ts, x, rowg, mask, freq, w_in,
-                              wx, wh, bias, out, store, nullptr, T, n, k, din,
-                              H, G);
+                              wx, wh, bias, out, store, nullptr, proto, T, n,
+                              k, din, H, G);
   return launch<false>(a, B, stream);
 }
 
@@ -549,14 +557,15 @@ int tgn_engine_paged_launch(const void* idx, const void* coef, const void* ts,
                             const void* x, const void* rowg, const void* mask,
                             const void* freq, const void* w_in,
                             const void* wx, const void* wh, const void* bias,
-                            void* out, void* store, void* rows, int B, int T,
-                            int n, int k, int din, int H, int G, int td,
-                            int depth, void* stream) {
+                            void* out, void* store, void* rows, void* proto,
+                            int B, int T, int n, int k, int din, int H, int G,
+                            int td, int depth, void* stream) {
   if (td <= 0 || td % 8 != 0 || td > kBoxRows || depth < 1 ||
       depth > engine::kMaxDepth)
     return (int)cudaErrorInvalidValue;
   TgnArgs a = make_args(nullptr, idx, coef, ts, x, rowg, mask, freq, w_in, wx,
-                        wh, bias, out, store, rows, T, n, k, din, H, G);
+                        wh, bias, out, store, rows, proto, T, n, k, din, H,
+                        G);
   a.td = td; a.depth = depth;
   return launch<true>(a, B, stream);
 }

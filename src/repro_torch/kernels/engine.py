@@ -53,10 +53,21 @@ only). The static GCN engine runs a slot on a cluster of ``CLUSTER`` CTAs,
 each owning a column slice of every layer at the layer's true width;
 ``static_plan`` mirrors its launch, ``library_static_plan`` reads the
 launcher's (card only).
+
+Two hooks serve the static checker (repro_torch.analysis). Inside
+``recording_launches()`` every stream-engine launcher assembles its launch
+(checks, outputs, scratch, the C arguments) on CPU or CUDA tensors alike
+and records it instead of running it. And the eight stateful engine
+variants take ``proto=True``: the launch then writes a protocol log of its
+rings' issues and waits (and EvolveGCN's W planes), returned as a
+``ProtoLog`` after the results; on CPU tensors the log is its plain
+version, ``protocol_plain``. The main path passes neither.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import dataclasses
 import hashlib
 import math
 import os
@@ -66,6 +77,7 @@ import threading
 from dataclasses import dataclass
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import ref as _ref
@@ -243,18 +255,18 @@ def build(names=KERNELS) -> dict:
 #: or 0 where the kernel uses no dynamic shared memory); the stream pointer
 #: comes last
 _SIGNATURES = {
-    "gcrn_engine": (15, 8, 4),
-    "evolve_engine": (14, 6, 3),
-    "stacked_engine": (15, 9, 4),
-    "tgn_engine": (14, 7, 3),
+    "gcrn_engine": (16, 8, 4),
+    "evolve_engine": (15, 6, 3),
+    "stacked_engine": (16, 9, 4),
+    "tgn_engine": (15, 7, 3),
     "static_engine": (10, 5, 2),
     "gcrn_step": (12, 4, 3),
     "stacked_step": (12, 5, 4),
     "ell_spmm": (6, 6, 0),
-    "gcrn_engine_paged": (15, 10, 6),
-    "evolve_engine_paged": (15, 8, 4),
-    "stacked_engine_paged": (15, 11, 6),
-    "tgn_engine_paged": (14, 9, 6),
+    "gcrn_engine_paged": (16, 10, 6),
+    "evolve_engine_paged": (16, 8, 4),
+    "stacked_engine_paged": (16, 11, 6),
+    "tgn_engine_paged": (15, 9, 6),
     "fused_gru": (6, 3, 2),
     "fused_lstm": (8, 3, 2),
     "flash_attention": (5, 7, 0),
@@ -949,6 +961,304 @@ def _device_kind(name: str, t: torch.Tensor) -> str:
                      "(cuda runs the kernel, cpu the plain version)")
 
 
+# ------------------------------------------- recording and the log ----
+# The static checker's two views of a stream-engine launch: the launch as
+# its wrapper assembles it (``recording_launches``), and the protocol log
+# a launch writes on the card where it is given one (``proto=True``), or
+# its plain version (``protocol_plain``).
+
+#: each thread's list that ``recording_launches`` appends to (None: its
+#: launches run); per thread, so a recording never takes another thread's
+#: launches (the serve layer's device loop)
+_RECORDING = threading.local()
+
+
+def _recorder():
+    return getattr(_RECORDING, "launches", None)
+
+#: the state stores among a stream engine's C arguments (keyed by family),
+#: each with its place in the wrapper's result: the kernel evolves the
+#: store in place, and the wrapper returns that very tensor
+STORE_ARGS = {"gcrn": {"h_store": 1, "c_store": 2}, "evolve": {"w": 1},
+              "stacked": {"h_store": 1}, "tgn": {"store": 1}, "static": {}}
+
+
+@dataclass(frozen=True)
+class RecordedLaunch:
+    """One stream-engine launch as its wrapper assembled it: the kernel
+    ``name``, the ``dims`` (those of ``smem_bytes``) and the shared memory
+    ``smem`` it budget-checked, its cluster launch (``engine_cluster_config``;
+    None for the static engine), the C launch's pointer arguments by name in
+    their order (``args``: tensors, None for a null pointer; the static
+    engine's host widths a list) and its int arguments (``ints``), what the
+    wrapper returns (``result``, a tuple) and the wrapper's own arguments
+    (``call``: positional, keyword), with which the launch runs again."""
+
+    name: str
+    dims: dict
+    smem: int
+    cluster: object
+    args: dict
+    ints: dict
+    result: tuple
+    call: tuple
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Record the stream-engine launches made inside the block instead of
+    running them. Each launcher checks and assembles its launch on CPU and
+    CUDA tensors alike (shapes, index ranges, the shared-memory budget,
+    outputs and scratch, the C arguments), appends a ``RecordedLaunch`` to
+    the list this yields and returns its unwritten outputs; nothing is
+    built, launched or counted in ``LAUNCHES``. It holds for the calling
+    thread only. Only the static checker installs it (repro_torch.analysis's
+    contract pass)."""
+    prev, _RECORDING.launches = _recorder(), []
+    try:
+        yield _RECORDING.launches
+    finally:
+        _RECORDING.launches = prev
+
+
+def _plain_path(name: str, t: torch.Tensor) -> bool:
+    """Does the wrapper run its plain version? For CPU tensors, unless a
+    recording is on."""
+    return _device_kind(name, t) == "cpu" and _recorder() is None
+
+
+#: the protocol log (``csrc/cluster_common.cuh``, namespace proto): int32, a
+#: header (rows appended, an overflow flag, the capacity in rows, padding),
+#: then rows of PROTO_ROW ints (cta, ring, seq, slot, parity, window, event,
+#: padding)
+PROTO_HEADER, PROTO_ROW = 8, 8
+#: its rings: the paged state ring, EvolveGCN's GRU slab ring, the W planes
+#: read (and the final copy) and written
+RING_STATE, RING_GRU, RING_PLANE_READ, RING_PLANE_WRITE = 0, 1, 2, 3
+#: its events
+EV_ISSUE, EV_WAIT, EV_READ, EV_WRITE, EV_FINAL = 0, 1, 2, 3, 4
+
+
+@dataclass(frozen=True)
+class ProtoLog:
+    """The protocol log of one stream-engine launch. ``rows`` (R, 7) int64:
+    (cta, ring, seq, slot, parity, window, event), grouped by (cta, ring),
+    each group in its logging thread's order; ``count`` the rows appended
+    (past ``capacity`` they were dropped, and ``overflow`` is set). What
+    the launch's data needs, from ``protocol_plain``: the depth of each
+    ring it has (``depth``), the lengths of each (cta, ring)'s sweeps in
+    order (``sweeps``), EvolveGCN's planes a layer (``planes``: 2 resident,
+    1 paged, in place; None for the families that hold none) and its live
+    steps (``live``, (B, T) bool), and the launch's B, T and L."""
+
+    name: str
+    rows: np.ndarray
+    count: int
+    capacity: int
+    overflow: bool
+    depth: dict
+    sweeps: dict
+    planes: object
+    live: object
+    B: int
+    T: int
+    L: int
+
+
+def _sweep_rows(cta: int, ring: int, depth: int, lengths) -> list:
+    """A ring's rows over its sweeps, as its issuing thread logs them: a
+    sweep of m entries issues its first depth, then after waiting each
+    entry issues the one depth further on; entry s of the ring (over all
+    sweeps) sits in slot s % depth with parity (s / depth) & 1."""
+    rows, s0 = [], 0
+
+    def row(seq, w, ev):
+        rows.append((cta, ring, seq, seq % depth, (seq // depth) & 1, w, ev))
+
+    for m in lengths:
+        for i in range(min(depth, m)):
+            row(s0 + i, i, EV_ISSUE)
+        for i in range(m):
+            row(s0 + i, i, EV_WAIT)
+            if i + depth < m:
+                row(s0 + i + depth, i + depth, EV_ISSUE)
+        s0 += m
+    return rows
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _plane_rows(cta: int, paged: bool, L: int, live_b) -> list:
+    """EvolveGCN's W-plane rows of one CTA over steps whose live flags are
+    ``live_b``: each step reads each layer's plane, a live step writes the
+    other one (paged: the one plane, its pages, in place), and the launch
+    returns the plane written last. Reads and the final rows are the GCN's
+    thread 0's, writes the GRU's first thread's."""
+    reads, writes, cur = [], [], 0
+    for t, on in enumerate(live_b):
+        for l in range(L):
+            plane = 0 if paged else (cur >> l) & 1
+            reads.append((cta, RING_PLANE_READ, t, plane, 0, l, EV_READ))
+            if on:
+                writes.append((cta, RING_PLANE_WRITE, t,
+                               plane if paged else plane ^ 1, 0, l, EV_WRITE))
+        if on and not paged:
+            cur ^= (1 << L) - 1
+    reads += [(cta, RING_PLANE_READ, len(live_b), 0 if paged else
+               (cur >> l) & 1, 0, l, EV_FINAL) for l in range(L)]
+    return reads + writes
+
+
+def protocol_plain(name: str, mask, *, width: int, td=None, depth=None,
+                   L: int = 1, live=None) -> ProtoLog:
+    """The protocol log that cluster engine ``name`` writes for a launch
+    over ``mask`` (B, T, n): ``width`` the state's (H; EvolveGCN's D), the
+    paged ring's window width ``td`` and ``depth``, EvolveGCN's layers ``L``
+    and live steps ``live`` (B, T). Each CTA's sweeps follow from its column
+    slice and each step's live tiles (a chunk of ``CHUNK_ROWS`` rows at a
+    time): GCRN and TGN issue (own column windows) x (BOX_ROWS-row windows
+    of the gathered rows) a live tile, stacked its own column windows;
+    EvolveGCN its column windows of each W_l a live tile and, on a live
+    step, once more for the matrix-GRU, whose gwx / gwh slabs stream
+    through a GW_SLOTS-deep ring of their own (resident too), and it logs
+    each step's read and write of each layer's W plane and the plane it
+    returns. A resident GCRN, stacked or TGN launch logs nothing."""
+    if name not in CLUSTER_ENGINES:
+        raise ValueError(f"{name!r} writes no protocol log "
+                         f"({', '.join(CLUSTER_ENGINES)})")
+    family, paged = name.split("_")[0], name.endswith("_paged")
+    m = (torch.as_tensor(mask).detach().cpu() != 0).numpy()
+    B, T, n = m.shape
+    tiles = _ceil(n, TILE_ROWS)
+    per_tile = np.pad(m, ((0, 0), (0, 0), (0, tiles * TILE_ROWS - n)))
+    per_tile = per_tile.reshape(B, T, tiles, TILE_ROWS).any(-1)
+    chunk = CHUNK_ROWS // TILE_ROWS
+    # live tiles of each (b, t) in each chunk of tiles
+    counts = [[[int(per_tile[b, t, q:q + chunk].sum())
+                for q in range(0, tiles, chunk)] for t in range(T)]
+              for b in range(B)]
+    bounds = slice_bounds(width)
+    live_np = None if live is None else (
+        torch.as_tensor(live).detach().cpu() > 0).numpy()
+    rows, sweeps, depths = [], {}, {}
+    if paged:
+        depths[RING_STATE] = depth
+    if family == "evolve":
+        depths[RING_GRU] = GW_SLOTS
+    wr = min(BOX_ROWS, _round_up(n, 8))
+    for b in range(B):
+        for r in range(CLUSTER):
+            cta, ws = b * CLUSTER + r, bounds[r + 1] - bounds[r]
+            state, gru = [], []
+            ncw = _ceil(ws, td) if paged else 0
+            nw = ncw * (_ceil(n, wr) if family in ("gcrn", "tgn") else 1)
+            for t in range(T):
+                if family != "evolve":
+                    state += [c * nw for c in counts[b][t]]
+                    continue
+                for l in range(L):
+                    if paged:
+                        state += [c * ncw for c in counts[b][t]]
+                    if not live_np[b, t]:
+                        continue
+                    if paged:  # the GRU's sweep of the column windows
+                        state.append(ncw)
+                        for cw in range(ncw):
+                            ncg = _ceil(min(td, ws - cw * td), 4)
+                            gru.append(_ceil(_ceil(ncg, 2) * width,
+                                             CLUSTER_THREADS)
+                                       * (width // GW_ROWS))
+                    else:
+                        items = _ceil(_ceil(ws, 4), GRU_GROUPS) * width
+                        gru.append(_ceil(items, GRU_THREADS) * 2
+                                   * _ceil(width, 2 * GW_ROWS))
+            for ring, lengths in ((RING_STATE, state), (RING_GRU, gru)):
+                lengths = [x for x in lengths if x > 0]
+                if lengths:
+                    sweeps[(cta, ring)] = tuple(lengths)
+                    rows += _sweep_rows(cta, ring, depths[ring], lengths)
+            if family == "evolve":
+                rows += _plane_rows(cta, paged, L, live_np[b])
+    arr = np.asarray(rows, dtype=np.int64).reshape(-1, 7)
+    order = np.lexsort((np.arange(len(arr)), arr[:, 1], arr[:, 0]))
+    return ProtoLog(name, arr[order], len(arr), len(arr), False, depths,
+                    sweeps, (1 if paged else 2) if family == "evolve" else
+                    None, live_np if family == "evolve" else None, B, T, L)
+
+
+def _protocol_of(name: str, args: dict, ints: dict) -> ProtoLog:
+    """``protocol_plain`` of a launch of engine ``name`` from its C
+    arguments."""
+    family = name.split("_")[0]
+    if family == "evolve":
+        width, L = args["w"].shape[2], args["w"].shape[1]
+    else:
+        width, L = args[next(iter(STORE_ARGS[family]))].shape[-1], 1
+    return protocol_plain(name, args["mask"], width=width, td=ints.get("td"),
+                          depth=ints.get("depth"), L=L,
+                          live=args.get("live"))
+
+
+def protocol_of(rec: RecordedLaunch) -> ProtoLog:
+    """``protocol_plain`` of a recorded launch: the log its kernel writes
+    for its data."""
+    return _protocol_of(rec.name, rec.args, rec.ints)
+
+
+def _read_log(plain: ProtoLog, log: torch.Tensor) -> ProtoLog:
+    """The log a launch wrote into ``log`` (one device sync), its rows
+    grouped by (cta, ring) in the order each group was appended, beside
+    what ``plain`` says the launch's data needs."""
+    host = log.cpu().numpy().astype(np.int64)
+    count, flag, cap = (int(v) for v in host[:3])
+    kept = min(count, cap)
+    rows = host[PROTO_HEADER:PROTO_HEADER + kept * PROTO_ROW].reshape(
+        kept, PROTO_ROW)[:, :7]
+    order = np.lexsort((np.arange(kept), rows[:, 1], rows[:, 0]))
+    return dataclasses.replace(plain, rows=rows[order], count=count,
+                               capacity=cap,
+                               overflow=bool(flag) or count > cap)
+
+
+def _dispatch(name: str, dims: dict, smem: int, args: dict, ints: dict,
+              result: tuple, call: tuple, proto: bool = False):
+    """The end of a stream-engine launcher: inside ``recording_launches``
+    record the assembled launch and return its (unwritten) ``result``;
+    otherwise launch it on the current stream of its tensors' card. With
+    ``proto`` the launch writes a protocol log (``args["proto"]``, which
+    the launcher leaves None), sized from its plain version (twice its rows
+    and 256 more), returned after the results."""
+    recorded = _recorder()
+    if recorded is not None:
+        recorded.append(RecordedLaunch(
+            name, dict(dims), smem,
+            engine_cluster_config(name, ints["B"], **dims), dict(args),
+            dict(ints), result, call))
+        return result
+    lib = _library(name)
+    device = args["mask"].device
+    if proto:
+        plain = _protocol_of(name, args, ints)
+        cap = 2 * len(plain.rows) + 256
+        args["proto"] = torch.zeros(PROTO_HEADER + cap * PROTO_ROW,
+                                    dtype=torch.int32, device=device)
+        args["proto"][2] = cap
+    with torch.cuda.device(device):
+        _launch(name, lib, *map(_ptr, args.values()), *ints.values(),
+                _stream_ptr())
+    return (*result, _read_log(plain, args["proto"])) if proto else result
+
+
+def _with_log(name: str, result: tuple, packed: dict, ints: dict,
+              proto: bool):
+    """A plain version's result, and with ``proto`` the launch's plain
+    protocol log (from the packed inputs ``packed``: mask, the state, and
+    EvolveGCN's live flags)."""
+    return (*result, _protocol_of(name, packed, ints)) if proto else result
+
+
 # ------------------------------------------------------------- gcrn ----
 
 def gcrn_plain(idx, coef, eidx, x, rowg, mask, h0, c0, wx, wh, b, emsg=None):
@@ -991,10 +1301,11 @@ def gcrn_paged_plain(idx, coef, eidx, x, rowg, mask, h0, c0, wx, wh, b,
     return torch.stack(outs, dim=1), h_store, c_store
 
 
-def _gcrn_cuda(name, ring, idx, coef, eidx, x, rowg, mask, h0, c0, wx, wh,
-               b, emsg):
-    """Check CUDA tensors and launch the GCRN kernel ``name`` (``ring``: ()
-    resident, (td, depth) paged)."""
+def _gcrn_cuda(name, ring, dims, smem, call, proto, idx, coef, eidx, x,
+               rowg, mask, h0, c0, wx, wh, b, emsg):
+    """Check the tensors and assemble the GCRN kernel ``name``'s launch
+    (``ring``: () resident, (td, depth) paged; ``dims`` / ``smem`` as
+    budget-checked), then record or launch it (``_dispatch``)."""
     B, T, n, k = idx.shape
     din, (G, H) = x.shape[-1], h0.shape[1:]
     f32, i32 = torch.float32, torch.int32
@@ -1017,7 +1328,6 @@ def _gcrn_cuda(name, ring, idx, coef, eidx, x, rowg, mask, h0, c0, wx, wh,
     if H % 4:
         raise ValueError(f"{name}: H={H} must be a multiple of 4 (the "
                          "store rows move as float4)")
-    lib = _library(name)
     e = 0 if emsg is None else emsg.shape[2]
     outs = torch.empty((B, T, n, H), dtype=f32, device=x.device)
     hT, cT = h0.clone(), c0.clone()
@@ -1028,52 +1338,61 @@ def _gcrn_cuda(name, ring, idx, coef, eidx, x, rowg, mask, h0, c0, wx, wh,
         h_rows = torch.empty((B * CLUSTER, n, _round_up(_slice_max(H), 4)),
                              dtype=f32, device=x.device)
         c_rows = torch.empty_like(h_rows)
-    with torch.cuda.device(x.device):
-        _launch(name, lib, _ptr(idx), _ptr(coef), _ptr(eidx), _ptr(x),
-                _ptr(rowg), _ptr(mask), _ptr(wx), _ptr(wh), _ptr(b),
-                _ptr(emsg), _ptr(outs), _ptr(hT), _ptr(cT), _ptr(h_rows),
-                _ptr(c_rows), B, T, n, k, din, H, G, e, *ring, _stream_ptr())
-    return outs, hT, cT
+    args = dict(idx=idx, coef=coef, eidx=eidx, x=x, rowg=rowg, mask=mask,
+                wx=wx, wh=wh, b=b, emsg=emsg, out=outs, h_store=hT,
+                c_store=cT, h_rows=h_rows, c_rows=c_rows, proto=None)
+    ints = dict(B=B, T=T, n=n, k=k, din=din, H=H, G=G, e=e,
+                **dict(zip(("td", "depth"), ring)))
+    return _dispatch(name, dims, smem, args, ints, (outs, hT, cT), call,
+                     proto)
 
 
-def gcrn_engine(idx, coef, eidx, x, rowg, mask, h0, c0, wx, wh, b, emsg=None):
+def _gcrn_dims(idx, x, h0, **ring) -> dict:
+    return dict(k=idx.shape[-1], din=x.shape[-1], H=h0.shape[-1],
+                n=idx.shape[2], **ring)
+
+
+def gcrn_engine(idx, coef, eidx, x, rowg, mask, h0, c0, wx, wh, b, emsg=None,
+                *, proto: bool = False):
     """GC-LSTM over B streams of T steps in one launch.
 
     idx/eidx (B, T, n, k) int32, coef (B, T, n, k), x (B, T, n, din),
     rowg (B, T, n) int32 (G drops), mask (B, T, n), h0/c0 (B, G, H),
     wx (din, 4H), wh (H, 4H), b (4H,), emsg (B, T, e, din) or None; all
-    float tensors float32, H a multiple of 4. Returns (outs (B, T, n, H), hT, cT)."""
-    refuse_grad("gcrn_engine", idx, coef, eidx, x, rowg, mask, h0, c0, wx,
-                wh, b, emsg)
+    float tensors float32, H a multiple of 4. Returns (outs (B, T, n, H), hT,
+    cT), and with ``proto`` the launch's ``ProtoLog`` after them."""
+    inputs = (idx, coef, eidx, x, rowg, mask, h0, c0, wx, wh, b, emsg)
+    refuse_grad("gcrn_engine", *inputs)
     name = "gcrn_engine"
-    _check_budget("gcrn", "vmem", None, smem_bytes(
-        name, k=idx.shape[-1], din=x.shape[-1], H=h0.shape[-1],
-        n=idx.shape[2]))
-    if _device_kind(name, x) == "cpu":
-        return gcrn_plain(idx, coef, eidx, x, rowg, mask, h0, c0, wx, wh, b,
-                          emsg)
-    return _gcrn_cuda(name, (), idx, coef, eidx, x, rowg, mask, h0, c0, wx,
-                      wh, b, emsg)
+    dims = _gcrn_dims(idx, x, h0)
+    smem = smem_bytes(name, **dims)
+    _check_budget("gcrn", "vmem", None, smem)
+    if _plain_path(name, x):
+        return _with_log(name, gcrn_plain(*inputs),
+                         dict(mask=mask, h_store=h0), {}, proto)
+    return _gcrn_cuda(name, (), dims, smem, (inputs, {}), proto, *inputs)
 
 
 def gcrn_engine_paged(idx, coef, eidx, x, rowg, mask, h0, c0, wx, wh, b,
-                      emsg=None, *, td: int, depth: int = 2):
+                      emsg=None, *, td: int, depth: int = 2,
+                      proto: bool = False):
     """``gcrn_engine`` with its t-1 state paged (hbm_paged): the step's
     gathered rows reach the tile pass through a ``depth``-deep ring of
     td-wide column windows. Same arguments and results, bit-identical on
     the card."""
-    refuse_grad("gcrn_engine_paged", idx, coef, eidx, x, rowg, mask, h0,
-                c0, wx, wh, b, emsg)
+    inputs = (idx, coef, eidx, x, rowg, mask, h0, c0, wx, wh, b, emsg)
+    refuse_grad("gcrn_engine_paged", *inputs)
     name = "gcrn_engine_paged"
     _check_ring(name, td, depth)
-    _check_budget("gcrn", "hbm_paged", td, smem_bytes(
-        name, k=idx.shape[-1], din=x.shape[-1], H=h0.shape[-1],
-        n=idx.shape[2], td=td, depth=depth))
-    if _device_kind(name, x) == "cpu":
-        return gcrn_paged_plain(idx, coef, eidx, x, rowg, mask, h0, c0, wx,
-                                wh, b, emsg, td=td, depth=depth)
-    return _gcrn_cuda(name, (td, depth), idx, coef, eidx, x, rowg, mask, h0,
-                      c0, wx, wh, b, emsg)
+    dims = _gcrn_dims(idx, x, h0, td=td, depth=depth)
+    smem = smem_bytes(name, **dims)
+    _check_budget("gcrn", "hbm_paged", td, smem)
+    ring = dict(td=td, depth=depth)
+    if _plain_path(name, x):
+        return _with_log(name, gcrn_paged_plain(*inputs, **ring),
+                         dict(mask=mask, h_store=h0), ring, proto)
+    return _gcrn_cuda(name, (td, depth), dims, smem, (inputs, ring), proto,
+                      *inputs)
 
 
 # ----------------------------------------------------------- evolve ----
@@ -1134,10 +1453,10 @@ def _live_tiles(mask):
         torch.int32).contiguous()
 
 
-def _evolve_cuda(name, ring, idx, coef, x, mask, live, w0, bg, gwx, gwh, gb,
-                 eagg):
-    """Check CUDA tensors and launch the EvolveGCN kernel ``name`` (``ring``:
-    () resident, (td, depth) paged)."""
+def _evolve_cuda(name, ring, dims, smem, call, proto, idx, coef, x, mask,
+                 live, w0, bg, gwx, gwh, gb, eagg):
+    """Check the tensors and assemble the EvolveGCN kernel ``name``'s launch
+    (``ring``: () resident, (td, depth) paged), then record or launch it."""
     B, T, n, k = idx.shape
     L, D = w0.shape[1], w0.shape[2]
     f32, i32 = torch.float32, torch.int32
@@ -1154,65 +1473,71 @@ def _evolve_cuda(name, ring, idx, coef, x, mask, live, w0, bg, gwx, gwh, gb,
     _check_index(name, "idx", idx, n)
     if D % ROW_ALIGN:
         raise ValueError(f"{name}: D={D} must be a multiple of {ROW_ALIGN}")
-    lib = _library(name)
     outs = torch.empty((B, T, n, D), dtype=f32, device=x.device)
     wT = w0.clone()
     # each step's live node tiles: the matrix-GRU threads pace their
     # cluster-barrier arrivals by them
     tiles = _live_tiles(mask)
     act = torch.empty((B, 2, n, D), dtype=f32, device=x.device)
-    # paged: each CTA's columns of every W_l, its pages in global memory
-    pages = (torch.empty((B, L, CLUSTER, D, _round_up(_slice_max(D), 4)),
-                         dtype=f32, device=x.device),) if ring else ()
-    with torch.cuda.device(x.device):
-        _launch(name, lib, _ptr(idx), _ptr(coef), _ptr(x), _ptr(mask),
-                _ptr(live), _ptr(tiles), _ptr(bg), _ptr(gwx),
-                _ptr(gwh), _ptr(gb), _ptr(eagg), _ptr(outs), _ptr(wT),
-                _ptr(act), *(_ptr(t) for t in pages), B, T, n, k, L, D,
-                *ring, _stream_ptr())
-    return outs, wT
+    args = dict(idx=idx, coef=coef, x=x, mask=mask, live=live, tiles=tiles,
+                bg=bg, gwx=gwx, gwh=gwh, gb=gb, eagg=eagg, out=outs, w=wT,
+                act=act)
+    if ring:
+        # each CTA's columns of every W_l, its pages in global memory
+        args["wpage"] = torch.empty(
+            (B, L, CLUSTER, D, _round_up(_slice_max(D), 4)), dtype=f32,
+            device=x.device)
+    args["proto"] = None
+    ints = dict(B=B, T=T, n=n, k=k, L=L, D=D,
+                **dict(zip(("td", "depth"), ring)))
+    return _dispatch(name, dims, smem, args, ints, (outs, wT), call, proto)
 
 
-def evolve_engine(idx, coef, x, mask, live, w0, bg, gwx, gwh, gb, eagg=None):
+def evolve_engine(idx, coef, x, mask, live, w0, bg, gwx, gwh, gb, eagg=None,
+                  *, proto: bool = False):
     """L-layer GCN with matrix-GRU-evolved weights over B streams of T
     steps in one launch.
 
     idx (B, T, n, k) int32, coef (B, T, n, k), x (B, T, n, D),
     mask (B, T, n), live (B, T) int32, w0 (B, L, D, D), bg (L, D),
     gwx/gwh (L, D, 3D), gb (L, 3D), eagg (B, T, L, n, D) or None; D a
-    multiple of ``ROW_ALIGN``. Returns (outs (B, T, n, D), wT (B, L, D, D))."""
-    refuse_grad("evolve_engine", idx, coef, x, mask, live, w0, bg, gwx,
-                gwh, gb, eagg)
+    multiple of ``ROW_ALIGN``. Returns (outs (B, T, n, D), wT (B, L, D, D)),
+    and with ``proto`` the launch's ``ProtoLog`` after them."""
+    inputs = (idx, coef, x, mask, live, w0, bg, gwx, gwh, gb, eagg)
+    refuse_grad("evolve_engine", *inputs)
     name = "evolve_engine"
     k, L = idx.shape[-1], w0.shape[1]
-    _check_budget("evolve", "vmem", None, smem_bytes(
-        name, k=k, L=L, D=w0.shape[2]), lambda: (
+    dims = dict(k=k, L=L, D=w0.shape[2])
+    smem = smem_bytes(name, **dims)
+    _check_budget("evolve", "vmem", None, smem, lambda: (
         "a resident EvolveGCN CTA holds two planes of its columns of every "
         f"layer's W: at k {k}, L {L} it fits up to D "
         f"{evolve_resident_max_d(k, L)}"))
-    if _device_kind(name, x) == "cpu":
-        return evolve_plain(idx, coef, x, mask, live, w0, bg, gwx, gwh, gb,
-                            eagg)
-    return _evolve_cuda(name, (), idx, coef, x, mask, live, w0, bg, gwx, gwh,
-                        gb, eagg)
+    if _plain_path(name, x):
+        return _with_log(name, evolve_plain(*inputs),
+                         dict(mask=mask, live=live, w=w0), {}, proto)
+    return _evolve_cuda(name, (), dims, smem, (inputs, {}), proto, *inputs)
 
 
 def evolve_engine_paged(idx, coef, x, mask, live, w0, bg, gwx, gwh, gb,
-                        eagg=None, *, td: int, depth: int = 2):
+                        eagg=None, *, td: int, depth: int = 2,
+                        proto: bool = False):
     """``evolve_engine`` with W paged (hbm_paged): each W_l moves through a
     ``depth``-deep ring of (D, td) column windows and no D x D buffer sits in
     shared memory. Same arguments and results, bit-identical on the card."""
-    refuse_grad("evolve_engine_paged", idx, coef, x, mask, live, w0, bg,
-                gwx, gwh, gb, eagg)
+    inputs = (idx, coef, x, mask, live, w0, bg, gwx, gwh, gb, eagg)
+    refuse_grad("evolve_engine_paged", *inputs)
     name = "evolve_engine_paged"
     _check_ring(name, td, depth)
-    _check_budget("evolve", "hbm_paged", td, smem_bytes(
-        name, k=idx.shape[-1], D=w0.shape[2], td=td, depth=depth))
-    if _device_kind(name, x) == "cpu":
-        return evolve_paged_plain(idx, coef, x, mask, live, w0, bg, gwx, gwh,
-                                  gb, eagg, td=td, depth=depth)
-    return _evolve_cuda(name, (td, depth), idx, coef, x, mask, live, w0, bg,
-                        gwx, gwh, gb, eagg)
+    dims = dict(k=idx.shape[-1], D=w0.shape[2], td=td, depth=depth)
+    smem = smem_bytes(name, **dims)
+    _check_budget("evolve", "hbm_paged", td, smem)
+    ring = dict(td=td, depth=depth)
+    if _plain_path(name, x):
+        return _with_log(name, evolve_paged_plain(*inputs, **ring),
+                         dict(mask=mask, live=live, w=w0), ring, proto)
+    return _evolve_cuda(name, (td, depth), dims, smem, (inputs, ring), proto,
+                        *inputs)
 
 
 # ---------------------------------------------------------- stacked ----
@@ -1237,10 +1562,10 @@ def stacked_paged_plain(idx, coef, eidx, x, rowg, mask, h0, wg, bg, wx, wh,
                          b, emsg)
 
 
-def _stacked_cuda(name, ring, idx, coef, eidx, x, rowg, mask, h0, wg, bg, wx,
-                  wh, b, emsg):
-    """Check CUDA tensors and launch the stacked kernel ``name`` (``ring``:
-    () resident, (td, depth) paged)."""
+def _stacked_cuda(name, ring, dims, smem, call, proto, idx, coef, eidx, x,
+                  rowg, mask, h0, wg, bg, wx, wh, b, emsg):
+    """Check the tensors and assemble the stacked kernel ``name``'s launch
+    (``ring``: () resident, (td, depth) paged), then record or launch it."""
     B, T, n, k = idx.shape
     din, dmid, (G, H) = x.shape[-1], wg.shape[-1], h0.shape[1:]
     f32, i32 = torch.float32, torch.int32
@@ -1264,7 +1589,6 @@ def _stacked_cuda(name, ring, idx, coef, eidx, x, rowg, mask, h0, wg, bg, wx,
     if H % 4:
         raise ValueError(f"{name}: H={H} must be a multiple of 4 (the "
                          "store rows move as float4)")
-    lib = _library(name)
     e = 0 if emsg is None else emsg.shape[2]
     outs = torch.empty((B, T, n, H), dtype=f32, device=x.device)
     hT = h0.clone()
@@ -1272,17 +1596,21 @@ def _stacked_cuda(name, ring, idx, coef, eidx, x, rowg, mask, h0, wg, bg, wx,
     # contiguous
     h_rows = torch.empty((B * CLUSTER, n, _round_up(_slice_max(H), 4)),
                          dtype=f32, device=x.device) if ring else None
-    with torch.cuda.device(x.device):
-        _launch(name, lib, _ptr(idx), _ptr(coef), _ptr(eidx), _ptr(x),
-                _ptr(rowg), _ptr(mask), _ptr(wg), _ptr(bg), _ptr(wx),
-                _ptr(wh), _ptr(b), _ptr(emsg), _ptr(outs), _ptr(hT),
-                _ptr(h_rows), B, T, n, k, din, dmid, H, G, e, *ring,
-                _stream_ptr())
-    return outs, hT
+    args = dict(idx=idx, coef=coef, eidx=eidx, x=x, rowg=rowg, mask=mask,
+                wg=wg, bg=bg, wx=wx, wh=wh, b=b, emsg=emsg, out=outs,
+                h_store=hT, h_rows=h_rows, proto=None)
+    ints = dict(B=B, T=T, n=n, k=k, din=din, dmid=dmid, H=H, G=G, e=e,
+                **dict(zip(("td", "depth"), ring)))
+    return _dispatch(name, dims, smem, args, ints, (outs, hT), call, proto)
+
+
+def _stacked_dims(idx, x, wg, h0, **ring) -> dict:
+    return dict(k=idx.shape[-1], din=x.shape[-1], dmid=wg.shape[-1],
+                H=h0.shape[-1], **ring)
 
 
 def stacked_engine(idx, coef, eidx, x, rowg, mask, h0, wg, bg, wx, wh, b,
-                   emsg=None):
+                   emsg=None, *, proto: bool = False):
     """The last GCN layer and the GRU over B streams of T steps in one
     launch.
 
@@ -1290,37 +1618,39 @@ def stacked_engine(idx, coef, eidx, x, rowg, mask, h0, wg, bg, wx, wh, b,
     last layer's input), rowg (B, T, n) int32 (G drops), mask (B, T, n),
     h0 (B, G, H), wg (din, dmid), bg (dmid,), wx (dmid, 3H), wh (H, 3H),
     b (3H,), emsg (B, T, e, din) or None; all float tensors float32, H a
-    multiple of 4. Returns (outs (B, T, n, H), hT (B, G, H))."""
-    refuse_grad("stacked_engine", idx, coef, eidx, x, rowg, mask, h0, wg,
-                bg, wx, wh, b, emsg)
+    multiple of 4. Returns (outs (B, T, n, H), hT (B, G, H)), and with
+    ``proto`` the launch's ``ProtoLog`` after them."""
+    inputs = (idx, coef, eidx, x, rowg, mask, h0, wg, bg, wx, wh, b, emsg)
+    refuse_grad("stacked_engine", *inputs)
     name = "stacked_engine"
-    _check_budget("stacked", "vmem", None, smem_bytes(
-        name, k=idx.shape[-1], din=x.shape[-1], dmid=wg.shape[-1],
-        H=h0.shape[-1]))
-    if _device_kind(name, x) == "cpu":
-        return stacked_plain(idx, coef, eidx, x, rowg, mask, h0, wg, bg, wx,
-                             wh, b, emsg)
-    return _stacked_cuda(name, (), idx, coef, eidx, x, rowg, mask, h0, wg,
-                         bg, wx, wh, b, emsg)
+    dims = _stacked_dims(idx, x, wg, h0)
+    smem = smem_bytes(name, **dims)
+    _check_budget("stacked", "vmem", None, smem)
+    if _plain_path(name, x):
+        return _with_log(name, stacked_plain(*inputs),
+                         dict(mask=mask, h_store=h0), {}, proto)
+    return _stacked_cuda(name, (), dims, smem, (inputs, {}), proto, *inputs)
 
 
 def stacked_engine_paged(idx, coef, eidx, x, rowg, mask, h0, wg, bg, wx, wh,
-                         b, emsg=None, *, td: int, depth: int = 2):
+                         b, emsg=None, *, td: int, depth: int = 2,
+                         proto: bool = False):
     """``stacked_engine`` with its t-1 state paged (hbm_paged): a tile's own
     rows reach it through a ``depth``-deep ring of td-wide column windows.
     Same arguments and results, bit-identical on the card."""
-    refuse_grad("stacked_engine_paged", idx, coef, eidx, x, rowg, mask, h0,
-                wg, bg, wx, wh, b, emsg)
+    inputs = (idx, coef, eidx, x, rowg, mask, h0, wg, bg, wx, wh, b, emsg)
+    refuse_grad("stacked_engine_paged", *inputs)
     name = "stacked_engine_paged"
     _check_ring(name, td, depth)
-    _check_budget("stacked", "hbm_paged", td, smem_bytes(
-        name, k=idx.shape[-1], din=x.shape[-1], dmid=wg.shape[-1],
-        H=h0.shape[-1], td=td, depth=depth))
-    if _device_kind(name, x) == "cpu":
-        return stacked_paged_plain(idx, coef, eidx, x, rowg, mask, h0, wg,
-                                   bg, wx, wh, b, emsg, td=td, depth=depth)
-    return _stacked_cuda(name, (td, depth), idx, coef, eidx, x, rowg, mask,
-                         h0, wg, bg, wx, wh, b, emsg)
+    dims = _stacked_dims(idx, x, wg, h0, td=td, depth=depth)
+    smem = smem_bytes(name, **dims)
+    _check_budget("stacked", "hbm_paged", td, smem)
+    ring = dict(td=td, depth=depth)
+    if _plain_path(name, x):
+        return _with_log(name, stacked_paged_plain(*inputs, **ring),
+                         dict(mask=mask, h_store=h0), ring, proto)
+    return _stacked_cuda(name, (td, depth), dims, smem, (inputs, ring), proto,
+                         *inputs)
 
 
 # -------------------------------------------------------------- tgn ----
@@ -1392,12 +1722,13 @@ def _local_ids(gidx, rowg, G: int):
     return lid.to(torch.int32).reshape(B, T, n, k).contiguous()
 
 
-def _tgn_cuda(name, ring, lane, coef, ts, x, rowg, mask, mem0, freq, w_in,
-              wx, wh, b, lid=None):
-    """Check CUDA tensors and launch the TGN kernel ``name`` (``ring``: ()
-    resident with ``lane`` the partners' global rows and ``lid`` their
-    local ids, derived from ``lane`` and ``rowg`` where None; (td, depth)
-    paged with ``lane`` their local ids)."""
+def _tgn_cuda(name, ring, dims, smem, call, proto, lane, coef, ts, x, rowg,
+              mask, mem0, freq, w_in, wx, wh, b, lid=None):
+    """Check the tensors and assemble the TGN kernel ``name``'s launch
+    (``ring``: () resident with ``lane`` the partners' global rows and
+    ``lid`` their local ids, derived from ``lane`` and ``rowg`` where None;
+    (td, depth) paged with ``lane`` their local ids), then record or launch
+    it."""
     B, T, n, k = lane.shape
     din, (G, H) = x.shape[-1], mem0.shape[1:]
     f32, i32 = torch.float32, torch.int32
@@ -1421,14 +1752,10 @@ def _tgn_cuda(name, ring, lane, coef, ts, x, rowg, mask, mem0, freq, w_in,
     if H % 4:
         raise ValueError(f"{name}: H={H} must be a multiple of 4 (the "
                          "store rows move as float4)")
-    lib = _library(name)
     outs = torch.empty((B, T, n, H), dtype=f32, device=x.device)
     memT = mem0.clone()
     if ring:
-        # each CTA's gathered t-1 rows in global memory, its units contiguous
-        lanes = (lane,)
-        scratch = (torch.empty((B * CLUSTER, n, _round_up(_slice_max(H), 4)),
-                               dtype=f32, device=x.device),)
+        lanes = dict(lid=lane)
     else:
         # the partners' local ids beside their global rows: the resident
         # kernel sums them in the paged kernel's row windows
@@ -1439,18 +1766,23 @@ def _tgn_cuda(name, ring, lane, coef, ts, x, rowg, mask, mem0, freq, w_in,
             if lid.shape != lane.shape:
                 raise ValueError(f"{name}: inconsistent shapes")
             _check_index(name, "idx", lid, n)
-        lanes, scratch = (lane, lid), ()
-    with torch.cuda.device(x.device):
-        _launch(name, lib, *(_ptr(t) for t in lanes), _ptr(coef), _ptr(ts),
-                _ptr(x), _ptr(rowg), _ptr(mask), _ptr(freq), _ptr(w_in),
-                _ptr(wx), _ptr(wh), _ptr(b), _ptr(outs), _ptr(memT),
-                *(_ptr(t) for t in scratch), B, T, n, k, din, H, G, *ring,
-                _stream_ptr())
-    return outs, memT
+        lanes = dict(gidx=lane, lid=lid)
+    args = dict(**lanes, coef=coef, ts=ts, x=x, rowg=rowg, mask=mask,
+                freq=freq, w_in=w_in, wx=wx, wh=wh, b=b, out=outs,
+                store=memT)
+    if ring:
+        # each CTA's gathered t-1 rows in global memory, its units contiguous
+        args["rows"] = torch.empty(
+            (B * CLUSTER, n, _round_up(_slice_max(H), 4)), dtype=f32,
+            device=x.device)
+    args["proto"] = None
+    ints = dict(B=B, T=T, n=n, k=k, din=din, H=H, G=G,
+                **dict(zip(("td", "depth"), ring)))
+    return _dispatch(name, dims, smem, args, ints, (outs, memT), call, proto)
 
 
 def tgn_engine(gidx, coef, ts, x, rowg, mask, mem0, freq, w_in, wx, wh, b,
-               *, idx=None):
+               *, idx=None, proto: bool = False):
     """TGN node memory over B streams of T event batches in one launch.
 
     gidx (B, T, n, k) int32 global row of each event lane's partner,
@@ -1461,39 +1793,43 @@ def tgn_engine(gidx, coef, ts, x, rowg, mask, mem0, freq, w_in, wx, wh, b,
     partner as its local id, where the caller has it (the kernel sums
     partners in the paged kernel's row windows; found from gidx and rowg
     where None; the plain version needs none). Returns (outs (B, T, n,
-    H), memT (B, G, H))."""
-    refuse_grad("tgn_engine", gidx, coef, ts, x, rowg, mask, mem0, freq,
-                w_in, wx, wh, b)
+    H), memT (B, G, H)), and with ``proto`` the launch's ``ProtoLog`` after
+    them."""
+    inputs = (gidx, coef, ts, x, rowg, mask, mem0, freq, w_in, wx, wh, b)
+    refuse_grad("tgn_engine", *inputs)
     name = "tgn_engine"
-    _check_budget("tgn", "vmem", None, smem_bytes(
-        name, k=gidx.shape[-1], din=x.shape[-1], H=mem0.shape[-1]))
-    if _device_kind(name, x) == "cpu":
-        return tgn_plain(gidx, coef, ts, x, rowg, mask, mem0, freq, w_in, wx,
-                         wh, b)
-    return _tgn_cuda(name, (), gidx, coef, ts, x, rowg, mask, mem0, freq,
-                     w_in, wx, wh, b, lid=idx)
+    dims = dict(k=gidx.shape[-1], din=x.shape[-1], H=mem0.shape[-1])
+    smem = smem_bytes(name, **dims)
+    _check_budget("tgn", "vmem", None, smem)
+    if _plain_path(name, x):
+        return _with_log(name, tgn_plain(*inputs),
+                         dict(mask=mask, store=mem0), {}, proto)
+    return _tgn_cuda(name, (), dims, smem, (inputs, {"idx": idx}), proto,
+                     *inputs, lid=idx)
 
 
 def tgn_engine_paged(idx, coef, ts, x, rowg, mask, mem0, freq, w_in, wx, wh,
-                     b, *, td: int, depth: int = 2):
+                     b, *, td: int, depth: int = 2, proto: bool = False):
     """``tgn_engine`` with its memory paged (hbm_paged): each batch gathers
     its touched rows, and partners (by their local id ``idx`` (B, T, n, k)
     int32, in place of ``gidx``) and own rows reach the tile pass through a
     ``depth``-deep ring of td-wide column windows. Otherwise the arguments
     and results of ``tgn_engine``, bit-identical on the card under the
     event contract."""
-    refuse_grad("tgn_engine_paged", idx, coef, ts, x, rowg, mask, mem0,
-                freq, w_in, wx, wh, b)
+    inputs = (idx, coef, ts, x, rowg, mask, mem0, freq, w_in, wx, wh, b)
+    refuse_grad("tgn_engine_paged", *inputs)
     name = "tgn_engine_paged"
     _check_ring(name, td, depth)
-    _check_budget("tgn", "hbm_paged", td, smem_bytes(
-        name, k=idx.shape[-1], din=x.shape[-1], H=mem0.shape[-1],
-        n=idx.shape[2], td=td, depth=depth))
-    if _device_kind(name, x) == "cpu":
-        return tgn_paged_plain(idx, coef, ts, x, rowg, mask, mem0, freq,
-                               w_in, wx, wh, b, td=td, depth=depth)
-    return _tgn_cuda(name, (td, depth), idx, coef, ts, x, rowg, mask, mem0,
-                     freq, w_in, wx, wh, b)
+    dims = dict(k=idx.shape[-1], din=x.shape[-1], H=mem0.shape[-1],
+                n=idx.shape[2], td=td, depth=depth)
+    smem = smem_bytes(name, **dims)
+    _check_budget("tgn", "hbm_paged", td, smem)
+    ring = dict(td=td, depth=depth)
+    if _plain_path(name, x):
+        return _with_log(name, tgn_paged_plain(*inputs, **ring),
+                         dict(mask=mask, store=mem0), ring, proto)
+    return _tgn_cuda(name, (td, depth), dims, smem, (inputs, ring), proto,
+                     *inputs)
 
 
 # ----------------------------------------------------------- static ----
@@ -1542,12 +1878,12 @@ def static_engine(idx, coef, x, mask, w, bg, eagg=None, widths=None):
     outs (B, 1, n, D), zeros past the last width."""
     refuse_grad("static_engine", idx, coef, x, mask, w, bg, eagg)
     name = "static_engine"
-    if _device_kind(name, x) == "cpu":
+    if _plain_path(name, x):
         _check_static_t(idx)
         _check_widths(name, widths, w.shape[0], w.shape[-1])
         return static_plain(idx, coef, x, mask, w, bg, eagg)
-    return launch(_prepare_static_engine(idx, coef, x, mask, w, bg, eagg,
-                                         widths=widths))
+    p = _prepare_static_engine(idx, coef, x, mask, w, bg, eagg, widths=widths)
+    return p.result if _recorder() is not None else launch(p)
 
 
 def _prepare_static_engine(idx, coef, x, mask, w, bg, eagg=None,
@@ -1566,10 +1902,22 @@ def _prepare_static_engine(idx, coef, x, mask, w, bg, eagg=None,
             or (eagg is not None and eagg.shape != (B, T, L, n, D))):
         raise ValueError(f"{name}: inconsistent shapes")
     _check_index(name, "idx", idx, n)
-    lib = _library(name)
-    _check_smem(name, lib.static_engine_smem_bytes(k, D), f"k={k}, D={D}")
+    # the library's figure; recorded (no library), the estimate
+    recorded = _recorder()
+    lib = None if recorded is not None else _library(name)
+    smem = (smem_bytes(name, k=k, D=D) if lib is None
+            else lib.static_engine_smem_bytes(k, D))
+    _check_smem(name, smem, f"k={k}, D={D}")
     outs = torch.empty((B, T, n, D), dtype=f32, device=x.device)
     act = torch.empty((B, 2, n, D), dtype=f32, device=x.device)
+    if lib is None:
+        recorded.append(RecordedLaunch(
+            name, dict(k=k, D=D), smem, None,
+            dict(idx=idx, coef=coef, x=x, mask=mask, w=w, bg=bg, eagg=eagg,
+                 widths=widths, out=outs, act=act),
+            dict(B=B, n=n, k=k, L=L, D=D), (outs,),
+            ((idx, coef, x, mask, w, bg, eagg), {"widths": widths})))
+        return Prepared(name, None, (), outs, ())
     host_widths = (ctypes.c_int * (L + 1))(*widths)
     with torch.cuda.device(x.device):
         args = (_ptr(idx), _ptr(coef), _ptr(x), _ptr(mask), _ptr(w),
