@@ -151,6 +151,30 @@ Phases (any failure exits non-zero):
      of staging + launch (a chunk's stacking, copy to the card, launch and
      synchronize over its live snapshots), host preprocessing ms and
      snapshots/s beside the card's name and power limit.
+     Then the paths that launch no kernel (plain torch, as the JAX
+     package's are plain XLA; every launch count reads 0 around them),
+     timed before the first profiler window: (7) the DGNN trainer
+     (examples/torch/train_evolvegcn.py: EvolveGCN-O at v1, BC-Alpha link
+     prediction) at the example's full width (n_pad 640, e_pad 4096, k_max
+     64, a window of 6, 256 pairs): 20 steps with a checkpoint every 10
+     into a temporary directory, finite losses, the restored tensors equal
+     the trained ones, a second run resumes from step 20 to 24; the first
+     3 losses within 1e-5 relative of the same run on the CPU in this
+     process, step 1's gradients within 1e-5 of each leaf's max |value|;
+     ms a step; (8) mamba2-2.7b (64 layers, d_model 2560, 80 SSD heads of
+     64, state 128, chunk 256) and granite-moe-3b-a800m (32 layers,
+     d_model 1536, 40 experts top-8, d_ff 512, the dense MoE path) at full
+     width and depth, bf16 weights drawn on the card from the seed: a
+     prefill of 2 x 2048 tokens with finite logits (ms median of 3),
+     generate as the LM phase's (b) (ms a decode step), the decode logits
+     after the last prompt token against a prefill of the prompts (within
+     3e-2 for granite; mamba2's decode, an fp32 recurrence, and prefill,
+     bf16 intra-chunk scores, round at other places through 64 layers:
+     within 0.12 with the argmax equal, each layer's mixer teacher-forced
+     within 3e-2), the peak memory; (9) each examples/torch/*.py in a
+     process of its own at small flags (train_evolvegcn --steps 10,
+     quickstart, serve_stream --snapshots 8 --streams 2, lm_generate:
+     jamba-v0.1-52b reduced), each exiting 0.
   5. the device's busy share of one run at baseline, v2 and v3, resident
      and paged (kernel time over wall time, torch.profiler), with the CTAs
      a v3 launch of each stateful family uses.
@@ -233,6 +257,7 @@ import argparse
 import contextlib
 import dataclasses
 import functools
+import importlib.util
 import json
 import os
 import re
@@ -276,7 +301,8 @@ from repro_torch.models import (RuntimeConfig, decode_step,  # noqa: E402
                                 prefill_step)
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.nn import attention as attention_mod  # noqa: E402
-from repro_torch.nn.layers import embed_lookup  # noqa: E402
+from repro_torch.nn import mamba2 as mamba2_mod  # noqa: E402
+from repro_torch.nn.layers import embed_lookup, rms_norm  # noqa: E402
 from repro_torch.optim import (AdamWConfig, global_norm,  # noqa: E402
                                init_opt_state, tree_leaves)
 from repro_torch.serve import (FaultPlan, FaultSpec, InjectedFault,  # noqa: E402
@@ -432,6 +458,25 @@ TRAIN_PAIRS = {
     "flash-fp32-o vs fp32": TOL_TRAIN_REF,
     "flash vs xla": TOL_TRAIN_LAYER,
     "flash vs fp32": None, "xla vs fp32": None}
+# the DGNN trainer (examples/torch/train_evolvegcn.py) at the example's
+# full width: TRAINER_STEPS steps with a checkpoint every
+# TRAINER_CKPT_EVERY, a resume to TRAINER_RESUME_TO, and its first
+# TRAINER_CPU_STEPS steps against the same run on the CPU within
+# TOL_TRAINER relative (losses) and of each leaf's max |grad| (step 1)
+TRAINER_STEPS, TRAINER_CKPT_EVERY, TRAINER_RESUME_TO = 20, 10, 24
+TRAINER_CPU_STEPS = 3
+TOL_TRAINER = 1e-5
+# the Mamba2 mixer and the MoE MLP at full width and depth, bf16 weights:
+# a prefill of LM_BATCH x LM_SEQ tokens and generate as the LM phase's
+SSM_MOE_ARCHS = ("mamba2-2.7b", "granite-moe-3b-a800m")
+SSM_MOE_RT = RuntimeConfig(param_dtype="bf16", moe_impl="dense")
+# every example of the port, a process of its own, at small flags
+EXAMPLES = {
+    "train_evolvegcn": ["--steps", "10"],
+    "quickstart": [],
+    "serve_stream": ["--snapshots", "8", "--streams", "2"],
+    "lm_generate": [],
+}
 REPLACES = {
     "gcrn_engine": "src/repro/kernels/stream_fused.py:833",
     "evolve_engine": "src/repro/kernels/stream_fused.py:1191",
@@ -4392,6 +4437,235 @@ def serve_phase(params, card) -> dict:
     return launches
 
 
+# ------------------------------------------------ trainer, SSM / MoE ----
+# The DGNN trainer and the Mamba2 / MoE LM paths launch no hand-written
+# kernel (plain torch, as the JAX package's are plain XLA): every launch
+# count reads 0 around them.
+
+def load_example(name: str):
+    """examples/torch/<name>.py as a module."""
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", ROOT / "examples" / "torch" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def trainer_grads(ex, device):
+    """Step 1's loss and gradient leaves of the trainer on ``device``."""
+    tg, ft, snaps, model, params, v1 = ex.setup(device, seed=SEED)
+    batch = next(ex.build_batches(tg, ft, snaps, 1, device=device))
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    loss = ex.make_loss_fn(model, v1, tg.n_global_nodes)(params, batch)
+    grads = torch.autograd.grad(loss, leaves)
+    return float(loss.detach()), [g.detach().cpu() for g in grads]
+
+
+def trainer_phase(card) -> None:
+    """The DGNN trainer at the example's full width (BC-Alpha, n_pad 640,
+    e_pad 4096, k_max 64, a window of 6, 256 pairs): TRAINER_STEPS steps
+    on the card with a checkpoint every TRAINER_CKPT_EVERY into a
+    temporary directory, the restored tensors equal to the trained ones,
+    a resume to TRAINER_RESUME_TO; finite losses and no kernel launched;
+    the first TRAINER_CPU_STEPS losses and step 1's gradients against the
+    same run on the CPU; ms a step."""
+    ex = load_example("train_evolvegcn")
+    t0 = time.time()
+    tg, ft, snaps, model, params, v1 = ex.setup("cuda", seed=SEED)
+    loss = ex.make_loss_fn(model, v1, tg.n_global_nodes)
+    opt = ex.optimizer(TRAINER_STEPS)
+    engine.reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        loop = TrainLoopConfig(total_steps=TRAINER_STEPS,
+                               checkpoint_every=TRAINER_CKPT_EVERY,
+                               checkpoint_dir=tmp)
+        trained, res = train(loss, params, ex.build_batches(
+            tg, ft, snaps, TRAINER_STEPS, device="cuda"), opt, loop)
+        counts = launched(f"trainer {TRAINER_STEPS} steps")
+        check(not counts, f"the trainer launched no kernel: {counts}")
+        mgr = CheckpointManager(tmp)
+        steps = list(range(TRAINER_CKPT_EVERY, TRAINER_STEPS + 1,
+                           TRAINER_CKPT_EVERY))
+        check(res.final_step == TRAINER_STEPS and res.resumed_from is None
+              and mgr.all_steps() == steps,
+              f"trainer saves {mgr.all_steps()}")
+        check(all(np.isfinite(x) for x in res.losses)
+              and len(res.losses) == TRAINER_STEPS, "finite trainer losses")
+        saved = mgr.restore(TRAINER_STEPS, {
+            "params": ex.setup("cuda", seed=SEED + 1)[4],
+            "opt": init_opt_state(trained, opt)})
+        same = bitwise(saved["params"], trained)
+        check(same and int(saved["opt"]["step"]) == TRAINER_STEPS,
+              "trainer: restored tensors equal the trained ones")
+        engine.reset_launches()
+        _, res2 = train(loss, ex.setup("cuda", seed=SEED)[4],
+                        ex.build_batches(tg, ft, snaps, TRAINER_RESUME_TO,
+                                         device="cuda"),
+                        ex.optimizer(TRAINER_RESUME_TO),
+                        dataclasses.replace(loop,
+                                            total_steps=TRAINER_RESUME_TO))
+        check(not launched("trainer resume"), "the resume launched nothing")
+        check(res2.resumed_from == TRAINER_STEPS
+              and res2.final_step == TRAINER_RESUME_TO
+              and all(np.isfinite(x) for x in res2.losses),
+              f"trainer resume: from {res2.resumed_from} to "
+              f"{res2.final_step}")
+    # the same run on the CPU (same seed and batches, TF32 off on the card)
+    ctg, cft, csnaps, cmodel, cparams, cv1 = ex.setup("cpu", seed=SEED)
+    _, cres = train(ex.make_loss_fn(cmodel, cv1, ctg.n_global_nodes),
+                    cparams, ex.build_batches(ctg, cft, csnaps,
+                                              TRAINER_STEPS, device="cpu"),
+                    opt, TrainLoopConfig(total_steps=TRAINER_CPU_STEPS,
+                                         checkpoint_dir=None),
+                    device="cpu")
+    loss_err = max(abs(a - b) / abs(b) for a, b in
+                   zip(res.losses[:TRAINER_CPU_STEPS], cres.losses))
+    gl, gg = trainer_grads(ex, "cuda")
+    cl, cg = trainer_grads(ex, "cpu")
+    grad_err = max(float((a - b).abs().max() / b.abs().max())
+                   for a, b in zip(gg, cg))
+    ms = float(np.mean(res.step_times[1:])) * 1e3
+    log(f"trainer EvolveGCN-O v1 BC-Alpha (n_pad 640, e_pad 4096, k_max 64,"
+        f" window 6, 256 pairs): {TRAINER_STEPS} steps, {ms:.3f} ms a step "
+        f"(mean of steps 2-{TRAINER_STEPS}; all "
+        f"{', '.join(f'{t * 1e3:.3f}' for t in res.step_times)}) on "
+        f"{card}; losses {res.losses[0]:.6f} -> {res.losses[-1]:.6f}; "
+        f"saved {steps}, restored = trained {same}, resumed "
+        f"{res2.resumed_from} -> {res2.final_step}; card vs CPU: first "
+        f"{TRAINER_CPU_STEPS} losses {loss_err:.3e} relative, step 1 "
+        f"loss {abs(gl - cl) / abs(cl):.3e}, grads {grad_err:.3e} of max "
+        f"|grad| (tol {TOL_TRAINER}); {time.time() - t0:.1f} s")
+    check(np.isfinite(loss_err) and loss_err <= TOL_TRAINER,
+          "trainer losses card vs CPU")
+    check(np.isfinite(grad_err) and grad_err <= TOL_TRAINER,
+          "trainer step 1 grads card vs CPU")
+
+
+def ssm_moe_path(arch: str, card) -> None:
+    """``arch`` at full width and depth, bf16 weights drawn on the card
+    from the seed: a prefill of LM_BATCH x LM_SEQ tokens (finite logits,
+    ms median of 3 after a warm call), then generate (LM_PROMPT-token
+    prompts, LM_NEW new tokens, a cache of LM_SKV: ms a decode step), and
+    the decode logits after the last prompt token against a prefill of
+    the prompts: within TOL_LOGITS, or with Mamba2 layers (their decode
+    and prefill round at other places, compounding through depth) within
+    TOL_DRIFT and each mixer teacher-forced within TOL_LOGITS
+    (``ssm_mixer_gate``), the argmax equal; no kernel launched; the peak
+    memory over what earlier phases hold."""
+    cfg = ARCHS[arch]
+    t0 = time.time()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    params = init_params(cfg, SSM_MOE_RT, torch.Generator(
+        device="cuda").manual_seed(SEED), device="cuda")
+    weights = torch.cuda.memory_allocated() - base
+    tokens = lm_tokens(LM_BATCH, LM_SEQ, SEED + 1, cfg.vocab_size)
+    engine.reset_launches()
+    ms = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        logits = prefill_step(params, cfg, SSM_MOE_RT, {"tokens": tokens})
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t1) * 1e3)
+    check(logits.shape == (LM_BATCH, 1, cfg.padded_vocab())
+          and bool(torch.isfinite(logits).all()),
+          f"{arch} prefill logits {tuple(logits.shape)} finite")
+    prompt = lm_tokens(LM_BATCH, LM_PROMPT, SEED + 2, cfg.vocab_size)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = generate(params, cfg, SSM_MOE_RT, prompt, LM_NEW, LM_SKV)
+    torch.cuda.synchronize()
+    total = (time.perf_counter() - t1) * 1e3
+    n_steps = LM_PROMPT + LM_NEW - 1
+    check(out.shape == (LM_BATCH, LM_NEW) and out.dtype == torch.int32
+          and int(out.min()) >= 0 and int(out.max()) < cfg.vocab_size,
+          f"{arch} generate tokens {tuple(out.shape)}")
+    caches = init_caches(cfg, SSM_MOE_RT, LM_BATCH, LM_SKV)
+    for i in range(LM_PROMPT):
+        dec, caches = decode_step(params, cfg, SSM_MOE_RT,
+                                  prompt[:, i:i + 1], caches)
+    ref = prefill_step(params, cfg, SSM_MOE_RT, {"tokens": prompt})
+    mixer_err = ssm_mixer_gate(params, cfg, prompt)
+    counts = launched(f"{arch} prefill, generate, decode")
+    check(not counts, f"{arch} launched no kernel: {counts}")
+    err = logits_err(dec, ref, cfg.vocab_size)
+    # Mamba2's decode (an fp32 recurrence) and prefill (the chunked scan's
+    # bf16 scores) round at other places, which compounds through depth:
+    # the teacher-forced mixers are its gate, the logits TOL_DRIFT
+    tol = TOL_LOGITS if mixer_err is None else TOL_DRIFT
+    same_argmax = torch.equal(dec[:, -1, :cfg.vocab_size].argmax(-1),
+                              ref[:, -1, :cfg.vocab_size].argmax(-1))
+    log(f"{arch}: decode after the prompt vs its prefill {err:.3e} of max "
+        f"|logits| (tol {tol}), argmax equal {same_argmax}; teacher-forced "
+        f"Mamba2 mixers, decode from the prefix's state vs prefill, max "
+        f"{mixer_err} (tol {TOL_LOGITS})")
+    check(bool(torch.isfinite(dec).all()) and np.isfinite(err)
+          and err <= tol and same_argmax, f"{arch} decode vs prefill")
+    peak = torch.cuda.max_memory_allocated() - base
+    log(f"{arch} (bf16, {cfg.n_layers} layers, d_model {cfg.d_model}): "
+        f"prefill B={LM_BATCH} S={LM_SEQ} {float(np.median(ms[1:])):.2f} ms "
+        f"median of 3 (first {ms[0]:.2f}); generate {total:.1f} ms for "
+        f"{n_steps} decode steps, {total / n_steps:.2f} ms a step "
+        f"(B={LM_BATCH}); weights {weights / 1e9:.2f} GB, peak "
+        f"{peak / 1e9:.2f} GB over what the earlier phases hold; tokens "
+        f"{out.tolist()}; on {card}; {time.time() - t0:.1f} s")
+    del params, caches, logits, ref, dec
+    torch.cuda.empty_cache()
+
+
+def ssm_mixer_gate(params, cfg, prompt):
+    """Each Mamba2 layer's mixer on the prefill path's own hidden state
+    (teacher-forced): the last prompt position decoded from the state of
+    the prefix's prefill, against the whole prompt's prefill, relative to
+    max |output|; the largest over the layers (None: no Mamba2 layer),
+    checked within TOL_LOGITS."""
+    errs = []
+    with torch.inference_mode():
+        x = embed_lookup(params["embed"], prompt)
+        s = prompt.shape[1]
+        positions = torch.arange(s, device=x.device).expand(x.shape[0], s)
+        for _, mlp, pl, _ in lm.iter_layers(params, cfg):
+            if "ssm" in pl:
+                h = rms_norm(x, pl["norm1"], cfg.norm_eps)
+                full, _ = mamba2_mod.mamba_block(pl["ssm"], cfg, h)
+                _, state = mamba2_mod.mamba_block(pl["ssm"], cfg, h[:, :-1])
+                one, _ = mamba2_mod.mamba_block(pl["ssm"], cfg, h[:, -1:],
+                                            state=state)
+                errs.append(rel_err(one[:, 0], full[:, -1]))
+            x = lm.layer_apply(pl, cfg, SSM_MOE_RT, mlp, x, positions)[0]
+    if not errs:
+        return None
+    worst = max(errs)
+    check(np.isfinite(worst) and worst <= TOL_LOGITS,
+          f"{cfg.name} teacher-forced Mamba2 mixers {worst:.3e}")
+    return worst
+
+
+def examples_phase() -> None:
+    """Each examples/torch/*.py in a process of its own at EXAMPLES' flags,
+    on the card: each exits 0."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    for name, args in EXAMPLES.items():
+        with tempfile.TemporaryDirectory() as tmp:
+            extra = (["--ckpt", str(Path(tmp) / "ckpt")]
+                     if name == "train_evolvegcn" else [])
+            t0 = time.time()
+            run = subprocess.run(
+                [sys.executable, str(ROOT / "examples" / "torch"
+                                     / f"{name}.py"), *args, *extra],
+                cwd=tmp, env=env, capture_output=True, text=True,
+                timeout=600)
+        out = run.stdout.strip().splitlines()
+        log(f"example {name} {' '.join(args)}: rc {run.returncode} in "
+            f"{time.time() - t0:.1f} s; " + " | ".join(out[-12:])
+            + (f" {run.stderr.strip()[-2000:]}" if run.returncode else ""))
+        check(run.returncode == 0, f"examples/torch/{name}.py exits 0")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="smoke run of the port on one "
                                  "CUDA card")
@@ -4680,6 +4954,17 @@ def main(argv=None) -> int:
         launches[name] += v
     log(f"phase 4 (serve): {time.time() - t0:.1f} s")
 
+    # phase 4, the paths that launch no kernel: the DGNN trainer, the
+    # Mamba2 / MoE LM paths and the examples, timed before the first
+    # profiler window (phase 6 below)
+    t0 = time.time()
+    trainer_phase(card)
+    for arch in SSM_MOE_ARCHS:
+        ssm_moe_path(arch, card)
+    examples_phase()
+    log(f"phase 4 (trainer, Mamba2 / MoE, examples): "
+        f"{time.time() - t0:.1f} s")
+
     # phase 6: where a live node tile's time goes, run before phase 5: no
     # host-dispatched timing follows a profiler window (a traced process
     # dispatches more slowly). Then the profiler's kernel durations of 3c
@@ -4789,6 +5074,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     train_loop_path()
     log(f"phase 4 (LM training): {time.time() - t0:.1f} s")
+
     for rec in records:
         rec["launches"] = launches[rec["name"]]
         check(rec["launches"] > 0, f"{rec['name']} launched on the main path")

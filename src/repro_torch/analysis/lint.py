@@ -3,13 +3,16 @@
 The port's copy of the JAX package's rules that read Python
 (``repro/analysis/lint.py``), over its own tree: family-named stream defs
 outside the registry module (kernels/ops.py), raw ``mode="vN"`` dispatch
-and direct ``stream_steps`` calls in the serve layer, broad ``except``
-(no allowlist: the serve layer catches ``faults.SUPERVISED``), mutable
-default arguments, and files that do not parse. The JAX package's
+and direct ``stream_steps`` calls in the serve layer and the examples,
+broad ``except`` (no allowlist: the serve layer catches
+``faults.SUPERVISED``), mutable default arguments, and files that do not
+parse. The JAX package's
 ``single-kernel-body`` and ``jnp-in-kernel-body`` read Pallas kernel
 bodies; the port has none (its kernels are CUDA under kernels/csrc), so
-they have no counterpart here. tests/ and chip_smoke.py stay out of scope:
-they drive the kernels directly on purpose.
+they have no counterpart here. The scope is the package and the port's
+examples (examples/torch, surface code like the serve layer, as the JAX
+lint reads examples/); tests/ and chip_smoke.py stay out of scope: they
+drive the kernels directly on purpose.
 
 Every rule is a function ``(relpath, tree, lines) -> [Finding]``. Suppress
 a single finding with ``# booster: ignore[rule-id]`` on its line — the
@@ -24,9 +27,8 @@ from typing import Optional
 
 from repro_torch.analysis.core import Finding, Rule
 
-#: directories scanned by default, relative to the repo root (the port's
-#: examples join once it has them)
-LINT_ROOTS = ("src/repro_torch",)
+#: directories scanned by default, relative to the repo root
+LINT_ROOTS = ("src/repro_torch", "examples/torch")
 
 #: files where catching ``Exception`` / ``BaseException`` is the point:
 #: none in the port
@@ -36,7 +38,7 @@ BROAD_EXCEPT_ALLOWLIST = frozenset()
 REGISTRY = "src/repro_torch/kernels/ops.py"
 
 #: the surface code that goes through typed plans
-_SERVE_SCOPE = ("src/repro_torch/serve/",)
+_SERVE_SCOPE = ("examples/torch/", "src/repro_torch/serve/")
 
 #: family-named stream def pattern (the JAX lint's, ``lint.py``) and its
 #: oracle exemption (kernels/ref.py ``*_stream*_ref[s]``)

@@ -1,15 +1,16 @@
 """Training launcher (the counterpart of ``repro.launch.train``).
 
-Trains a registered attention-only architecture with the fault-tolerant
-loop, on the card unless ``--device cpu``: its reduced config by default,
-the full-size one with ``--full`` (per-layer remat on):
+Trains a registered architecture with the fault-tolerant loop, on the
+card unless ``--device cpu``: its reduced config by default, the
+full-size one with ``--full`` (per-layer remat on):
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch phi3-mini-3.8b --steps 50
   PYTHONPATH=src python -m repro_torch.launch.train --arch phi3-mini-3.8b \\
       --full --batch 2 --seq 2048 --attn-impl flash --steps 3
 
-The DGNN trainer (``examples/train_evolvegcn.py``) is not ported yet
-(ROADMAP queue 1, the DGNN trainer).
+The DGNN trainer is ``examples/torch/train_evolvegcn.py`` (EvolveGCN-O on
+BC-Alpha link prediction); this launcher has no DGNN mode, as the JAX
+package's has none.
 """
 from __future__ import annotations
 

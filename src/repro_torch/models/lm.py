@@ -1,21 +1,25 @@
 """Generic LM-family model (the counterpart of ``repro.models.lm``):
-prefill, KV-cache decode and the training loss on the dense,
-attention-only wiring.
+prefill, decode from caches and the training loss for the dense, MoE,
+SSM, hybrid and encoder-only wirings of ``ModelConfig.layer_kinds()``.
 
 Layers are stored STACKED per period position, in the JAX pytree layout:
 ``params["blocks"]`` is a list over the scan period of dicts whose leaves
 carry a leading layer axis, so the weights cross between the packages
 structurally (``params.lm_params_from_jax``). The JAX package's scanned and
-unrolled forward paths are one Python loop over the layers here.
+unrolled forward paths are one Python loop over the layers here. A
+layer's mixer is GQA attention (``nn/attention.py``) or the Mamba2 mixer
+(``nn/mamba2.py``); its MLP SwiGLU (``nn/mlp.py``), the MoE MLP
+(``nn/moe.py``, the dense path) or none. Decode caches mirror the blocks:
+a KV cache with a host-side "len" for attention layers, {"conv", "ssm"}
+for Mamba2 layers (an SSM-only model has no "len": its decode position
+is 0, as in the JAX package, and its mixer reads none).
 
 Training (``loss_fn``): ``backbone(train=True)`` recomputes each layer in
 the backward when ``rt.remat`` (``torch.utils.checkpoint``, the JAX
 package's ``jax.checkpoint``: only the layer boundaries are kept), and
 ``chunked_ce_loss`` recomputes each ``rt.loss_chunk`` chunk's logits, so
-(B, S, V) never exists. Not ported yet (ROADMAP queue 1, the LM MoE MLP
-and Mamba2 mixer): the MoE
-and Mamba2 mixers (``init_params`` refuses those architectures), and
-sharding.
+(B, S, V) never exists. Not ported yet: sharding, and with it the
+expert-parallel MoE (ROADMAP.md queue 1, device sharding).
 """
 from __future__ import annotations
 
@@ -23,12 +27,15 @@ from dataclasses import dataclass
 from typing import Any, Optional
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.nn import attention as ATT
+from repro_torch.nn import mamba2 as SSM
 from repro_torch.nn import mlp as MLP
+from repro_torch.nn import moe as MOE
 from repro_torch.nn.layers import (
     ACT_DTYPE,
     bf16_cotangent,
@@ -37,13 +44,9 @@ from repro_torch.nn.layers import (
     init_lm_head,
     init_rms_norm,
     rms_norm,
+    silu,
     vocab_mask,
 )
-
-#: the ROADMAP item of what this module does not run yet
-_NOT_PORTED = ("not ported yet (ROADMAP queue 1, the LM MoE MLP and Mamba2 "
-               "mixer)")
-
 
 @dataclass(frozen=True)
 class RuntimeConfig:
@@ -80,28 +83,24 @@ def _param_dtype(rt: RuntimeConfig) -> torch.dtype:
                          f"{sorted(_PARAM_DTYPES)}") from None
 
 
-def _check_ported(cfg: ModelConfig) -> None:
-    kinds = set(cfg.layer_kinds())
-    if any(mixer != "attn" for mixer, _ in kinds):
-        raise NotImplementedError(
-            f"{cfg.name}: the Mamba2 (ssm) mixer is {_NOT_PORTED}")
-    if any(mlp == "moe" for _, mlp in kinds):
-        raise NotImplementedError(
-            f"{cfg.name}: the MoE MLP is {_NOT_PORTED}")
-
-
 # ------------------------------------------------------------- params ----
 
 
-def _init_layer(generator, cfg: ModelConfig, rt: RuntimeConfig, mlp: str,
-                device, dtype):
+def _init_layer(generator, cfg: ModelConfig, rt: RuntimeConfig, mixer: str,
+                mlp: str, device, dtype):
     kw = dict(device=device, dtype=dtype)
-    p = {"norm1": init_rms_norm(cfg.d_model, **kw),
-         "attn": ATT.init_attention(generator, cfg, rt.tp, **kw)}
+    p = {"norm1": init_rms_norm(cfg.d_model, **kw)}
+    if mixer == "attn":
+        p["attn"] = ATT.init_attention(generator, cfg, rt.tp, **kw)
+    else:
+        p["ssm"] = SSM.init_mamba(generator, cfg, **kw)
     if mlp != "none":
         p["norm2"] = init_rms_norm(cfg.d_model, **kw)
-        p["mlp"] = MLP.init_mlp(generator, cfg.d_model, cfg.d_ff,
-                                cfg.n_layers, **kw)
+        if mlp == "dense":
+            p["mlp"] = MLP.init_mlp(generator, cfg.d_model, cfg.d_ff,
+                                    cfg.n_layers, **kw)
+        else:
+            p["moe"] = MOE.init_moe(generator, cfg, rt.tp, **kw)
     return p
 
 
@@ -116,7 +115,6 @@ def init_params(cfg: ModelConfig, rt: RuntimeConfig, generator=None,
     ``meta`` device nothing is drawn or allocated (the layout alone). The
     draws are not the JAX package's (its PRNG differs); a comparison
     carries the JAX weights across with ``params.lm_params_from_jax``."""
-    _check_ported(cfg)
     device = torch.device(device)
     if device.type != "meta":
         device = resolve_device(device)
@@ -138,8 +136,9 @@ def init_params(cfg: ModelConfig, rt: RuntimeConfig, generator=None,
     for pos in range(period):
         stacked = None
         for b in range(nb):
-            _, mlp = kinds[b * period + pos]
-            layer = _init_layer(generator, cfg, rt, mlp, device, dtype)
+            mixer, mlp = kinds[b * period + pos]
+            layer = _init_layer(generator, cfg, rt, mixer, mlp, device,
+                                dtype)
             if stacked is None:
                 stacked = _tree_map(lambda t: torch.empty(
                     (nb, *t.shape), dtype=t.dtype, device=t.device), layer)
@@ -220,14 +219,32 @@ def attention_sublayer(pl: dict, cfg: ModelConfig, rt: RuntimeConfig,
         flash_bk=rt.flash_bk)
 
 
+def _dense_act(cfg: ModelConfig):
+    """The dense SwiGLU's silu: in a model with MoE or Mamba2 layers (jamba,
+    llama4) ``layers.silu``, which rounds where the JAX package does, as
+    those layers' own SwiGLU and gating do, so every sublayer of such a
+    model equals the JAX package's bit for bit; elsewhere the fused
+    ``F.silu`` (one elementwise kernel where ``layers.silu`` runs five)."""
+    return silu if cfg.n_experts or cfg.ssm_state else F.silu
+
+
 def layer_apply(pl: dict, cfg: ModelConfig, rt: RuntimeConfig, mlp: str,
                 x: torch.Tensor, positions, cache: Optional[dict] = None):
-    """One layer: x plus its attention, then plus its MLP (pre-norm)."""
-    y, new_cache = attention_sublayer(pl, cfg, rt, x, positions, cache)
+    """One layer: x plus its mixer (attention, or Mamba2 where the layer
+    holds "ssm"), then plus its MLP (dense or MoE), each pre-norm."""
+    if "attn" in pl:
+        y, new_cache = attention_sublayer(pl, cfg, rt, x, positions, cache)
+    else:
+        h = rms_norm(x, pl["norm1"], cfg.norm_eps)
+        y, new_cache = SSM.mamba_block(pl["ssm"], cfg, h, state=cache)
     x = x + y
     if mlp != "none":
         h2 = rms_norm(x, pl["norm2"], cfg.norm_eps)
-        x = x + MLP.mlp_block(pl["mlp"], h2)
+        if mlp == "dense":
+            y2 = MLP.mlp_block(pl["mlp"], h2, act=_dense_act(cfg))
+        else:
+            y2 = MOE.moe_block(pl["moe"], cfg, h2, impl=rt.moe_impl)
+        x = x + y2
     return x, new_cache
 
 
@@ -237,7 +254,6 @@ def backbone(params: dict, cfg: ModelConfig, rt: RuntimeConfig,
     """x: (B, S, D) -> (B, S, D); threads per-layer caches when decoding.
     ``train`` with ``rt.remat``: each layer is recomputed in the backward,
     so only the layer boundaries are kept."""
-    _check_ported(cfg)
     period = cfg.scan_period()
     x = x.to(ACT_DTYPE)
     collected: dict[int, list] = {pos: [] for pos in range(period)}
@@ -348,15 +364,20 @@ def prefill_step(params, cfg: ModelConfig, rt: RuntimeConfig, batch: dict, *,
 def init_caches(cfg: ModelConfig, rt: RuntimeConfig, batch: int, skv: int,
                 device="cuda"):
     """Decode caches, stacked per period position (mirrors
-    params['blocks']); each "len" is a host-side (n_blocks,) int32."""
-    _check_ported(cfg)
+    params['blocks']): an attention layer's KV cache, whose "len" is a
+    host-side (n_blocks,) int32, or a Mamba2 layer's {"conv", "ssm"}."""
     dev = resolve_device(device)
+    kinds = cfg.layer_kinds()
     period = cfg.scan_period()
     nb = cfg.n_layers // period
     caches: list = []
-    for _ in range(period):
-        one = ATT.init_decode_cache(cfg, batch, skv, rt.tp,
-                                    quant=rt.kv_quant, device=dev)
+    for pos in range(period):
+        mixer, _ = kinds[pos]
+        if mixer == "attn":
+            one = ATT.init_decode_cache(cfg, batch, skv, rt.tp,
+                                        quant=rt.kv_quant, device=dev)
+        else:
+            one = SSM.init_mamba_state(cfg, batch, device=dev)
         caches.append(_tree_map(
             lambda a: a[None].expand(nb, *a.shape).clone(), one))
     return caches
@@ -369,7 +390,8 @@ def decode_step(params, cfg: ModelConfig, rt: RuntimeConfig,
     Returns (logits (B, 1, V) fp32, new caches)."""
     dev = _batch_device(params, {"tokens": tokens}, device)
     x = embed_lookup(params["embed"], tokens)
-    # position = current cache length, from the first cache with one
+    # position = current cache length, from the first cache with one (an
+    # SSM-only model has none: its layers use no position)
     pos = 0
     for c in caches:
         if c is not None and "len" in c:

@@ -21,9 +21,11 @@ def init_mlp(generator, d: int, f: int, n_layers: int, *, device="cuda",
     }
 
 
-def mlp_block(p: dict, x: torch.Tensor) -> torch.Tensor:
-    """x (B,S,D) -> (B,S,D): silu(x W_gate) * (x W_up), then W_down; bf16."""
+def mlp_block(p: dict, x: torch.Tensor, act=F.silu) -> torch.Tensor:
+    """x (B,S,D) -> (B,S,D): act(x W_gate) * (x W_up), then W_down; bf16.
+    ``act`` is the fused ``F.silu``, or ``layers.silu`` where the SwiGLU
+    rounds as the JAX package's does op by op (the MoE / Mamba2 models)."""
     g = torch.einsum("bsd,df->bsf", x, p["w_gate"].to(ACT_DTYPE))
     u = torch.einsum("bsd,df->bsf", x, p["w_up"].to(ACT_DTYPE))
-    h = F.silu(g) * u
+    h = act(g) * u
     return torch.einsum("bsf,fd->bsd", h, p["w_down"].to(ACT_DTYPE))

@@ -477,7 +477,7 @@ def test_lint_scopes(tmp_path):
            "def go(ops, *a):\n    return ops.stream_steps('gcrn', *a, "
            "mode='v3')\n")
     assert lint.run_lint(tmp_path) == []
-    assert lint.LINT_ROOTS == ("src/repro_torch",)
+    assert lint.LINT_ROOTS == ("src/repro_torch", "examples/torch")
 
 
 def test_lint_suppression_is_counted(tmp_path):

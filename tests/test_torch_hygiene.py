@@ -1,7 +1,8 @@
 """Hygiene of the port: no JAX inside it, the card by default, no fallback.
 
-* No module of ``src/repro_torch`` and not ``chip_smoke.py`` imports
-  ``jax`` or the JAX package ``repro`` (its own ``repro_torch`` is fine).
+* No module of ``src/repro_torch``, no example of ``examples/torch`` and
+  not ``chip_smoke.py`` imports ``jax`` or the JAX package ``repro`` (its
+  own ``repro_torch`` is fine).
 * Entry points asked for the default device on a host without CUDA raise
   instead of running on the CPU.
 * The kernel wrappers run the plain version only for CPU tensors: where
@@ -20,8 +21,8 @@ from repro_torch.configs.dgnn import GCRN_M2, STATIC_GCN, TGN
 from repro_torch.kernels import engine, ops
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + sorted(
+    (ROOT / "examples" / "torch").glob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
 def _imported_modules(path):

@@ -18,8 +18,9 @@ other places (a bf16 einsum's accumulation, silu), so logits agree to
 ``TOL`` = 2e-2 of max |logits| over the real vocabulary (measured about
 5e-3). The configs and ``RuntimeConfig`` are pinned field by field, the
 parameter layout at full width for all six (JAX by ``jax.eval_shape``, the
-port on the ``meta`` device: nothing is allocated), and the refusals: a
-full KV cache, the MoE / SSM architectures.
+port on the ``meta`` device: nothing is allocated), and the refusal of a
+full KV cache. The MoE / SSM architectures are held against the JAX
+package in ``tests/test_torch_ssm_moe.py``.
 """
 import dataclasses
 
@@ -41,10 +42,6 @@ from repro_torch.serve import generate
 TOL = 2e-2
 ATTN_ONLY = ["deepseek-coder-33b", "phi3-mini-3.8b", "qwen2.5-14b",
              "qwen3-32b", "internvl2-26b", "hubert-xlarge"]
-NOT_PORTED = {"granite-moe-3b-a800m": "MoE", "llama4-maverick-400b-a17b":
-              "MoE", "mamba2-2.7b": "Mamba2", "jamba-v0.1-52b": "Mamba2"}
-#: the ROADMAP item the refusals name, by its title
-MOE_ITEM = "ROADMAP queue 1, the LM MoE MLP and Mamba2 mixer"
 
 
 def _smoke(name):
@@ -269,23 +266,13 @@ def test_a_full_cache_is_refused():
         generate(pt, tc, trt, prompt, 4, 6, device="cpu")
 
 
-# ------------------------------------------------------------ refusals ----
-
-@pytest.mark.parametrize("name", sorted(NOT_PORTED))
-def test_moe_and_ssm_architectures_are_not_ported(name):
-    cfg = tcfg.ARCHS[name]
-    with pytest.raises(NotImplementedError,
-                       match=f"{NOT_PORTED[name]}.*{MOE_ITEM}"):
-        tm.init_params(cfg, tm.RuntimeConfig(), device="meta")
-    with pytest.raises(NotImplementedError, match=MOE_ITEM):
-        tm.init_caches(cfg, tm.RuntimeConfig(), 1, 8, device="cpu")
-
+# ------------------------------------------------------------ training ----
 
 def test_training_is_not_ported():
-    """Training is ported for the attention-only architectures (its values
-    are held against the JAX package in tests/test_torch_train.py): the
-    three entry points run and give finite results. It is not for the
-    MoE / SSM ones, which init_params refuses above."""
+    """Training is ported (the name is kept from when it was not): the
+    three entry points run and give finite results. Its values are held
+    against the JAX package in tests/test_torch_train.py, and for the MoE
+    / SSM architectures in tests/test_torch_ssm_moe.py."""
     _, tc, _, pt, _, trt = _params("phi3-mini-3.8b")
     x = torch.zeros((1, 4, tc.d_model), dtype=torch.bfloat16)
     pos = torch.zeros((1, 4), dtype=torch.int64)
