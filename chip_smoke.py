@@ -174,7 +174,23 @@ Phases (any failure exits non-zero):
      within 3e-2), the peak memory; (9) each examples/torch/*.py in a
      process of its own at small flags (train_evolvegcn --steps 10,
      quickstart, serve_stream --snapshots 8 --streams 2, lm_generate:
-     jamba-v0.1-52b reduced), each exiting 0.
+     jamba-v0.1-52b reduced), each exiting 0; (10) device sharding
+     (sharding_phase): the card count; where the host has two cards,
+     each family's v3 run_batched at B 4 with DeviceSpec(2) bit for bit
+     the unsharded launch, else plan(..., DeviceSpec(2)) refused; a
+     world-1 NCCL group from make_host_mesh(): compressed_all_reduce and
+     bf16_all_reduce of 64 MiB of fp32 bit for bit their local quantise /
+     dequantise and cast (timed beside them), the GPipe pipeline at one
+     stage against reference_stack (<= 1e-5); granite-moe-3b-a800m at
+     full width and depth with moe_impl="ep" on that mesh: at ample
+     capacity (cf_send 1, cf_local E / top_k) no copy dropped, each MoE
+     sublayer teacher-forced on the dense prefill's inputs within 2e-2 of
+     the dense path and the logits' argmax the dense prefill's, the
+     busiest expert's load by layer, the sublayer alone both ways; at the
+     default cf 1.25 / 1.25 prefill ms (median of 3), peak memory over the
+     weights and dropped copies by layer beside the dense path's; a
+     checkpoint restored onto the mesh with its logical axes bit for bit,
+     and the tokens under the mesh.
   5. the device's busy share of one run at baseline, v2 and v3, resident
      and paged (kernel time over wall time, torch.profiler), with the CTAs
      a v3 launch of each stateful family uses.
@@ -271,6 +287,7 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.device_mesh import init_device_mesh
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -300,8 +317,14 @@ from repro_torch.models import (RuntimeConfig, decode_step,  # noqa: E402
                                 init_caches, init_params, loss_fn,
                                 prefill_step)
 from repro_torch.models import lm  # noqa: E402
+from repro_torch.distributed import compression  # noqa: E402
+from repro_torch.distributed.api import Axes, sharding_ctx  # noqa: E402
+from repro_torch.distributed.pipeline import (pipeline,  # noqa: E402
+                                              reference_stack)
+from repro_torch.launch.mesh import DeviceSpec, make_host_mesh  # noqa: E402
 from repro_torch.nn import attention as attention_mod  # noqa: E402
 from repro_torch.nn import mamba2 as mamba2_mod  # noqa: E402
+from repro_torch.nn import moe as moe_mod  # noqa: E402
 from repro_torch.nn.layers import embed_lookup, rms_norm  # noqa: E402
 from repro_torch.optim import (AdamWConfig, global_norm,  # noqa: E402
                                init_opt_state, tree_leaves)
@@ -470,6 +493,19 @@ TOL_TRAINER = 1e-5
 # a prefill of LM_BATCH x LM_SEQ tokens and generate as the LM phase's
 SSM_MOE_ARCHS = ("mamba2-2.7b", "granite-moe-3b-a800m")
 SSM_MOE_RT = RuntimeConfig(param_dtype="bf16", moe_impl="dense")
+# the sharding phase: a sharded DGNN launch's batch and shards (where the
+# host has the cards), the world-1 collectives' tensor (64 MiB of fp32),
+# the one-stage pipeline (micro-batches, rows, width; <= TOL_PIPE), and
+# granite-moe-3b-a800m with moe_impl="ep" on the host mesh: each MoE
+# sublayer teacher-forced at ample capacity within TOL_EP (the bound of
+# tests/test_multidevice.py) of the dense path, then at the default
+# capacity factors beside the dense path
+SHARD_B, SHARD_N = 4, 2
+COLLECTIVE_NUMEL = 16 * 2 ** 20
+PIPE_MICRO, PIPE_ROWS, PIPE_D = 4, 64, 256
+TOL_PIPE = 1e-5
+EP_ARCH = "granite-moe-3b-a800m"
+TOL_EP = 2e-2
 # every example of the port, a process of its own, at small flags
 EXAMPLES = {
     "train_evolvegcn": ["--steps", "10"],
@@ -4645,6 +4681,275 @@ def ssm_mixer_gate(params, cfg, prompt):
     return worst
 
 
+@contextlib.contextmanager
+def recording_moe(stats: dict, inputs=None):
+    """``moe_mod.moe_block`` (as models/lm.py calls it) with ``stats``
+    collecting each call's dropped copies, and each call's input appended
+    to ``inputs`` when given."""
+    inner = moe_mod.moe_block
+
+    def wrapped(p, cfg, x, **kw):
+        if inputs is not None:
+            inputs.append((p, x))
+        return inner(p, cfg, x, stats=stats, **kw)
+
+    moe_mod.moe_block = wrapped
+    try:
+        yield
+    finally:
+        moe_mod.moe_block = inner
+
+
+def sharded_dgnn_check(params, streams, n_global, card) -> None:
+    """The sharded DGNN launch: with SHARD_N cards, each family's v3
+    run_batched over the first SHARD_B windows with DeviceSpec(SHARD_N)
+    bit for bit the unsharded one; with fewer, the plan refused."""
+    n = torch.cuda.device_count()
+    log(f"sharding: torch.cuda.device_count() = {n} on {card}")
+    if n < SHARD_N:
+        log(f"sharding: the sharded DGNN launch (DeviceSpec({SHARD_N})) "
+            f"needs {SHARD_N} cards; this host has {n}, so plan() must "
+            "refuse it")
+        msg = expect_raises(lambda: api.plan(
+            GCRN_M2, level="v3", batch=SHARD_B,
+            device=DeviceSpec(n_devices=SHARD_N)), ValueError,
+            f"this host has {n}")
+        log(f"sharding: plan refused: {msg}")
+        return
+    for cfg in CONFIGS:
+        path_stream, path_np = streams[cfg.name]
+        wins = windows_for(cfg, "v3")[:SHARD_B]
+        runs = []
+        for spec in (DeviceSpec(n_devices=SHARD_N), DeviceSpec()):
+            sess = api.BoosterSession(
+                cfg, api.plan(cfg, level="v3", batch=SHARD_B, device=spec),
+                n_global=n_global, params=params[cfg.name], device="cuda")
+            with deterministic():
+                runs.append(sess.run_batched([window(path_np, a, b)
+                                              for a, b in wins]))
+        same = bitwise(runs[0], runs[1])
+        log(f"sharding: {cfg.name} v3 run_batched B={SHARD_B} over "
+            f"{SHARD_N} cards bit for bit the unsharded launch: {same}")
+        check(same, f"{cfg.name} sharded launch bit for bit")
+
+
+def world1_collectives(card) -> None:
+    """compressed_all_reduce / bf16_all_reduce on the world-1 NCCL group
+    against their local quantise / dequantise and cast; the pipeline at
+    one stage against reference_stack."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    x = torch.randn(COLLECTIVE_NUMEL, generator=gen, device="cuda")
+    y, r = compression.compressed_all_reduce(x, torch.zeros_like(x))
+    q, scale, err = compression._quant(x)
+    want = compression._dequant(q, scale, x.shape)
+    same_c = torch.equal(y, want) and torch.equal(r, err)
+    b = compression.bf16_all_reduce(x)
+    same_b = torch.equal(b, x.to(torch.bfloat16).float())
+    res = torch.zeros_like(x)
+    ms_c = cuda_ms(lambda: compression.compressed_all_reduce(x, res), 5)
+    ms_q = cuda_ms(lambda: compression._dequant(*compression._quant(x)[:2],
+                                                x.shape), 5)
+    ms_b = cuda_ms(lambda: compression.bf16_all_reduce(x), 5)
+    log(f"sharding: world-1 {torch.distributed.get_backend()} group, "
+        f"{x.numel() * 4 / 2 ** 20:.0f} MiB fp32: compressed_all_reduce "
+        f"bit for bit its local quantise / dequantise {same_c} ({ms_c:.3f} "
+        f"ms against {ms_q:.3f} local), bf16_all_reduce bit for bit the "
+        f"cast {same_b} ({ms_b:.3f} ms); on {card}")
+    check(same_c and same_b, "world-1 collectives equal their local "
+          "versions")
+    stage = init_device_mesh("cuda", (1,), mesh_dim_names=("stage",))
+    sp = {"w": torch.randn((1, PIPE_D, PIPE_D), generator=gen,
+                           device="cuda") / PIPE_D ** 0.5,
+          "b": torch.randn((1, PIPE_D), generator=gen, device="cuda") * 0.1}
+    xs = torch.randn((PIPE_MICRO, PIPE_ROWS, PIPE_D), generator=gen,
+                     device="cuda")
+    block = lambda p, v: torch.tanh(v @ p["w"] + p["b"])
+    got = pipeline(block, stage, 1, PIPE_MICRO)(sp, xs)
+    err = max_err(got, reference_stack(block, sp, xs))
+    log(f"sharding: pipeline, 1 stage x {PIPE_MICRO} micro-batches of "
+        f"({PIPE_ROWS}, {PIPE_D}), against reference_stack: {err:.3e} "
+        f"(tol {TOL_PIPE})")
+    check(np.isfinite(err) and err <= TOL_PIPE, "pipeline at one stage")
+
+
+def ep_prefill(params, cfg, rt, tokens, stats=None):
+    """Prefill ms (median of 3 after a warm call) and peak bytes over the
+    allocation before it, and the last logits."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ms = []
+    for i in range(4):
+        st = {} if stats is not None and i == 0 else None
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        if st is not None:
+            with recording_moe(st):
+                logits = prefill_step(params, cfg, rt, {"tokens": tokens})
+            stats.update(st)
+        else:
+            logits = prefill_step(params, cfg, rt, {"tokens": tokens})
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t1) * 1e3)
+    return (float(np.median(ms[1:])), ms,
+            torch.cuda.max_memory_allocated() - base, logits)
+
+
+def ep_moe_path(mesh, card) -> None:
+    """granite-moe-3b-a800m at full width and depth (bf16 weights from the
+    seed) with moe_impl="ep" on the host mesh: at ample capacity (no copy
+    can be dropped) each MoE sublayer, teacher-forced on the dense
+    prefill's own inputs, within TOL_EP of the dense path and the logits'
+    argmax equal to the dense prefill's; then at the default capacity
+    factors prefill ms, peak memory and dropped copies a layer beside the
+    dense path's figures; no kernel launched."""
+    cfg = ARCHS[EP_ARCH]
+    t0 = time.time()
+    torch.cuda.empty_cache()
+    dense_rt = RuntimeConfig(param_dtype="bf16", moe_impl="dense")
+    ep_rt = dataclasses.replace(dense_rt, moe_impl="ep")
+    e_pad = cfg.padded_experts(1)
+    ample = dataclasses.replace(ep_rt, moe_cf_send=1.0,
+                                moe_cf_local=e_pad / cfg.top_k)
+    params = init_params(cfg, dense_rt, torch.Generator(
+        device="cuda").manual_seed(SEED), device="cuda")
+    tokens = lm_tokens(LM_BATCH, LM_SEQ, SEED + 1, cfg.vocab_size)
+    engine.reset_launches()
+    with sharding_ctx(mesh):
+        # the dense prefill's MoE inputs, then each sublayer both ways
+        inputs = []
+        with torch.no_grad(), recording_moe({}, inputs):
+            dense_logits = prefill_step(params, cfg, dense_rt,
+                                        {"tokens": tokens})
+        errs, drops, loads = [], [], []
+        with torch.no_grad():
+            for p, h in inputs:
+                st = {}
+                ep = moe_mod.moe_block(p, cfg, h, impl="ep",
+                                       cf_send=ample.moe_cf_send,
+                                       cf_local=ample.moe_cf_local, stats=st)
+                errs.append(rel_err(ep, moe_mod.moe_block(p, cfg, h,
+                                                          impl="dense")))
+                drops.append(int(sum(st["dropped"])))
+                # the routing's skew: the busiest expert's token copies
+                _, eidx = moe_mod._route(p["router"],
+                                         h.reshape(-1, cfg.d_model), cfg)
+                loads.append(int(torch.bincount(eidx.reshape(-1)).max()))
+            # the MoE sublayer alone on the first and the last layer's
+            # input, each way, at the default capacity factors
+            alone = {}
+            for i in (0, len(inputs) - 1):
+                p, h = inputs[i]
+                alone[i] = [cuda_ms(lambda impl=impl: moe_mod.moe_block(
+                    p, cfg, h, impl=impl, cf_send=ep_rt.moe_cf_send,
+                    cf_local=ep_rt.moe_cf_local), 5)
+                    for impl in ("ep", "dense")]
+        log(f"sharding: {EP_ARCH} routing, the busiest expert's copies by "
+            f"layer {loads} (of {LM_BATCH * LM_SEQ} tokens; the default "
+            f"cap_local keeps 1.25 x the mean); the MoE sublayer alone, "
+            f"ep / dense ms (CUDA events, mean of 5): "
+            + ", ".join(f"layer {i} {a:.3f} / {b:.3f}"
+                        for i, (a, b) in alone.items()))
+        del inputs
+        with torch.no_grad():
+            ample_logits = prefill_step(params, cfg, ample,
+                                        {"tokens": tokens})
+        same_argmax = torch.equal(
+            ample_logits[:, -1, :cfg.vocab_size].argmax(-1),
+            dense_logits[:, -1, :cfg.vocab_size].argmax(-1))
+        ample_err = logits_err(ample_logits, dense_logits, cfg.vocab_size)
+        log(f"sharding: {EP_ARCH} ep at ample capacity (cf_send "
+            f"{ample.moe_cf_send}, cf_local {ample.moe_cf_local}): dropped "
+            f"copies {sum(drops)}; MoE sublayers teacher-forced vs dense, "
+            f"max {max(errs):.3e} of max |dense| (tol {TOL_EP}; by layer "
+            f"{', '.join(f'{e:.2e}' for e in errs)}); logits vs the dense "
+            f"prefill {ample_err:.3e}, "
+            f"argmax equal {same_argmax}")
+        check(sum(drops) == 0 and np.isfinite(max(errs))
+              and max(errs) <= TOL_EP and same_argmax,
+              f"{EP_ARCH} ep at ample capacity")
+        del ample_logits, dense_logits
+        torch.cuda.empty_cache()
+        with torch.no_grad():
+            stats = {}
+            ep_ms, ep_all, ep_peak, ep_logits = ep_prefill(
+                params, cfg, ep_rt, tokens, stats)
+            d_ms, d_all, d_peak, d_logits = ep_prefill(params, cfg,
+                                                       dense_rt, tokens)
+    counts = launched(f"{EP_ARCH} ep and dense prefills")
+    check(not counts, f"{EP_ARCH} ep launched no kernel: {counts}")
+    dropped = [int(d) for d in stats["dropped"]]
+    check(len(dropped) == cfg.n_layers and bool(
+        torch.isfinite(ep_logits).all()), f"{EP_ARCH} ep prefill")
+    t = LM_BATCH * LM_SEQ
+    cap_send = max(8, int(np.ceil(t * cfg.top_k * ep_rt.moe_cf_send)))
+    cap_local = max(8, int(np.ceil(cap_send * ep_rt.moe_cf_local / e_pad)))
+    log(f"sharding: {EP_ARCH} (bf16, {cfg.n_layers} layers, {cfg.n_experts} "
+        f"experts top-{cfg.top_k}) prefill B={LM_BATCH} S={LM_SEQ} on the "
+        f"1x1 mesh: ep (cf {ep_rt.moe_cf_send} / {ep_rt.moe_cf_local}: "
+        f"cap_send {cap_send}, cap_local {cap_local}) {ep_ms:.2f} ms median "
+        f"of 3 (all {', '.join(f'{m:.2f}' for m in ep_all)}), peak "
+        f"{ep_peak / 1e9:.2f} GB, dropped copies by layer {dropped} (of "
+        f"{t * cfg.top_k} a layer); dense {d_ms:.2f} ms (all "
+        f"{', '.join(f'{m:.2f}' for m in d_all)}), peak {d_peak / 1e9:.2f} "
+        f"GB; logits ep vs dense "
+        f"{logits_err(ep_logits, d_logits, cfg.vocab_size):.3e}; on {card}; "
+        f"{time.time() - t0:.1f} s")
+    del params, ep_logits, d_logits
+    torch.cuda.empty_cache()
+
+
+def restore_on_mesh(mesh) -> None:
+    """A checkpoint saved, then restored onto the host mesh with its
+    logical axes: DTensors whose local shards are the saved tensors bit
+    for bit; the synthetic tokens under the mesh the same as without."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    tree = {"w_gate": torch.randn((8, 256, 128), generator=gen,
+                                  device="cuda"),
+            "embed": torch.randn((512, 256), generator=gen,
+                                 device="cuda").to(torch.bfloat16),
+            "steps": [torch.arange(10, device="cuda", dtype=torch.int32)]}
+    axes = {"w_gate": Axes("experts", "embed_fsdp", None),
+            "embed": Axes("vocab", "embed"), "steps": [Axes(None)]}
+    with tempfile.TemporaryDirectory() as tmp:
+        mgr = CheckpointManager(tmp)
+        mgr.save(1, tree, blocking=True)
+        got = mgr.restore(1, tree, axes=axes, mesh=mesh)
+    pairs = [(got["w_gate"], tree["w_gate"]), (got["embed"], tree["embed"]),
+             (got["steps"][0], tree["steps"][0])]
+    same = all(torch.equal(g.to_local(), w) for g, w in pairs)
+    cfg = reduce_for_smoke(ARCHS[EP_ARCH])
+    plain = next(synthetic_lm_batches(cfg, 2, 16, seed=3, device="cuda"))
+    sharded = next(synthetic_lm_batches(cfg, 2, 16, seed=3, device="cuda",
+                                        mesh=mesh))
+    same_tok = all(torch.equal(sharded[k].to_local(), plain[k])
+                   for k in plain)
+    log(f"sharding: elastic restore onto the 1x1 mesh bit for bit {same} "
+        f"(placements {[str(g.placements) for g, _ in pairs]}); tokens "
+        f"under the mesh {same_tok}")
+    check(same and same_tok, "elastic restore / tokens on the mesh")
+
+
+def sharding_phase(params, streams, n_global, card) -> None:
+    """Device sharding: the card count and the sharded DGNN launch; a
+    world-1 NCCL group from make_host_mesh() (its collectives, the
+    pipeline); granite-moe-3b-a800m's expert-parallel prefill on that
+    mesh; elastic restore. The group is torn down at the end."""
+    t0 = time.time()
+    sharded_dgnn_check(params, streams, n_global, card)
+    mesh = make_host_mesh()
+    check(torch.distributed.get_backend() == "nccl"
+          and torch.distributed.get_world_size() == 1,
+          "the host mesh is a world-1 NCCL group")
+    try:
+        world1_collectives(card)
+        ep_moe_path(mesh, card)
+        restore_on_mesh(mesh)
+    finally:
+        torch.distributed.destroy_process_group()
+    log(f"phase 4 (sharding): {time.time() - t0:.1f} s")
+
+
 def examples_phase() -> None:
     """Each examples/torch/*.py in a process of its own at EXAMPLES' flags,
     on the card: each exits 0."""
@@ -4964,6 +5269,7 @@ def main(argv=None) -> int:
     examples_phase()
     log(f"phase 4 (trainer, Mamba2 / MoE, examples): "
         f"{time.time() - t0:.1f} s")
+    sharding_phase(params, streams, n_global, card)
 
     # phase 6: where a live node tile's time goes, run before phase 5: no
     # host-dispatched timing follows a profiler window (a traced process

@@ -15,9 +15,11 @@ fields steer the serve engine and are ignored by ``run`` /
 ``run_batched`` / ``run_arrays``, as in the JAX package; the continuous
 scheduler's (``scheduler="continuous"``, ``state_pool_pages``,
 ``prefill_chunk``) steer ``serve_multi`` and are ignored by the
-single-stream ``serve`` too. What the port cannot execute yet, a sharded
-``DeviceSpec``, raises ``NotImplementedError`` naming its ROADMAP item when
-it is executed.
+single-stream ``serve`` too. A sharded ``DeviceSpec`` (launch/mesh.py)
+splits ``run_batched`` / ``run_arrays``'s batched launch over that many
+cards (CPU slices on the CPU), bit for bit the unsharded launch; ``plan()``
+refuses one wider than the host's cards, and the serve engine refuses to
+serve a sharded plan, as the JAX package's do.
 
 The torch device is an argument of the session (and of ``run_arrays``),
 not a plan field. It defaults to "cuda" and raises when there is no card;
@@ -33,12 +35,12 @@ import numpy as np
 import torch
 
 from repro_torch.configs.dgnn import DGNNConfig
-from repro_torch.core.dataflow import (_check_executable, build_model,
-                                       init_states_batched, run_plan,
-                                       run_plan_batched)
+from repro_torch.core.dataflow import (build_model, init_states_batched,
+                                       run_plan, run_plan_batched)
 from repro_torch.graph.padding import stack_ragged
 from repro_torch.kernels import engine as _engine
 from repro_torch.kernels import ops as _ops
+from repro_torch.launch.mesh import DeviceSpec
 
 # dataflow levels each family supports (the paper's ablation ladder); the
 # JAX package's table, so plans validate identically
@@ -73,15 +75,6 @@ def family_for(cfg: DGNNConfig) -> str:
         return _FAMILY_OF_TYPE[cfg.dgnn_type]
     except KeyError:
         raise ValueError(f"unknown dgnn_type {cfg.dgnn_type!r}") from None
-
-
-@dataclass(frozen=True)
-class DeviceSpec:
-    """Sharding of a batched launch's B axis over ``n_devices`` cards.
-    Only ``n_devices=1`` executes in the port."""
-
-    n_devices: int = 1
-    axis: str = "data"
 
 
 @dataclass(frozen=True)
@@ -335,12 +328,11 @@ def run_arrays(p: StreamPlan, *args, force_ref: bool = False,
     (the argument lists of ``kernels/ops.stream_steps``), whatever the
     plan's level, as in the JAX package. A plan with ``batch > 1`` or
     ragged ``lengths`` takes the batched entry."""
-    _check_executable(p)
     if p.batch > 1 or p.lengths is not None:
         return _ops.stream_steps_batched(
             p.family, *args, tn=p.tn, td=p.td, lengths=p.lengths,
             state_residency=p.state_residency, buffer_depth=p.buffer_depth,
-            force_ref=force_ref, device=device)
+            force_ref=force_ref, device=device, device_spec=p.device)
     return _ops.stream_steps(p.family, *args, tn=p.tn, td=p.td,
                              state_residency=p.state_residency,
                              buffer_depth=p.buffer_depth,

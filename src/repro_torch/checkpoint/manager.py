@@ -14,8 +14,9 @@ so each package restores the other's fp32 trees. numpy has no bfloat16:
 a bf16 tensor is stored as float32 (exact: every bf16 value is a float32)
 and cast back to the template's dtype on restore. ``restore`` loads into a
 template's structure, each tensor on its template leaf's device and in its
-dtype. The JAX package's elastic restore across meshes is sharding and
-waits for ROADMAP queue 1, device sharding.
+dtype; given a tree of logical ``Axes`` and a ``DeviceMesh`` (elastic
+restore, onto any mesh), each leaf comes back a DTensor with the
+placements its axes resolve to (distributed/api.py).
 """
 from __future__ import annotations
 
@@ -29,6 +30,8 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+
+from repro_torch.distributed.api import distribute, named_sharding, tree_map2
 
 
 def _flatten(tree, prefix="") -> dict:
@@ -129,11 +132,20 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, template: Any) -> Any:
+    def restore(self, step: int, template: Any, axes: Any = None,
+                mesh=None) -> Any:
         """Load checkpoint ``step`` into the structure of ``template``: each
         leaf on the template leaf's device, in its dtype, its shape
-        checked."""
+        checked. With ``axes`` (a matching tree of ``Axes`` leaves) and
+        ``mesh``, each leaf comes back a DTensor on ``mesh`` sharded as its
+        axes resolve (elastic restore: every rank reads the file and keeps
+        its own slice)."""
         path = os.path.join(self.dir, f"step_{step:010d}", "arrays.npz")
         with np.load(path) as data:
             flat = {k: data[k] for k in data.files}
-        return _unflatten_into(template, flat)
+        host = _unflatten_into(template, flat)
+        if mesh is None or axes is None:
+            return host
+        return tree_map2(
+            lambda t, ax: distribute(t, named_sharding(t.shape, ax.names,
+                                                       mesh)), host, axes)

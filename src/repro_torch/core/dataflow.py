@@ -58,18 +58,6 @@ def build_model(cfg: DGNNConfig, impl: str = "xla",
     raise ValueError(cfg.dgnn_type)
 
 
-def _check_executable(plan) -> None:
-    """Raise for a plan field the port cannot execute yet: a sharded
-    ``DeviceSpec``. The serve-policy fields (the continuous scheduler's
-    ``scheduler``, ``state_pool_pages`` and ``prefill_chunk`` among them)
-    steer the serve engine (serve/engine.py, serve/scheduler.py); the plan
-    executors ignore them, as the JAX package's do."""
-    if plan.device.n_devices > 1:
-        raise NotImplementedError(
-            "DeviceSpec sharding is not ported yet (ROADMAP.md queue 1, "
-            "device sharding)")
-
-
 def _at(snaps, i: int):
     """Entry ``i`` of the leading axis of every leaf of a padded snapshot
     or event block."""
@@ -128,7 +116,6 @@ def run_plan(model: Model, params, state0, snaps_T, plan, *,
     if plan.lengths is not None:
         raise ValueError("plan carries ragged lengths — a batched-launch "
                          "capability; use run_plan_batched")
-    _check_executable(plan)
     if plan.level == "v3":
         return model.step_stream(params, state0, snaps_T, tn=plan.tn,
                                  td=plan.td,
@@ -166,7 +153,6 @@ def run_plan_batched(model: Model, params, states0, snaps_BT, plan,
     if B != plan.batch:
         raise ValueError(f"plan.batch={plan.batch} but the state batch "
                          f"is {B}")
-    _check_executable(plan)
     lengths = plan.lengths if lengths is None else lengths
     if plan.level == "v3":
         lens = None if lengths is None else [int(t) for t in lengths]
@@ -175,7 +161,8 @@ def run_plan_batched(model: Model, params, states0, snaps_BT, plan,
                                          lengths=lens,
                                          state_residency=plan.state_residency,
                                          buffer_depth=plan.buffer_depth,
-                                         force_ref=force_ref)
+                                         force_ref=force_ref,
+                                         device_spec=plan.device)
     if lengths is not None:
         raise ValueError("ragged lengths need the stream engine "
                          f"(level='v3'); level={plan.level!r}")

@@ -138,7 +138,8 @@ class EvolveGCN:
 
     def _run(self, params: dict, state: dict, snaps: PaddedSnapshot,
              batched: bool, tn=128, td="cfg", lengths=None,
-             state_residency="vmem", buffer_depth=None, force_ref=False):
+             state_residency="vmem", buffer_depth=None, force_ref=False,
+             device_spec=None):
         td = self.cfg.stream_td if td == "cfg" else td
         dev = params["gru"][0]["wx"].device
         args = self.stream_args(params, state, snaps)
@@ -146,7 +147,7 @@ class EvolveGCN:
             outs, wT = kops.stream_steps_batched(
                 self.stream_family, *args, tn=tn, td=td, lengths=lengths,
                 state_residency=state_residency, buffer_depth=buffer_depth,
-                force_ref=force_ref, device=dev)
+                force_ref=force_ref, device=dev, device_spec=device_spec)
         else:
             outs, wT = kops.stream_steps(
                 self.stream_family, *args, tn=tn, td=td,
@@ -166,9 +167,11 @@ class EvolveGCN:
     def step_stream_batched(self, params: dict, state: dict,
                             snaps_BT: PaddedSnapshot, *, tn=128, td="cfg",
                             lengths=None, state_residency="vmem",
-                            buffer_depth=None, force_ref=False):
+                            buffer_depth=None, force_ref=False,
+                            device_spec=None):
         """Batched V3: B independent streams, weight state leaves
         (B, din_l, dout_l), one launch; ``lengths`` runs it ragged."""
         return self._run(params, state, snaps_BT, batched=True, tn=tn, td=td,
                          lengths=lengths, state_residency=state_residency,
-                         buffer_depth=buffer_depth, force_ref=force_ref)
+                         buffer_depth=buffer_depth, force_ref=force_ref,
+                         device_spec=device_spec)

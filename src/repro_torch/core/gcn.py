@@ -182,11 +182,12 @@ class StaticGCN:
                 self._edge_aggs(params, snaps))
 
     def _launch(self, params: dict, slots: PaddedSnapshot, lengths,
-                force_ref: bool):
+                force_ref: bool, device_spec=None):
         dev = params["gcn"][0]["w"].device
         (outs,) = kops.stream_steps_batched(
             self.stream_family, *self.stream_args(params, {}, slots),
-            lengths=lengths, force_ref=force_ref, device=dev)
+            lengths=lengths, force_ref=force_ref, device=dev,
+            device_spec=device_spec)
         return outs
 
     def step_stream(self, params: dict, state: dict, snaps_T: PaddedSnapshot,
@@ -202,15 +203,17 @@ class StaticGCN:
     def step_stream_batched(self, params: dict, state: dict,
                             snaps_BT: PaddedSnapshot, *, tn=128, td="cfg",
                             lengths=None, state_residency="vmem",
-                            buffer_depth=None, force_ref=False):
+                            buffer_depth=None, force_ref=False,
+                            device_spec=None):
         """Batched V3: (B, T) independent snapshots fold onto (B*T, 1);
         ragged ``lengths`` (per-stream T) become per-slot 0/1 liveness, so
-        a dead slot outputs zeros. ``state`` passes through untouched."""
+        a dead slot outputs zeros. ``state`` passes through untouched; a
+        ``device_spec`` splits the B*T slots a stream's T at a time."""
         del tn, td
         self._check_residency(state_residency, buffer_depth)
         B, T = snaps_BT.node_mask.shape[:2]
         outs = self._launch(params, *self.fold_slots(snaps_BT, lengths),
-                            force_ref)
+                            force_ref, device_spec)
         return state, outs.reshape(B, T, *outs.shape[2:])
 
     @staticmethod

@@ -130,7 +130,8 @@ class GCRN:
 
     def _stream(self, params: dict, state: dict, snaps: PaddedSnapshot,
                 batched: bool, tn=128, td="cfg", lengths=None,
-                state_residency="vmem", buffer_depth=None, force_ref=False):
+                state_residency="vmem", buffer_depth=None, force_ref=False,
+                device_spec=None):
         td = self.cfg.stream_td if td == "cfg" else td
         dev = params["lstm"]["wx"].device
         args = self.stream_args(params, state, snaps)
@@ -138,7 +139,7 @@ class GCRN:
             outs_h, h_T, c_T = kops.stream_steps_batched(
                 self.stream_family, *args, tn=tn, td=td, lengths=lengths,
                 state_residency=state_residency, buffer_depth=buffer_depth,
-                force_ref=force_ref, device=dev)
+                force_ref=force_ref, device=dev, device_spec=device_spec)
         else:
             outs_h, h_T, c_T = kops.stream_steps(
                 self.stream_family, *args, tn=tn, td=td,
@@ -165,10 +166,12 @@ class GCRN:
     def step_stream_batched(self, params: dict, state: dict,
                             snaps_BT: PaddedSnapshot, *, tn=128, td="cfg",
                             lengths=None, state_residency="vmem",
-                            buffer_depth=None, force_ref=False):
+                            buffer_depth=None, force_ref=False,
+                            device_spec=None):
         """Batched V3: B independent (B, T, ...) streams, state leaves
         (B, n_global, H), one launch; ``lengths`` runs it ragged over T."""
         return self._stream(params, state, snaps_BT, batched=True, tn=tn,
                             td=td, lengths=lengths,
                             state_residency=state_residency,
-                            buffer_depth=buffer_depth, force_ref=force_ref)
+                            buffer_depth=buffer_depth, force_ref=force_ref,
+                            device_spec=device_spec)

@@ -93,7 +93,8 @@ class TGNModel:
 
     def _stream(self, params: dict, state: dict, blocks: PaddedEventBlock,
                 batched: bool, tn=128, td="cfg", lengths=None,
-                state_residency="vmem", buffer_depth=None, force_ref=False):
+                state_residency="vmem", buffer_depth=None, force_ref=False,
+                device_spec=None):
         td = self.cfg.stream_td if td == "cfg" else td
         dev = params["w_in"].device
         args = self.stream_args(params, state, blocks)
@@ -101,7 +102,7 @@ class TGNModel:
             outs, mem_T = kops.stream_steps_batched(
                 self.stream_family, *args, tn=tn, td=td, lengths=lengths,
                 state_residency=state_residency, buffer_depth=buffer_depth,
-                force_ref=force_ref, device=dev)
+                force_ref=force_ref, device=dev, device_spec=device_spec)
         else:
             outs, mem_T = kops.stream_steps(
                 self.stream_family, *args, tn=tn, td=td,
@@ -121,10 +122,12 @@ class TGNModel:
     def step_stream_batched(self, params: dict, state: dict,
                             blocks_BT: PaddedEventBlock, *, tn=128, td="cfg",
                             lengths=None, state_residency="vmem",
-                            buffer_depth=None, force_ref=False):
+                            buffer_depth=None, force_ref=False,
+                            device_spec=None):
         """Batched V3: B independent event streams, state leaves
         (B, n_global, H), one launch; ``lengths`` counts event batches."""
         return self._stream(params, state, blocks_BT, batched=True, tn=tn,
                             td=td, lengths=lengths,
                             state_residency=state_residency,
-                            buffer_depth=buffer_depth, force_ref=force_ref)
+                            buffer_depth=buffer_depth, force_ref=force_ref,
+                            device_spec=device_spec)

@@ -474,6 +474,72 @@ _STREAM_DISPATCH = {
 }
 
 
+# positions of each family's per-stream arguments (leading B axis): a
+# sharded launch splits them, the rest are shared parameters
+_BATCH_ARGS = {
+    "gcrn": frozenset(range(8)) | {11},
+    "stacked": frozenset(range(7)) | {12},
+    "evolve": frozenset(range(6)) | {10},
+    "tgn": frozenset(range(7)),
+    "static_gcn": frozenset(range(4)) | {6},
+}
+
+
+def _tree_apply(fn, a):
+    """``fn`` on a tensor, on each tensor of a list / tuple; None kept."""
+    if a is None:
+        return None
+    if isinstance(a, (list, tuple)):
+        return type(a)(fn(t) for t in a)
+    return fn(a)
+
+
+def _cat_on(parts: list, device):
+    """The shards' results (tuples of tensors or lists of tensors) joined
+    along B on ``device``."""
+    out = []
+    for got in zip(*parts):
+        if isinstance(got[0], (list, tuple)):
+            out.append(type(got[0])(torch.cat([t.to(device) for t in ts])
+                                    for ts in zip(*got)))
+        else:
+            out.append(torch.cat([t.to(device) for t in got]))
+    return tuple(out)
+
+
+def _shard_batch(family: str, run, args: tuple, spec, device):
+    """A batched launch split over the ``spec`` devices: the per-stream
+    arguments in ``n_devices`` equal slices along B, the shared ones copied
+    once to each device, each slice launched on its own device (streams are
+    independent: no collectives), the outputs joined on ``device``. Covers
+    the kernels and the force-ref path alike."""
+    from repro_torch.launch.mesh import make_stream_mesh
+
+    B = args[0].shape[0]
+    if B % spec.n_devices:
+        raise ValueError(
+            f"stream batch B={B} not divisible by DeviceSpec.n_devices="
+            f"{spec.n_devices}")
+    step = B // spec.n_devices
+    batch_args = _BATCH_ARGS[family]
+    devices = make_stream_mesh(spec, device)
+    # every slice is on its device before any launch: a copy between cards
+    # runs on the source card's stream, so a copy issued after a launch
+    # there would wait for that launch to end
+    slices = [tuple(_tree_apply(lambda t: t[i * step:(i + 1) * step].to(dev),
+                                a) if j in batch_args else to_device(a, dev)
+                    for j, a in enumerate(args))
+              for i, dev in enumerate(devices)]
+    parts = []
+    for dev, sl in zip(devices, slices):
+        if dev.type == "cuda":
+            with torch.cuda.device(dev):
+                parts.append(run(*sl))
+        else:
+            parts.append(run(*sl))
+    return _cat_on(parts, device)
+
+
 def _apply_lengths(family: str, args: tuple, lengths) -> tuple:
     """Turn the T tail of each stream in a (B, T, ...) batch into no-op
     snapshots: steps t >= lengths[b] get coef 0 / mask 0 / renumber -1
@@ -511,7 +577,8 @@ def pack(family: str, *args, lengths=None, residency: str = "vmem") -> tuple:
 
 
 def _stream_dispatch(family: str, batched: bool, args, kwargs, *, tn, td,
-                     force_ref, device, residency, depth, lengths=None):
+                     force_ref, device, residency, depth, lengths=None,
+                     spec=None):
     if family not in _TEMPORAL:
         raise KeyError(f"unknown stream-engine family {family!r}; "
                        f"registered: {stream_families()}")
@@ -548,14 +615,23 @@ def _stream_dispatch(family: str, batched: bool, args, kwargs, *, tn, td,
     oracles, launch = _STREAM_DISPATCH[family][:2]
     if batched and lengths is not None:
         args = _apply_lengths(family, args, lengths)
+    sharded = batched and spec is not None and spec.n_devices > 1
+    if sharded and kwargs:
+        raise ValueError("keyword stream args are unsupported under "
+                         "DeviceSpec sharding; pass them positionally")
     if _FAULT_HOOK is not None:
         _FAULT_HOOK(family=family, batched=batched, force_ref=force_ref)
     if force_ref:
         # the one force-ref gate: no kernel wrapper is reachable from here
-        return oracles[1 if batched else 0](*args, **kwargs)
-    if ring is not None:
-        kwargs["ring"] = ring
-    return launch(batched, *args, **kwargs)
+        oracle = oracles[1 if batched else 0]
+        run = lambda *a: oracle(*a, **kwargs)
+    else:
+        if ring is not None:
+            kwargs["ring"] = ring
+        run = lambda *a: launch(batched, *a, **kwargs)
+    if sharded:
+        return _shard_batch(family, run, args, spec, dev)
+    return run(*args)
 
 
 def stream_steps(family: str, *args, tn: int = 128, td=None,
@@ -590,12 +666,16 @@ def stream_steps(family: str, *args, tn: int = 128, td=None,
 def stream_steps_batched(family: str, *args, tn: int = 128, td=None,
                          lengths=None, state_residency: str = "vmem",
                          buffer_depth=None, force_ref: bool = False,
-                         device="cuda", **kwargs):
+                         device="cuda", device_spec=None, **kwargs):
     """B independent streams in one launch: the ``stream_steps`` argument
     lists with a leading (B, ...) axis on stream arrays and per-stream
     state. ``lengths`` ((B,) ints) runs the launch ragged over T: stream
-    b's steps past ``lengths[b]`` are no-ops."""
+    b's steps past ``lengths[b]`` are no-ops. ``device_spec``
+    (launch/mesh.DeviceSpec) splits the B axis over ``n_devices`` cards
+    (CPU slices where ``device`` is the CPU), one launch each; streams are
+    independent, so the sharded launch is bit-identical to the unsharded
+    one, and the outputs come back on ``device``."""
     return _stream_dispatch(family, True, args, kwargs, tn=tn, td=td,
                             force_ref=force_ref, device=device,
                             residency=state_residency, depth=buffer_depth,
-                            lengths=lengths)
+                            lengths=lengths, spec=device_spec)

@@ -9,7 +9,7 @@ structurally (``params.lm_params_from_jax``). The JAX package's scanned and
 unrolled forward paths are one Python loop over the layers here. A
 layer's mixer is GQA attention (``nn/attention.py``) or the Mamba2 mixer
 (``nn/mamba2.py``); its MLP SwiGLU (``nn/mlp.py``), the MoE MLP
-(``nn/moe.py``, the dense path) or none. Decode caches mirror the blocks:
+(``nn/moe.py``: dense, or expert-parallel under a mesh) or none. Decode caches mirror the blocks:
 a KV cache with a host-side "len" for attention layers, {"conv", "ssm"}
 for Mamba2 layers (an SSM-only model has no "len": its decode position
 is 0, as in the JAX package, and its mixer reads none).
@@ -18,8 +18,10 @@ Training (``loss_fn``): ``backbone(train=True)`` recomputes each layer in
 the backward when ``rt.remat`` (``torch.utils.checkpoint``, the JAX
 package's ``jax.checkpoint``: only the layer boundaries are kept), and
 ``chunked_ce_loss`` recomputes each ``rt.loss_chunk`` chunk's logits, so
-(B, S, V) never exists. Not ported yet: sharding, and with it the
-expert-parallel MoE (ROADMAP.md queue 1, device sharding).
+(B, S, V) never exists. Under ``distributed.sharding_ctx(mesh)`` a
+``moe_impl="ep"`` (or ``"auto"`` over a model axis wider than 1) MoE layer
+exchanges its tokens over the mesh's 'model' group; the other layers run
+replicated on every rank (their per-layer shardings are not ported yet).
 """
 from __future__ import annotations
 
@@ -243,7 +245,9 @@ def layer_apply(pl: dict, cfg: ModelConfig, rt: RuntimeConfig, mlp: str,
         if mlp == "dense":
             y2 = MLP.mlp_block(pl["mlp"], h2, act=_dense_act(cfg))
         else:
-            y2 = MOE.moe_block(pl["moe"], cfg, h2, impl=rt.moe_impl)
+            y2 = MOE.moe_block(pl["moe"], cfg, h2, impl=rt.moe_impl,
+                               fsdp=rt.fsdp, cf_send=rt.moe_cf_send,
+                               cf_local=rt.moe_cf_local)
         x = x + y2
     return x, new_cache
 

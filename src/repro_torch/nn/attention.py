@@ -11,8 +11,8 @@ Paths:
   decode    one-token query against a cache laid out (B, Skv, Hkv, hd).
 
 The JAX package's ``shard`` annotations and its ``shard_map`` around the
-flash kernel have nothing to do on one card and are dropped (sharding is
-ROADMAP queue 1, device sharding). A decode cache's ``len`` is a host-side
+flash kernel are not ported yet (the LM under a mesh: ROADMAP queue 1);
+attention runs replicated on every rank. A decode cache's ``len`` is a host-side
 int32 tensor: the position is read every step to place the new key and to
 refuse a write past the end, without a device sync.
 """

@@ -1,8 +1,8 @@
 """Common NN layers: norms, RoPE, embeddings, init helpers.
 
 The counterpart of ``repro.nn.layers``. Init functions return plain
-tensors (the JAX package's logical-axis trees are for sharding, which the
-port does not do on one card), on the card unless the caller passes
+tensors (the JAX package's logical-axis trees, which shard the LM over a
+mesh, come with the LM's shardings: ROADMAP queue 1), on the card unless the caller passes
 ``device="cpu"`` (or ``"meta"`` for the layout alone). Compute follows
 the bf16-activations / fp32-norms-and-softmax convention, with the JAX
 package's two switches: ``set_lowmem_norm`` (off by default; on, norms

@@ -1,12 +1,28 @@
 """Mixture-of-Experts MLP (the counterpart of ``repro.nn.moe``).
 
-softmax -> top-k -> renormalized combine, on the JAX package's ``dense``
-path: every expert is computed on every token and the top-k gates pick
-their outputs, exact and O(E) in work. The JAX package's ``ep`` path (a
-``shard_map`` that buckets token copies by expert shard and exchanges them
-with ``all_to_all``) needs a device mesh, which the port does not build
-yet: ``impl="ep"`` raises ``NotImplementedError`` (ROADMAP.md queue 1,
-device sharding), and ``"auto"`` is the dense path.
+Two execution paths, same math (softmax -> top-k -> renormalized combine):
+
+dense    every expert computed on every token, combined with the top-k
+         gates: exact, O(E) work.
+
+ep       expert parallelism over the current mesh's 'model' axis
+         (``distributed.sharding_ctx``; the JAX package's ``shard_map``),
+         run by every rank on its block of the tokens:
+           1. route tokens locally (router weights replicated),
+           2. bucket token copies by destination model-shard (stable sort
+              + within-bucket position, capacity-dropped, GShard-style),
+           3. ``all_to_all`` over the 'model' group to the expert owners,
+           4. re-bucket by local expert and run the SwiGLU as one batched
+              product over experts,
+           5. ``all_to_all`` back, gate, and scatter-add (``index_add_``)
+              into the tokens.
+         With ``fsdp`` the expert weights' embed dim is sharded over
+         'data' and all-gathered in bf16 before use (explicit ZeRO-3).
+
+Capacity factors make every buffer static-shape; a dropped token copy
+loses its expert's contribution. ``"auto"`` takes ``ep`` only over a
+model axis wider than 1, as the JAX package does; ``"ep"`` without a mesh
+raises :class:`MeshRequiredError`.
 
 Parameters keep the JAX layout, padded experts included
 (``cfg.padded_experts(tp)``): the router masks the padding with -1e9
@@ -15,17 +31,25 @@ before the softmax, so a padded expert is never picked.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
+
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.api import (current_mesh, local_block,
+                                         mesh_axis_sizes, placements)
 from repro_torch.nn import layers as L
 from repro_torch.nn.layers import ACT_DTYPE, normal_init, silu
 from repro_torch.nn.mlp import init_mlp, mlp_block
 
-#: the ROADMAP item that ports the expert-parallel path, by its title
-EP_ITEM = "ROADMAP.md queue 1, device sharding"
+
+
+class MeshRequiredError(RuntimeError):
+    """The expert-parallel path was asked for with no current mesh."""
 
 
 def init_moe(generator, cfg: ModelConfig, tp: int, *, device="cuda",
@@ -82,20 +106,184 @@ def _moe_dense(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return out.to(x.dtype).reshape(b, s, d)
 
 
-def moe_block(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
-              impl: str = "auto") -> torch.Tensor:
-    """MoE sublayer (no norm / residual). x: (B, S, D).
+# ------------------------------------------------------------------- ep ----
 
-    ``"auto"`` is the dense path: the JAX package takes its expert-parallel
-    one only over a mesh's model axis wider than 1, and the port has no
-    mesh. Its ``fsdp``, ``cf_send`` and ``cf_local`` steer that path alone."""
+
+def _bucket_by(dest: torch.Tensor, n_buckets: int, capacity: int):
+    """Sort ids by bucket; return (order, slot, valid) where slot is the
+    flat position dest * capacity + within-bucket position, or the trash
+    slot n_buckets * capacity where the copy is dropped."""
+    order = torch.argsort(dest, stable=True)
+    d_sorted = dest[order]
+    first = torch.searchsorted(
+        d_sorted, torch.arange(n_buckets, device=dest.device), side="left")
+    pos = torch.arange(dest.shape[0], device=dest.device) - first[d_sorted]
+    valid = pos < capacity
+    slot = torch.where(valid, d_sorted * capacity + pos,
+                       n_buckets * capacity)
+    return order, slot, valid
+
+
+def _all_gather_dim(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The group's blocks of ``t`` concatenated along ``dim`` (tiled)."""
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t, group=group)
+    return torch.cat(parts, dim=dim)
+
+
+def _all_to_all(t: torch.Tensor, group) -> torch.Tensor:
+    """Equal chunks of ``t``'s leading axis to each rank of ``group``, the
+    received chunks in rank order (the JAX ``all_to_all`` over axis 0)."""
+    out = torch.empty_like(t)
+    dist.all_to_all_single(out, t.contiguous(), group=group)
+    return out
+
+
+def _ep_body(x, router_w, w_gate, w_up, w_down, *, cfg: ModelConfig,
+             tp: int, e_pad: int, cap_send: int, cap_local: int, fsdp: bool,
+             mesh, stats):
+    """One rank's part. x: (b_l, s_l, d), this rank's block of tokens;
+    the weights this rank's experts (and, with ``fsdp``, its embed slice)."""
+    if fsdp:
+        # explicit ZeRO-3: gather the FSDP-sharded dim (D of gate / up at
+        # axis 1, of down at axis 2) over 'data', in bf16
+        data = mesh.get_group("data")
+        w_gate = _all_gather_dim(w_gate.to(ACT_DTYPE), 1, data)
+        w_up = _all_gather_dim(w_up.to(ACT_DTYPE), 1, data)
+        w_down = _all_gather_dim(w_down.to(ACT_DTYPE), 2, data)
+    else:
+        w_gate = w_gate.to(ACT_DTYPE)
+        w_up = w_up.to(ACT_DTYPE)
+        w_down = w_down.to(ACT_DTYPE)
+    model = mesh.get_group("model")
+    dev = x.device
+    e_loc = e_pad // tp
+    b_l, s_l, d = x.shape
+    t = b_l * s_l
+    x2 = x.reshape(t, d)
+    gates, eidx = _route(router_w, x2, cfg)            # (t, k)
+    k = cfg.top_k
+    tok = torch.arange(t, device=dev).repeat_interleave(k)     # (t * k,)
+    e_flat = eidx.reshape(-1)
+    dest = e_flat // e_loc
+    order, slot, valid = _bucket_by(dest, tp, cap_send)
+    # send buffers (+1 trash row, dropped before the exchange)
+    send_x = torch.zeros((tp * cap_send + 1, d), dtype=ACT_DTYPE, device=dev)
+    send_e = torch.zeros((tp * cap_send + 1,), dtype=torch.int32, device=dev)
+    send_x[slot] = x2[tok[order]].to(ACT_DTYPE)
+    send_e[slot] = (e_flat[order] % e_loc).to(torch.int32)
+    t2 = tp * cap_send
+    rx = _all_to_all(send_x[:t2], model)
+    re = _all_to_all(send_e[:t2], model).long()
+    # local re-bucket by expert -> one batched product over experts
+    order2, slot2, valid2 = _bucket_by(re, e_loc, cap_local)
+    bx = torch.zeros((e_loc * cap_local + 1, d), dtype=ACT_DTYPE, device=dev)
+    bx[slot2] = rx[order2]
+    bx = bx[:e_loc * cap_local].reshape(e_loc, cap_local, d)
+    g = torch.einsum("ecd,edf->ecf", bx, w_gate)
+    u = torch.einsum("ecd,edf->ecf", bx, w_up)
+    y = torch.einsum("ecf,efd->ecd", silu(g) * u, w_down)
+    # un-bucket locally: y back to the received slots
+    y2 = torch.zeros((t2, d), dtype=ACT_DTYPE, device=dev)
+    y2[order2] = torch.where(
+        valid2[:, None],
+        y.reshape(-1, d)[torch.clamp(slot2, max=e_loc * cap_local - 1)],
+        torch.zeros((), dtype=ACT_DTYPE, device=dev))
+    back = _all_to_all(y2, model)
+    # gate + scatter-add into the t local tokens
+    acc_dt = ACT_DTYPE if L.LOWMEM_NORM else torch.float32
+    contrib = torch.where(valid[:, None], back[torch.clamp(slot, max=t2 - 1)],
+                          torch.zeros((), dtype=ACT_DTYPE, device=dev))
+    g_sorted = gates.reshape(-1)[order]
+    out = torch.zeros((t, d), dtype=acc_dt, device=dev)
+    out.index_add_(0, tok[order],
+                   contrib.to(acc_dt) * g_sorted[:, None].to(acc_dt))
+    if stats is not None:
+        stats.setdefault("dropped", []).append(
+            _dropped(dest, valid, order2, valid2, tp, cap_send, model))
+    return out.to(x.dtype).reshape(b_l, s_l, d)
+
+
+def _dropped(dest, valid, order2, valid2, tp: int, cap_send: int,
+             model) -> torch.Tensor:
+    """This rank's token copies dropped by capacity: at its send buckets,
+    and among the real copies it received at its expert buckets (a
+    received bucket's empty slots are expert 0's zero rows, and a drop of
+    one of those loses nothing)."""
+    sent = torch.bincount(dest, minlength=tp).clamp(max=cap_send)
+    got = _all_to_all(sent, model)
+    rows = torch.arange(tp * cap_send, device=dest.device)
+    real = rows % cap_send < got[rows // cap_send]
+    kept = torch.zeros_like(real)
+    kept[order2] = valid2
+    return (~valid).sum() + (real & ~kept).sum()
+
+
+def _moe_ep(p: dict, cfg: ModelConfig, x: torch.Tensor, mesh, *,
+            fsdp: bool, cf_send: float, cf_local: float, stats):
+    """The ep path over ``mesh``: this rank's token block and weight blocks
+    (the JAX shard_map's in_specs), ``_ep_body``, and the output as the
+    tokens came: a DTensor with the tokens' spec, or a plain tensor every
+    rank holds whole."""
+    sizes = mesh_axis_sizes(mesh)
+    if "model" not in sizes:
+        raise ValueError(f"the expert-parallel MoE exchanges tokens over a "
+                         f"'model' mesh axis; this mesh has "
+                         f"{tuple(sizes)}")
+    tp = sizes["model"]
+    e_pad = p["w_gate"].shape[0]
+    b, s, d = x.shape
+    dp = sizes.get("data", 1) * sizes.get("pod", 1)
+    dp_eff = dp if b % dp == 0 else 1        # b=1 decode: replicate batch
+    sp = tp if s % tp == 0 else 1
+    t_local = (b // dp_eff) * (s // sp)
+    cap_send = max(8, int(math.ceil(t_local * cfg.top_k * cf_send / tp)))
+    cap_local = max(8, int(math.ceil(cap_send * tp * cf_local
+                                     / (e_pad // tp))))
+    batch_axes = tuple(a for a in ("pod", "data") if a in sizes)
+    x_spec = (batch_axes if dp_eff > 1 else None,
+              "model" if sp > 1 else None, None)
+    fs = "data" if fsdp else None
+    w_spec = ("model", fs, None)
+    y = _ep_body(local_block(x, x_spec, mesh), local_block(p["router"],
+                                                           (None, None), mesh),
+                 local_block(p["w_gate"], w_spec, mesh),
+                 local_block(p["w_up"], w_spec, mesh),
+                 local_block(p["w_down"], ("model", None, fs), mesh),
+                 cfg=cfg, tp=tp, e_pad=e_pad, cap_send=cap_send,
+                 cap_local=cap_local, fsdp=fsdp, mesh=mesh, stats=stats)
+    y = DTensor.from_local(y, mesh, placements(x_spec, mesh),
+                           run_check=False)
+    return y if isinstance(x, DTensor) else y.full_tensor()
+
+
+def moe_block(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
+              impl: str = "auto", fsdp: bool = False,
+              cf_send: float = 1.25, cf_local: float = 1.25,
+              stats: Optional[dict] = None) -> torch.Tensor:
+    """MoE sublayer (no norm / residual). x: (B, S, D), the same on every
+    rank of the current mesh (or a DTensor on it).
+
+    ``impl``: "dense", "ep" (needs a mesh with a 'model' axis) or "auto"
+    (ep over a model axis wider than 1, else dense). ``fsdp``, ``cf_send``
+    and ``cf_local`` steer the ep path. ``stats``, a dict, receives under
+    "dropped" one count a call (a 0-dim tensor, not synced) of this rank's
+    token copies dropped by the ep path's capacities."""
     if impl not in ("auto", "dense", "ep"):
         raise ValueError(f"moe impl {impl!r}: one of 'auto', 'dense', 'ep'")
-    if impl == "ep":
-        raise NotImplementedError(
-            f"the expert-parallel MoE (impl='ep') is not ported yet "
-            f"({EP_ITEM})")
-    y = _moe_dense(p, cfg, x)
+    mesh = current_mesh()
+    tp = 1 if mesh is None else mesh_axis_sizes(mesh).get("model", 1)
+    if impl == "ep" or (impl == "auto" and tp > 1):
+        if mesh is None:
+            raise MeshRequiredError(
+                "the expert-parallel MoE (impl='ep') needs a mesh: run it "
+                "under distributed.sharding_ctx(mesh), e.g. "
+                "launch.mesh.make_host_mesh() on one card")
+        y = _moe_ep(p, cfg, x, mesh, fsdp=fsdp, cf_send=cf_send,
+                    cf_local=cf_local, stats=stats)
+    else:
+        y = _moe_dense(p, cfg, x)
     if cfg.n_shared_experts:
         y = y + mlp_block(p["shared"], x, act=silu)
     return y

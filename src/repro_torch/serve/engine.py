@@ -90,7 +90,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.dgnn import DGNNConfig
-from repro_torch.core.dataflow import _check_executable, _stack_states, stack_time
+from repro_torch.core.dataflow import _stack_states, stack_time
 from repro_torch.graph.coo import COOSnapshot
 from repro_torch.graph.csr import max_in_degree, renumber_and_normalize
 from repro_torch.graph.padding import (
@@ -735,7 +735,6 @@ class SnapshotServer:
         returns the partial outputs with the error recorded in
         ``stats.tenants["stream"]``.
         """
-        _check_executable(self.plan)
         # the v3 device loop consumes ``stream_chunk`` snapshots a launch:
         # size the queue for a full chunk ahead so the producer keeps the
         # host/device overlap; per-snapshot levels keep queue_depth
@@ -1123,7 +1122,6 @@ class SnapshotServer:
         dict, in stream order.
         """
         x_sids = self._check_express_args(streams, express_streams)
-        _check_executable(self.plan)
         if self.plan.scheduler == "continuous":
             from repro_torch.serve.scheduler import ContinuousScheduler
 

@@ -463,8 +463,9 @@ def test_continuous_scheduler_raises_when_served(uci, monkeypatch):
     two knobs serves. ``serve`` ignores the fields, as the JAX package's
     does, and equals the round plan's serve bit for bit; ``serve_multi``
     runs ticks, equal to the round scheduler's serve_multi bit for bit and
-    within 3e-4 of the JAX continuous server. A sharded DeviceSpec still
-    raises when served."""
+    within 3e-4 of the JAX continuous server. A sharded DeviceSpec runs
+    through the session, bit for bit the unsharded plan, and still raises
+    when served."""
     tg, ft, snaps = uci
     streams = {"a": snaps[:5], "b": snaps[3:7]}
     rounds = Pair(GCRN_M2, tg.n_global_nodes, ft, level="v3",
@@ -505,18 +506,32 @@ def test_continuous_scheduler_raises_when_served(uci, monkeypatch):
             params=pair.tparams, device="cpu")
         _, outs, stats = sess.serve_multi({"a": _port_snaps(snaps[:2])})
         assert len(outs["a"]) == 2 and stats.ticks > 0
-    # plan() refuses a DeviceSpec wider than the host's cards
+    # a sharded plan (plan() refuses a DeviceSpec wider than the host's
+    # cards, stubbed to 2): run and run_batched execute it, bit for bit the
+    # unsharded plan's; serving it still raises
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    sess = tapi.BoosterSession(
-        rounds.pcfg, tapi.plan(rounds.pcfg, level="v3", batch=2,
-                               device=tapi.DeviceSpec(n_devices=2)),
-        n_global=tg.n_global_nodes, feat_table=ft, params=rounds.tparams,
-        device="cpu")
-    padded = stack_time([tpad.pad_snapshot(renumber_and_normalize(s), ft,
-                                           640, 4096, 64)
-                         for s in _port_snaps(snaps[:2])])
-    with pytest.raises(NotImplementedError, match="device sharding"):
-        sess.run(padded)
+    sharded = tapi.plan(rounds.pcfg, level="v3", batch=2,
+                        device=tapi.DeviceSpec(n_devices=2))
+    sess, plain = (tapi.BoosterSession(
+        rounds.pcfg, p, n_global=tg.n_global_nodes, feat_table=ft,
+        params=rounds.tparams, device="cpu")
+        for p in (sharded, dataclasses.replace(sharded,
+                                               device=tapi.DeviceSpec())))
+    padded = [stack_time([tpad.pad_snapshot(renumber_and_normalize(s), ft,
+                                            640, 4096, 64)
+                          for s in _port_snaps(part)])
+              for part in (snaps[:2], snaps[2:5])]
+    assert torch.equal(sess.run(padded[0]), plain.run(padded[0]))
+    # each slice is its own launch: at serve width (640 x 128) the CPU
+    # plain path's last bits follow the launch's batch (torch's kernels;
+    # test_torch_scheduler.py, test_plain_step_bits_on_the_cpu), so the
+    # batched runs agree within 1e-6 here; at the harness widths bit for
+    # bit (test_torch_sharding.py)
+    (st_s, outs_s), (st_p, outs_p) = (x.run_batched(padded)
+                                      for x in (sess, plain))
+    for a, b in zip(outs_s + [st_s[k] for k in st_p],
+                    outs_p + [st_p[k] for k in st_p]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-6, rtol=0)
     with pytest.raises(ValueError, match="does not shard its launches"):
         sess.serve_multi({"a": _port_snaps(snaps[:2])})
     _no_serve_threads()

@@ -9,7 +9,8 @@ across by ``params.lm_params_from_jax`` and the same numpy inputs:
   on the ``meta`` device), fp32 and bf16, and the decode caches' layout;
 * ``nn/moe.py``: ``_route`` (gates within 1e-6, the same experts),
   ``_moe_dense`` and ``moe_block`` (with llama4's shared expert), also
-  under ``set_lowmem_norm``; the expert-parallel path refused;
+  under ``set_lowmem_norm``; the expert-parallel path's typed refusal
+  without a mesh, and its run under the port's host mesh;
 * ``nn/mamba2.py``: ``ssd_chunked`` in fp32 (within 1e-5 of max |y|; S a
   multiple of the chunk or not), also under ``set_ssd_bf16``;
   ``mamba_block``'s prefill, its handoff state, and decode steps from it;
@@ -66,8 +67,6 @@ ARCHS = ["mamba2-2.7b", "jamba-v0.1-52b", "granite-moe-3b-a800m",
 MOE_ARCHS = ["jamba-v0.1-52b", "granite-moe-3b-a800m",
              "llama4-maverick-400b-a17b"]
 SSM_ARCHS = ["mamba2-2.7b", "jamba-v0.1-52b"]
-#: the ROADMAP item the expert-parallel refusal names, by its title
-SHARDING_ITEM = "ROADMAP.md queue 1, device sharding"
 
 
 def _smoke(name):
@@ -221,17 +220,56 @@ def test_moe_dense_and_block_match_jax(name, lowmem):
     assert torch.equal(tmoe.moe_block(pt, tc, xt), got)
 
 
-def test_expert_parallel_moe_is_refused():
+@pytest.fixture
+def host_mesh():
+    """The port's 1x1 mesh on a world-1 ``gloo`` group of this process,
+    torn down after the test."""
+    from repro_torch.launch.mesh import make_host_mesh
+
+    mesh = make_host_mesh(device="cpu")
+    yield mesh
+    torch.distributed.destroy_process_group()
+
+
+def test_expert_parallel_moe_is_refused(host_mesh):
+    """The expert-parallel path (the name is the one this case had while
+    it was refused outright): without a mesh ``impl="ep"`` raises the typed
+    error, under the host mesh it runs (the block equal to the dense path
+    at ample capacity, prefill within TOL of the JAX package's ep prefill
+    under its host mesh); an unknown impl still raises."""
+    from jax.sharding import Mesh
+
+    from repro.distributed.api import sharding_ctx as jctx
+    from repro.launch.mesh import make_host_mesh as jhost
+    from repro_torch.distributed.api import sharding_ctx
+
     _, tc, _, pt, _, xt = _moe_case("granite-moe-3b-a800m")
-    with pytest.raises(NotImplementedError, match=SHARDING_ITEM):
+    with pytest.raises(tmoe.MeshRequiredError, match="needs a mesh"):
         tmoe.moe_block(pt, tc, xt, impl="ep")
     with pytest.raises(ValueError, match="moe impl"):
         tmoe.moe_block(pt, tc, xt, impl="sparse")
+    stats = {}
+    with sharding_ctx(host_mesh):
+        ep = tmoe.moe_block(pt, tc, xt, impl="ep", cf_send=4.0,
+                            cf_local=4.0, stats=stats)
+        with pytest.raises(ValueError, match="moe impl"):
+            tmoe.moe_block(pt, tc, xt, impl="sparse")
+    assert [int(d) for d in stats["dropped"]] == [0]
+    _within_ulp(ep, tmoe.moe_block(pt, tc, xt, impl="dense").float())
     # and through the model's runtime config
-    _, tc, _, pt, _, trt = _params("granite-moe-3b-a800m", moe_impl="ep")
-    _, bt = _tokens(tc, 2, 8)
-    with pytest.raises(NotImplementedError, match=SHARDING_ITEM):
+    jc, tc, pj, pt, jrt, trt = _params("granite-moe-3b-a800m",
+                                       moe_impl="ep")
+    bj, bt = _tokens(tc, 2, 8)
+    with pytest.raises(tmoe.MeshRequiredError, match="needs a mesh"):
         tm.prefill_step(pt, tc, trt, bt, device="cpu")
+    with sharding_ctx(host_mesh):
+        got = tm.prefill_step(pt, tc, trt, bt, device="cpu")
+    jmesh = jhost()
+    assert isinstance(jmesh, Mesh)
+    with jctx(jmesh):
+        # jitted: eagerly, each layer's shard_map compiles on its own
+        want = jax.jit(lambda p, b: jm.prefill_step(p, jc, jrt, b))(pj, bj)
+    _close(got.float().numpy(), want, tc.vocab_size)
 
 
 # -------------------------------------------------------------- Mamba2 ----
