@@ -261,6 +261,17 @@ Then, with the serving weights freed, the LM training path:
      blow-up only); (e) the reduced phi3 trains 4 steps with a checkpoint every 2 into a
      temporary directory, the restored tensors equal the trained ones,
      and a second run resumes from step 4 to 6.
+  - The LM under the world-1 NCCL 1x1 mesh (the TP phase): Qwen2.5-14B's
+    prefill and a decode step with the parameters (and caches)
+    distributed by their Axes trees, bit for bit the unsharded calls,
+    flash_fwd once a layer, ms both ways (after (a)-(b)); phi3's train
+    step through ``launch.steps.make_train_step_fn``, the moments by
+    ``opt_state_axes``, loss and parameters bit for bit (after (d));
+    then the port's dry runs (CPU processes on a fake process group) of
+    those two workloads at one chip, their roofline at the H100's peaks
+    beside the measured ms, and of qwen3-32b decode_32k and gcrn-m2 at
+    4096 streams on a fake 16 x 16 mesh (records under
+    results/dryrun_torch/chip_smoke/).
 Prints ms/snapshot per path, an {"analysis": {...}} line (sweep points,
 findings, log rows; with --parent, the turns), a {"kernels": [...]} line
 with all eighteen kernels and, last, the device line.
@@ -318,7 +329,10 @@ from repro_torch.models import (RuntimeConfig, decode_step,  # noqa: E402
                                 prefill_step)
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.distributed import compression  # noqa: E402
-from repro_torch.distributed.api import Axes, sharding_ctx  # noqa: E402
+from repro_torch.distributed.api import (Axes, distribute,  # noqa: E402
+                                         sharding_ctx, tree_map2,
+                                         tree_shardings)
+from repro_torch.launch.steps import make_train_step_fn  # noqa: E402
 from repro_torch.distributed.pipeline import (pipeline,  # noqa: E402
                                               reference_stack)
 from repro_torch.launch.mesh import DeviceSpec, make_host_mesh  # noqa: E402
@@ -327,7 +341,7 @@ from repro_torch.nn import mamba2 as mamba2_mod  # noqa: E402
 from repro_torch.nn import moe as moe_mod  # noqa: E402
 from repro_torch.nn.layers import embed_lookup, rms_norm  # noqa: E402
 from repro_torch.optim import (AdamWConfig, global_norm,  # noqa: E402
-                               init_opt_state, tree_leaves)
+                               init_opt_state, opt_state_axes, tree_leaves)
 from repro_torch.serve import (FaultPlan, FaultSpec, InjectedFault,  # noqa: E402
                                SnapshotServer, generate)
 from repro_torch.serve.state_pool import HBM_PAGE_FACTOR  # noqa: E402
@@ -4950,6 +4964,207 @@ def sharding_phase(params, streams, n_global, card) -> None:
     log(f"phase 4 (sharding): {time.time() - t0:.1f} s")
 
 
+# --------------------------------------------- tensor parallelism (TP) ----
+
+#: the dry runs of the roofline phase: (label, arguments of the module)
+TP_DRYRUNS = (
+    ("qwen2.5-14b prefill, 1 chip", ["repro_torch.launch.dryrun", "--arch",
+     "qwen2.5-14b", "--shape", "prefill_32k", "--mesh", "1x1", "--batch",
+     str(LM_BATCH), "--seq", str(LM_SEQ), "--overrides",
+     json.dumps({"rt": {"attn_impl": "flash", "param_dtype": "bf16"}})]),
+    ("phi3-mini-3.8b train step, 1 chip", ["repro_torch.launch.dryrun",
+     "--arch", "phi3-mini-3.8b", "--shape", "train_4k", "--mesh", "1x1",
+     "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--overrides",
+     json.dumps({"rt": {"attn_impl": "flash"}})]),
+    ("qwen3-32b decode_32k, 16x16", ["repro_torch.launch.dryrun", "--arch",
+     "qwen3-32b", "--shape", "decode_32k"]),
+    ("gcrn-m2 4096 streams, 16x16", ["repro_torch.launch.dgnn_dryrun",
+     "--model", "gcrn-m2", "--streams", "4096"]),
+)
+
+
+def tp_place(tree, axes, mesh):
+    """A tree distributed over ``mesh`` by its Axes tree."""
+    return tree_map2(distribute, tree, tree_shardings(tree, axes, mesh))
+
+
+def host_ms(fn, reps: int = 3):
+    """(median ms, all ms, the last result) of ``reps`` calls, host clock
+    to a sync."""
+    ms, out = [], None
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ms)), ms, out
+
+
+def tp_serving_path(cfg, params, tokens, card) -> tuple:
+    """Qwen2.5-14B's prefill (flash) and one decode step with the
+    parameters (and the caches) distributed by their Axes trees over the
+    world-1 NCCL host mesh, under sharding_ctx: the logits bit for bit
+    the unsharded calls', flash_fwd launched once a layer, ms both ways
+    (median of 3). Returns (the flash launches, the unsharded prefill's
+    ms)."""
+    rt = dataclasses.replace(LM_RT, attn_impl="flash")
+    batch = {"tokens": tokens}
+    want = prefill_step(params, cfg, rt, batch)
+    plain_ms, plain_all, _ = host_ms(lambda: prefill_step(params, cfg, rt,
+                                                          batch))
+    tok = lm_tokens(LM_BATCH, 1, SEED + 5, cfg.vocab_size)
+    caches = init_caches(cfg, LM_RT, LM_BATCH, LM_SKV)
+    dec_want = decode_step(params, cfg, LM_RT, tok, caches)[0]
+    dplain_ms, dplain_all, _ = host_ms(lambda: decode_step(
+        params, cfg, LM_RT, tok, caches))
+    mesh = make_host_mesh()
+    try:
+        with sharding_ctx(mesh):
+            dp = tp_place(params, lm.param_axes(cfg, rt), mesh)
+            engine.reset_launches()
+            got = prefill_step(dp, cfg, rt, batch)
+            torch.cuda.synchronize()
+            counts = launched(f"{cfg.name} prefill flash under the 1x1 mesh")
+            check(counts == {"flash_fwd": cfg.n_layers},
+                  f"the prefill under the mesh launched flash_fwd once a "
+                  f"layer: {counts}")
+            same = torch.equal(got.full_tensor(), want)
+            engine.reset_launches()
+            ms, all_ms, _ = host_ms(lambda: prefill_step(dp, cfg, rt, batch))
+            timed = launched(f"{cfg.name} prefill under the mesh, 3 timed")
+            check(timed == {"flash_fwd": 3 * cfg.n_layers},
+                  f"timed prefills under the mesh: {timed}")
+            dcaches = tp_place(caches, lm.cache_axes(cfg, LM_RT), mesh)
+            dgot = decode_step(dp, cfg, LM_RT, tok, dcaches)[0]
+            dsame = torch.equal(dgot.full_tensor(), dec_want)
+            dms, dall, _ = host_ms(lambda: decode_step(dp, cfg, LM_RT, tok,
+                                                       dcaches))
+    finally:
+        torch.distributed.destroy_process_group()
+    log(f"tp: {cfg.name} prefill B={LM_BATCH} S={LM_SEQ} flash, params "
+        f"distributed by param_axes over the world-1 NCCL 1x1 mesh: logits "
+        f"bit for bit the unsharded prefill's {same}; flash_fwd launches "
+        f"{counts['flash_fwd']}; {ms:.2f} ms median of 3 (all "
+        f"{', '.join(f'{m:.2f}' for m in all_ms)}) against {plain_ms:.2f} "
+        f"unsharded ({', '.join(f'{m:.2f}' for m in plain_all)}): DTensor's "
+        f"host dispatch {ms - plain_ms:.2f} ms; on {card}")
+    log(f"tp: {cfg.name} decode step B={LM_BATCH} (cache {LM_SKV}, caches "
+        f"distributed by cache_axes): logits bit for bit {dsame}; {dms:.2f} "
+        f"ms median of 3 (all {', '.join(f'{m:.2f}' for m in dall)}) "
+        f"against {dplain_ms:.2f} unsharded "
+        f"({', '.join(f'{m:.2f}' for m in dplain_all)})")
+    check(same and dsame, "prefill and decode under the 1x1 mesh bit for "
+          "bit the unsharded calls")
+    total = {k: counts.get(k, 0) + timed.get(k, 0) for k in counts}
+    return total, plain_ms
+
+
+def _timed_step(step, params, opt, batch):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, opt, loss = step(params, opt, batch)
+    torch.cuda.synchronize()
+    return params, opt, loss, (time.perf_counter() - t0) * 1e3
+
+
+def tp_train_path(cfg, params, card) -> tuple:
+    """phi3-mini-3.8b (fp32) trained through make_train_step_fn one step
+    unsharded and one under the world-1 NCCL 1x1 mesh (parameters by
+    param_axes, the moments by opt_state_axes) from the same parameters
+    and a fresh state: the loss and every updated parameter bit for bit;
+    then a second step each way, timed. Returns (the flash launches of
+    the compared step under the mesh, the unsharded step's ms)."""
+    batch = next(synthetic_lm_batches(cfg, TRAIN_BATCH, TRAIN_SEQ,
+                                      seed=SEED + 9, device="cuda"))
+    step = make_train_step_fn(cfg, TRAIN_RT, TRAIN_OPT, device="cuda")
+    leaves = tree_leaves(params)
+    start = [t.detach().cpu() for t in leaves]
+    params, opt, loss_a, _ = _timed_step(step, params,
+                                         init_opt_state(params, TRAIN_OPT),
+                                         batch)
+    after = [t.detach().cpu() for t in tree_leaves(params)]
+    params, opt, _, plain_ms = _timed_step(step, params, opt, batch)
+    del opt
+    with torch.no_grad():
+        for t, h in zip(tree_leaves(params), start):
+            t.copy_(h)
+    del start
+    axes = lm.param_axes(cfg, TRAIN_RT)
+    mesh = make_host_mesh()
+    try:
+        with sharding_ctx(mesh):
+            dp = tp_place(params, axes, mesh)
+            fresh = init_opt_state(params, TRAIN_OPT)
+            oaxes = opt_state_axes(axes, TRAIN_OPT)
+            dopt = {"m": tp_place(fresh["m"], oaxes["m"], mesh),
+                    "v": tp_place(fresh["v"], oaxes["v"], mesh),
+                    "step": fresh["step"]}  # the host scalar stays local
+            del fresh
+            engine.reset_launches()
+            dp, dopt, loss_b, _ = _timed_step(step, dp, dopt, batch)
+            counts = launched(f"{cfg.name} train step under the 1x1 mesh")
+            same_loss = torch.equal(loss_b.full_tensor().cpu(), loss_a.cpu())
+            same = all(torch.equal(t.full_tensor(), h.cuda()) for t, h in
+                       zip(tree_leaves(dp), after))
+            dp, dopt, _, ms = _timed_step(step, dp, dopt, batch)
+    finally:
+        torch.distributed.destroy_process_group()
+    want = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_dkv": cfg.n_layers,
+            "flash_bwd_dq": cfg.n_layers}
+    log(f"tp: {cfg.name} train step B={TRAIN_BATCH} S={TRAIN_SEQ} (fp32, "
+        f"flash, remat) through make_train_step_fn under the 1x1 mesh: loss "
+        f"{float(loss_a):.6f}, bit for bit the unsharded step's "
+        f"{same_loss}; every updated parameter bit for bit {same}; launches "
+        f"{counts}; the second step {ms:.1f} ms against {plain_ms:.1f} "
+        f"unsharded; on {card}")
+    check(same_loss and same, "the train step under the 1x1 mesh bit for "
+          "bit the unsharded step")
+    check(counts == want, f"the train step under the mesh launched {want}")
+    return counts, plain_ms
+
+
+def tp_dryruns(measured: dict, card) -> None:
+    """The dry runs of TP_DRYRUNS, each a process of its own on the CPU (a
+    fake process group; no card): the roofline of the two measured
+    workloads beside their ms, and the production cells' records."""
+    out = ROOT / "results" / "dryrun_torch" / "chip_smoke"
+    out.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    procs = []
+    for i, (label, args) in enumerate(TP_DRYRUNS):
+        path = out / f"dryrun_{i}.json"
+        procs.append((label, path, time.time(), subprocess.Popen(
+            [sys.executable, "-m", *args, "--out", str(path)], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    for label, path, t0, proc in procs:
+        text, _ = proc.communicate(timeout=600)
+        wall = time.time() - t0
+        check(proc.returncode == 0, f"dry run {label} exited "
+              f"{proc.returncode}: {text[-2000:]}")
+        rec = json.loads(path.read_text())
+        rl = rec["roofline"]
+        t_bound = max(rl["t_compute"], rl["t_memory"], rl["t_collective"])
+        line = (f"dryrun {label}: {wall:.1f} s wall; per device flops "
+                f"{rl['flops']:.4e}, bytes {rl['bytes_hbm']:.4e}, "
+                f"collective bytes {rl['bytes_coll']:.4e} "
+                f"{rec['collectives']['bytes_by_op']}; t_compute "
+                f"{rl['t_compute'] * 1e3:.3f} ms, t_memory "
+                f"{rl['t_memory'] * 1e3:.3f} ms, t_collective "
+                f"{rl['t_collective'] * 1e3:.3f} ms, t_bound "
+                f"{t_bound * 1e3:.3f} ms ({rl['bottleneck']}); memory "
+                f"{rec['memory']}")
+        if label in measured:
+            ms = measured[label]
+            line += (f"; measured {ms:.2f} ms on {card}: measured / bound "
+                     f"{ms / (t_bound * 1e3):.2f}")
+        if "corrections" in rec:
+            line += f"; corrections added {rec['corrections']['added']}"
+        log(line)
+        check(rl["flops"] > 0 and t_bound > 0, f"dry run {label} roofline")
+
+
 def examples_phase() -> None:
     """Each examples/torch/*.py in a process of its own at EXAMPLES' flags,
     on the card: each exits 0."""
@@ -5350,6 +5565,14 @@ def main(argv=None) -> int:
     log(f"busy {cfg_lm.name} decode step B={LM_BATCH}: {wall:.2f} ms wall "
         f"under the profiler, {device:.2f} ms of kernels, busy share "
         f"{share}")
+    # the LM under the 1x1 mesh: the same prefill and a decode step with
+    # DTensor parameters, bit for bit the unsharded calls
+    t0 = time.time()
+    tp_counts, tp_prefill_ms = tp_serving_path(cfg_lm, lm_params, tokens,
+                                               card)
+    for name, v in tp_counts.items():
+        launches[name] += v
+    log(f"phase 4 (TP serving): {time.time() - t0:.1f} s")
     # the serving weights (29.5 GB) and the training state (~61 GB) do not
     # fit together
     del lm_params, caches, tokens, tok
@@ -5376,10 +5599,22 @@ def main(argv=None) -> int:
         f"{wall:.2f} ms wall under the profiler, {device:.2f} ms of "
         f"kernels, busy share {share}")
     train_gate(cfg_tr, tr_params)
+    t1 = time.time()
+    tp_counts, tp_step_ms = tp_train_path(cfg_tr, tr_params, card)
+    for name, v in tp_counts.items():
+        launches[name] += v
+    log(f"phase 4 (TP training step): {time.time() - t1:.1f} s")
     del tr_params
     torch.cuda.empty_cache()
     train_loop_path()
     log(f"phase 4 (LM training): {time.time() - t0:.1f} s")
+
+    # the roofline against the card: the port's dry runs of the two
+    # measured workloads at one chip, and two production cells
+    t0 = time.time()
+    tp_dryruns({TP_DRYRUNS[0][0]: tp_prefill_ms,
+                TP_DRYRUNS[1][0]: tp_step_ms}, card)
+    log(f"phase 4 (dry runs): {time.time() - t0:.1f} s")
 
     for rec in records:
         rec["launches"] = launches[rec["name"]]

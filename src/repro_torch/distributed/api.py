@@ -7,8 +7,12 @@ tensor dim: None, a mesh axis name or a tuple of them), degrading a dim to
 replication where it does not divide the mapped mesh axes and dropping
 mesh axes the mesh lacks. ``placements`` turns such a spec into DTensor
 placements, one a mesh dim; ``shard(x, *names)`` redistributes a DTensor
-to them (a plain tensor is this rank's copy of a replicated value), and
-never changes values.
+to them (a plain tensor, this rank's copy of a replicated value, stays
+as it is), and never changes values. ``replicated(x, like)`` lifts a
+tensor the model builds itself (positions, masks, the vocab mask) onto
+the mesh of the DTensor it meets, so plain tensors and DTensors never
+meet in one op; beside a plain tensor it returns ``x``, and nothing on
+the unsharded path becomes a DTensor.
 
 Where the JAX package has a ``NamedSharding``, the port has
 :class:`NamedSharding` (the mesh, the spec and its placements); trees are
@@ -169,16 +173,59 @@ def distribute(x: torch.Tensor, sharding: NamedSharding) -> DTensor:
 
 
 def shard(x, *names: Logical):
-    """``x`` with the sharding the rules give its logical axes; with no
-    current mesh, ``x`` itself. A DTensor is redistributed; a plain tensor
-    is this rank's copy of a replicated value and comes back a DTensor."""
+    """``x`` with the sharding the rules give its logical axes: a DTensor
+    is redistributed over the current mesh; with no current mesh, or for a
+    plain tensor (this rank's whole copy of a replicated value: a model
+    whose parameters are plain runs replicated under a mesh, as before
+    its parameters are distributed), ``x`` itself."""
     mesh = _CTX.mesh
-    if mesh is None:
+    if mesh is None or not isinstance(x, DTensor):
         return x
-    sh = named_sharding(x.shape, names, mesh)
-    if isinstance(x, DTensor):
-        return x.redistribute(mesh, sh.placements)
-    return distribute(x, sh)
+    return x.redistribute(mesh, named_sharding(x.shape, names,
+                                               mesh).placements)
+
+
+def replicated(x, like):
+    """``x``, a tensor the model built itself, beside the tensor ``like``
+    it meets: where ``like`` is a DTensor, ``x`` as a DTensor replicated
+    over ``like``'s mesh (this rank's copy of the value, nothing sent);
+    else ``x`` itself. Keyed to the operand, not to the current mesh: a
+    rank's local work under a mesh (``local_map``, the expert-parallel
+    body) stays plain, and so does a recompute on autograd's thread."""
+    if isinstance(x, DTensor) or not isinstance(like, DTensor):
+        return x
+    mesh = like.device_mesh
+    return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def in_current_ctx(fn):
+    """``fn`` bound to the current mesh and rules: a checkpointed layer's
+    recompute runs on autograd's thread (the card's), where the
+    thread-local context is empty, and must shard as its forward did."""
+    mesh, rules = _CTX.mesh, _CTX.rules
+    if mesh is None:
+        return fn
+
+    def bound(*args, **kwargs):
+        with sharding_ctx(mesh, rules):
+            return fn(*args, **kwargs)
+    return bound
+
+
+def gather_fsdp(w, *names: Logical):
+    """A weight as its product takes it: with its FSDP dim
+    ("embed_fsdp") gathered over 'data' (ZeRO-3, in the weight's dtype:
+    cast first) and its other dims as ``names`` say. Without a mesh, or
+    where "embed_fsdp" maps to nothing, no data moves. Each product
+    gathers its weight so, rather than leave DTensor to pick between
+    gathering the weight and gathering the batch."""
+    return shard(w, *(None if n == "embed_fsdp" else n for n in names))
+
+
+def local_tensor(x):
+    """The tensor this rank holds: a DTensor's local shard, or ``x``."""
+    return x.to_local() if isinstance(x, DTensor) else x
 
 
 def named_sharding(shape: Sequence[int], names: Sequence[Logical],

@@ -340,6 +340,30 @@ def flash_mha(q, k, v, causal: bool = True, bq: int = 512, bk: int = 512,
     return _FlashMHA.apply(q, k, v, causal, bq, bk, group)
 
 
+class _FlashShapes(torch.autograd.Function):
+    """``flash_mha``'s shapes without its work: o and the gradients are
+    uninitialised tensors of the right shapes."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.kv_shape = k.shape
+        return q.new_empty(q.shape)
+
+    @staticmethod
+    def backward(ctx, do):
+        return (do.new_empty(do.shape), do.new_empty(ctx.kv_shape),
+                do.new_empty(ctx.kv_shape))
+
+
+def flash_mha_shapes(q, k, v, causal: bool = True, bq: int = 512,
+                     bk: int = 512, group: int = 1):
+    """A shape-only stand-in of ``flash_mha`` for tracing (the dry run
+    costs the kernel by ``flops_bytes``): it checks the shapes as the
+    kernel does and computes nothing."""
+    _validate("flash_mha", q, k, v, bq, bk, group)
+    return _FlashShapes.apply(q, k, v)
+
+
 def flops_bytes(b: int, hq: int, hkv: int, s: int, d: int, *,
                 causal: bool = True, bq: int = 512, bk: int = 512) -> dict:
     """Work and traffic of the TPU kernel's tiling (a copy of the JAX

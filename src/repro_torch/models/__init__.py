@@ -1,15 +1,18 @@
 from repro_torch.models.lm import (
     RuntimeConfig,
     backbone,
+    cache_axes,
     chunked_ce_loss,
     decode_step,
     init_caches,
     init_params,
     loss_fn,
+    param_axes,
     prefill_step,
 )
 
 __all__ = [
-    "RuntimeConfig", "backbone", "chunked_ce_loss", "decode_step",
-    "init_caches", "init_params", "loss_fn", "prefill_step",
+    "RuntimeConfig", "backbone", "cache_axes", "chunked_ce_loss",
+    "decode_step", "init_caches", "init_params", "loss_fn", "param_axes",
+    "prefill_step",
 ]

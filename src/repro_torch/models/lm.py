@@ -18,10 +18,20 @@ Training (``loss_fn``): ``backbone(train=True)`` recomputes each layer in
 the backward when ``rt.remat`` (``torch.utils.checkpoint``, the JAX
 package's ``jax.checkpoint``: only the layer boundaries are kept), and
 ``chunked_ce_loss`` recomputes each ``rt.loss_chunk`` chunk's logits, so
-(B, S, V) never exists. Under ``distributed.sharding_ctx(mesh)`` a
-``moe_impl="ep"`` (or ``"auto"`` over a model axis wider than 1) MoE layer
-exchanges its tokens over the mesh's 'model' group; the other layers run
-replicated on every rank (their per-layer shardings are not ported yet).
+(B, S, V) never exists.
+
+Under a mesh (``distributed.sharding_ctx(mesh)``, with the parameters
+distributed by ``param_axes`` and ``distributed.tree_shardings``) the
+model runs on DTensors with the JAX package's ``shard`` calls: the
+residual stream on ("batch", "seq_sp", None) (sequence-parallel over
+'model'), attention and the MLP tensor-parallel over 'model', the logits
+on "vocab"; tokens, positions and the masks the model builds join the
+mesh through ``distributed.shard`` / ``replicated``. A ``moe_impl="ep"``
+(or ``"auto"`` over a model axis wider than 1) MoE layer exchanges its
+tokens over the mesh's 'model' group. ``prefill_step`` and
+``decode_step`` run under ``torch.inference_mode`` without a mesh and
+under ``torch.no_grad`` with one (DTensor views need version counters).
+Without a mesh nothing becomes a DTensor and no value changes.
 """
 from __future__ import annotations
 
@@ -30,9 +40,13 @@ from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.api import (Axes, current_mesh, gather_fsdp,
+                                         in_current_ctx, local_tensor,
+                                         replicated, shard)
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.nn import attention as ATT
 from repro_torch.nn import mamba2 as SSM
@@ -42,10 +56,13 @@ from repro_torch.nn.layers import (
     ACT_DTYPE,
     bf16_cotangent,
     embed_lookup,
+    embedding_axes,
     init_embedding,
     init_lm_head,
     init_rms_norm,
+    lm_head_axes,
     rms_norm,
+    rms_norm_axes,
     silu,
     vocab_mask,
 )
@@ -153,6 +170,35 @@ def init_params(cfg: ModelConfig, rt: RuntimeConfig, generator=None,
     return params
 
 
+def _layer_axes(cfg: ModelConfig, mixer: str, mlp: str) -> dict:
+    ax = {"norm1": rms_norm_axes()}
+    if mixer == "attn":
+        ax["attn"] = ATT.attention_axes(cfg)
+    else:
+        ax["ssm"] = SSM.mamba_axes()
+    if mlp != "none":
+        ax["norm2"] = rms_norm_axes()
+        ax["mlp" if mlp == "dense" else "moe"] = (
+            MLP.mlp_axes() if mlp == "dense" else MOE.moe_axes(cfg))
+    return ax
+
+
+def param_axes(cfg: ModelConfig, rt: RuntimeConfig) -> dict:
+    """The logical-axis tree of ``init_params``'s parameters (the JAX
+    package's ``init_params(...)[1]``): ``Axes`` leaves, the stacked
+    "layers" axis first on every block leaf. Allocates nothing."""
+    kinds = cfg.layer_kinds()
+    axes: dict[str, Any] = {"embed": embedding_axes()}
+    if not cfg.tie_embeddings:
+        axes["head"] = lm_head_axes()
+    axes["final_norm"] = Axes(None)
+    axes["blocks"] = [
+        _tree_map(lambda a: Axes("layers", *a.names),
+                  _layer_axes(cfg, *kinds[pos]))
+        for pos in range(cfg.scan_period())]
+    return axes
+
+
 def _tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
@@ -214,11 +260,18 @@ def attention_sublayer(pl: dict, cfg: ModelConfig, rt: RuntimeConfig,
                        x: torch.Tensor, positions,
                        cache: Optional[dict] = None):
     """A layer's pre-norm attention: (its update to x, the new cache)."""
-    h = rms_norm(x, pl["norm1"], cfg.norm_eps)
+    h = _gather_seq(rms_norm(x, pl["norm1"], cfg.norm_eps))
     return ATT.attention_block(
         pl["attn"], cfg, h, positions, attn_chunk=rt.attn_chunk, cache=cache,
         long_ctx=rt.long_ctx, attn_impl=rt.attn_impl, flash_bq=rt.flash_bq,
         flash_bk=rt.flash_bk)
+
+
+def _gather_seq(h):
+    """The sequence-parallel residual's all-gather before a sublayer's
+    column-parallel projections, made once (each projection would gather
+    its own copy; XLA shares one). Without a mesh, ``h``."""
+    return shard(h, "batch", None, None)
 
 
 def _dense_act(cfg: ModelConfig):
@@ -240,15 +293,18 @@ def layer_apply(pl: dict, cfg: ModelConfig, rt: RuntimeConfig, mlp: str,
         h = rms_norm(x, pl["norm1"], cfg.norm_eps)
         y, new_cache = SSM.mamba_block(pl["ssm"], cfg, h, state=cache)
     x = x + y
+    x = shard(x, "batch", "seq_sp", None)
     if mlp != "none":
         h2 = rms_norm(x, pl["norm2"], cfg.norm_eps)
         if mlp == "dense":
+            h2 = _gather_seq(h2)
             y2 = MLP.mlp_block(pl["mlp"], h2, act=_dense_act(cfg))
         else:
             y2 = MOE.moe_block(pl["moe"], cfg, h2, impl=rt.moe_impl,
                                fsdp=rt.fsdp, cf_send=rt.moe_cf_send,
                                cf_local=rt.moe_cf_local)
         x = x + y2
+        x = shard(x, "batch", "seq_sp", None)
     return x, new_cache
 
 
@@ -259,12 +315,13 @@ def backbone(params: dict, cfg: ModelConfig, rt: RuntimeConfig,
     ``train`` with ``rt.remat``: each layer is recomputed in the backward,
     so only the layer boundaries are kept."""
     period = cfg.scan_period()
-    x = x.to(ACT_DTYPE)
+    x = shard(x.to(ACT_DTYPE), "batch", "seq_sp", None)
     collected: dict[int, list] = {pos: [] for pos in range(period)}
     for pos, mlp, pl, cache in iter_layers(params, cfg, caches):
         if train and rt.remat:
-            x, new_cache = checkpoint(layer_apply, pl, cfg, rt, mlp, x,
-                                      positions, cache, use_reentrant=False)
+            x, new_cache = checkpoint(in_current_ctx(layer_apply), pl, cfg,
+                                      rt, mlp, x, positions, cache,
+                                      use_reentrant=False)
         else:
             x, new_cache = layer_apply(pl, cfg, rt, mlp, x, positions, cache)
         if caches is not None:
@@ -275,22 +332,27 @@ def backbone(params: dict, cfg: ModelConfig, rt: RuntimeConfig,
 
 
 def _inputs_to_stream(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+    w = params["embed"]
     if "embeds" in batch:
-        return batch["embeds"].to(ACT_DTYPE)
-    return embed_lookup(params["embed"], batch["tokens"])
+        return shard(replicated(batch["embeds"], w), "batch", None,
+                     None).to(ACT_DTYPE)
+    return embed_lookup(w, shard(replicated(batch["tokens"], w), "batch",
+                                 None))
 
 
 def _head_weight(params, cfg: ModelConfig) -> torch.Tensor:
-    if cfg.tie_embeddings:
-        return params["embed"].T
-    return params["head"]
+    """The (D, V) head in bf16, its FSDP dim gathered."""
+    w = params["embed"].T if cfg.tie_embeddings else params["head"]
+    return gather_fsdp(w.to(ACT_DTYPE), "embed_fsdp", "vocab")
 
 
 def logits_fn(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """Full logits (only for small S / decode)."""
     w = _head_weight(params, cfg)
-    logits = torch.einsum("bsd,dv->bsv", x, w.to(ACT_DTYPE)).float()
-    return logits + vocab_mask(w.shape[1], cfg.vocab_size, x.device)
+    logits = torch.einsum("bsd,dv->bsv", x, w).float()
+    logits = logits + replicated(vocab_mask(w.shape[1], cfg.vocab_size,
+                                            x.device), logits)
+    return shard(logits, "batch", None, "vocab")
 
 
 def chunked_ce_loss(params, cfg: ModelConfig, rt: RuntimeConfig, x, targets,
@@ -299,25 +361,37 @@ def chunked_ce_loss(params, cfg: ModelConfig, rt: RuntimeConfig, x, targets,
     logits of ``rt.loss_chunk`` positions at a time, each chunk recomputed
     in the backward (its residual is the x chunk)."""
     b, s, d = x.shape
+    x = _gather_seq(x)  # the chunks cut the sequence: whole on each rank
     w = _head_weight(params, cfg)
-    vmask = vocab_mask(w.shape[1], cfg.vocab_size, x.device)
+    vmask = replicated(vocab_mask(w.shape[1], cfg.vocab_size, x.device), x)
     c = min(rt.loss_chunk, s)
     if s % c:
         raise ValueError(f"chunked_ce_loss: S={s} is not a multiple of "
                          f"loss_chunk={c}")
-    mk = (torch.ones((b, s), device=x.device) if mask is None
-          else mask.float())
+    mk = (replicated(torch.ones((b, s), device=x.device), x) if mask is None
+          else shard(replicated(mask, x), "batch", None).float())
+    targets = shard(replicated(targets, x), "batch", None)
+    cols = replicated(torch.arange(w.shape[1], device=x.device), x)
 
     def one(xi, ti, mi):
-        lg = torch.einsum("bcd,dv->bcv", xi, w.to(ACT_DTYPE)).float() + vmask
+        lg = torch.einsum("bcd,dv->bcv", xi, w).float() + vmask
+        lg = shard(lg, "batch", None, "vocab")
         lse = torch.logsumexp(lg, dim=-1)
-        gold = torch.gather(lg, -1, ti.long()[..., None])[..., 0]
+        if isinstance(lg, DTensor):
+            # vocab-sharded: the gold logit as a one-hot sum over each
+            # rank's columns (exact: one term is not 0), whose backward
+            # stays sharded (a gather's scatters into a whole chunk)
+            hot = shard(cols, "vocab") == ti.long()[..., None]
+            gold = (lg * hot).sum(-1)
+        else:
+            gold = torch.gather(lg, -1, ti.long()[..., None])[..., 0]
         return ((lse - gold) * mi).sum()
 
     total = 0.0
     for i in range(0, s, c):
         chunk = (x[:, i:i + c], targets[:, i:i + c], mk[:, i:i + c])
-        total = total + (checkpoint(one, *chunk, use_reentrant=False)
+        total = total + (checkpoint(in_current_ctx(one), *chunk,
+                                    use_reentrant=False)
                          if torch.is_grad_enabled() else one(*chunk))
     return total / torch.clamp_min(mk.sum(), 1.0)
 
@@ -332,7 +406,7 @@ def loss_fn(params, cfg: ModelConfig, rt: RuntimeConfig, batch: dict, *,
     dev = _batch_device(params, batch, device)
     x = _inputs_to_stream(params, cfg, batch)
     b, s = x.shape[0], x.shape[1]
-    positions = torch.arange(s, device=dev).expand(b, s)
+    positions = replicated(torch.arange(s, device=dev).expand(b, s), x)
     h, _ = backbone(params, cfg, rt, x, positions, train=True)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     if rt.bwd_bf16:
@@ -352,17 +426,25 @@ def _batch_device(params: dict, batch: dict, device) -> torch.device:
     return dev
 
 
-@torch.inference_mode()
+def _no_grad():
+    """``torch.inference_mode`` without a mesh; ``torch.no_grad`` under
+    one (an inference tensor cannot be a DTensor's view)."""
+    return torch.no_grad() if current_mesh() is not None \
+        else torch.inference_mode()
+
+
 def prefill_step(params, cfg: ModelConfig, rt: RuntimeConfig, batch: dict, *,
                  device="cuda"):
-    """Forward pass producing last-position logits (B, 1, V) fp32."""
-    dev = _batch_device(params, batch, device)
-    x = _inputs_to_stream(params, cfg, batch)
-    b, s = x.shape[0], x.shape[1]
-    positions = torch.arange(s, device=dev).expand(b, s)
-    h, _ = backbone(params, cfg, rt, x, positions, train=False)
-    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    return logits_fn(params, cfg, h[:, -1:, :])
+    """Forward pass producing last-position logits (B, 1, V) fp32 (under a
+    mesh a DTensor sharded on "vocab")."""
+    with _no_grad():
+        dev = _batch_device(params, batch, device)
+        x = _inputs_to_stream(params, cfg, batch)
+        b, s = x.shape[0], x.shape[1]
+        positions = replicated(torch.arange(s, device=dev).expand(b, s), x)
+        h, _ = backbone(params, cfg, rt, x, positions, train=False)
+        h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+        return logits_fn(params, cfg, h[:, -1:, :])
 
 
 def init_caches(cfg: ModelConfig, rt: RuntimeConfig, batch: int, skv: int,
@@ -387,22 +469,51 @@ def init_caches(cfg: ModelConfig, rt: RuntimeConfig, batch: int, skv: int,
     return caches
 
 
-@torch.inference_mode()
+def cache_axes(cfg: ModelConfig, rt: RuntimeConfig) -> list:
+    """Logical axes for the cache pytree (for dry-run in_shardings)."""
+    kinds = cfg.layer_kinds()
+    period = cfg.scan_period()
+    kv_ax = "kv_seq_dp" if rt.long_ctx else "kv_seq"
+    out = []
+    for pos in range(period):
+        mixer, _ = kinds[pos]
+        if mixer == "attn":
+            ax = {
+                "k": Axes("layers", "batch", kv_ax, "kv_heads", None),
+                "v": Axes("layers", "batch", kv_ax, "kv_heads", None),
+                "len": Axes("layers"),
+            }
+            if rt.kv_quant:
+                ax["k_s"] = Axes("layers", "batch", kv_ax, "kv_heads")
+                ax["v_s"] = Axes("layers", "batch", kv_ax, "kv_heads")
+            out.append(ax)
+        else:
+            out.append({
+                "conv": Axes("layers", "batch", None, "conv_dim"),
+                "ssm": Axes("layers", "batch", "ssm_heads", None, None),
+            })
+    return out
+
+
 def decode_step(params, cfg: ModelConfig, rt: RuntimeConfig,
                 tokens: torch.Tensor, caches: list, *, device="cuda"):
     """One new token per sequence against the caches. tokens: (B, 1).
     Returns (logits (B, 1, V) fp32, new caches)."""
-    dev = _batch_device(params, {"tokens": tokens}, device)
-    x = embed_lookup(params["embed"], tokens)
-    # position = current cache length, from the first cache with one (an
-    # SSM-only model has none: its layers use no position)
-    pos = 0
-    for c in caches:
-        if c is not None and "len" in c:
-            pos = int(c["len"][0])
-            break
-    positions = torch.full((tokens.shape[0], 1), pos, device=dev)
-    h, new_caches = backbone(params, cfg, rt, x, positions, caches=caches,
-                             train=False)
-    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    return logits_fn(params, cfg, h), new_caches
+    with _no_grad():
+        dev = _batch_device(params, {"tokens": tokens}, device)
+        x = embed_lookup(params["embed"], shard(
+            replicated(tokens, params["embed"]), "batch", None))
+        # position = current cache length, from the first cache with one
+        # (an SSM-only model has none: its layers use no position); a
+        # DTensor cache's "len" is replicated, each rank reads its copy
+        pos = 0
+        for c in caches:
+            if c is not None and "len" in c:
+                pos = int(local_tensor(c["len"])[0])
+                break
+        positions = replicated(torch.full((tokens.shape[0], 1), pos,
+                                          device=dev), x)
+        h, new_caches = backbone(params, cfg, rt, x, positions,
+                                 caches=caches, train=False)
+        h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+        return logits_fn(params, cfg, h), new_caches

@@ -1,9 +1,13 @@
 """Common NN layers: norms, RoPE, embeddings, init helpers.
 
-The counterpart of ``repro.nn.layers``. Init functions return plain
-tensors (the JAX package's logical-axis trees, which shard the LM over a
-mesh, come with the LM's shardings: ROADMAP queue 1), on the card unless the caller passes
-``device="cpu"`` (or ``"meta"`` for the layout alone). Compute follows
+The counterpart of ``repro.nn.layers``. Init functions return the
+parameters alone, on the card unless the caller passes ``device="cpu"``
+(or ``"meta"`` for the layout alone); beside each, an ``*_axes`` function
+returns the logical-axis tree the JAX package's init returns with them
+(``Axes`` leaves, which ``distributed.tree_shardings`` resolves against a
+mesh). Tensors the layers build themselves (RoPE's frequencies, the vocab
+mask) join the mesh of the DTensor they meet through
+``distributed.replicated``. Compute follows
 the bf16-activations / fp32-norms-and-softmax convention, with the JAX
 package's two switches: ``set_lowmem_norm`` (off by default; on, norms
 and RoPE touch the wide tensor only in its own type) and ``bf16_cotangent`` (the
@@ -13,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed.api import Axes, replicated, shard
 from repro_torch.kernels.ops import resolve_device
 
 ACT_DTYPE = torch.bfloat16
@@ -87,6 +92,10 @@ def init_rms_norm(d: int, *, device="cuda", dtype=torch.float32):
     return torch.ones((d,), device=resolve_device(device), dtype=dtype)
 
 
+def rms_norm_axes() -> Axes:
+    return Axes(None)
+
+
 def rope_freqs(head_dim: int, theta: float, device="cuda") -> torch.Tensor:
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
                         device=resolve_device(device)) / head_dim
@@ -100,7 +109,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     ``x.dtype`` under ``LOWMEM_NORM``; the result is cast back to
     ``x.dtype``."""
     hd = x.shape[-1]
-    freqs = rope_freqs(hd, theta, x.device)                  # (hd/2,)
+    freqs = replicated(rope_freqs(hd, theta, x.device),       # (hd/2,)
+                       positions)
     ang = positions[..., None].to(torch.float32) * freqs     # (..., S, hd/2)
     wide = x.dtype if LOWMEM_NORM else torch.float32
     cos = torch.cos(ang)[..., None, :].to(wide)              # (..., S, 1, hd/2)
@@ -116,16 +126,29 @@ def init_embedding(generator, vocab_pad: int, d: int, *, device="cuda",
                        dtype=dtype)
 
 
+def embedding_axes() -> Axes:
+    return Axes("vocab", "embed_fsdp")
+
+
 def embed_lookup(w: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """A bf16 gather: the rows are gathered, then cast (the same values as
-    casting the table first, without a cast copy of the whole table)."""
-    return w[tokens.long()].to(ACT_DTYPE)
+    casting the table first, without a cast copy of the whole table). A
+    vocab-sharded DTensor table is looked up where it lies (each rank its
+    rows, the rest masked, then summed), never gathered whole; an FSDP
+    table's embed dim is gathered over 'data' first, as every FSDP weight
+    is before use."""
+    w = shard(w, "vocab", None)
+    return torch.nn.functional.embedding(tokens.long(), w).to(ACT_DTYPE)
 
 
 def init_lm_head(generator, d: int, vocab_pad: int, *, device="cuda",
                  dtype=torch.float32):
     return normal_init(generator, (d, vocab_pad), 0.02, device=device,
                        dtype=dtype)
+
+
+def lm_head_axes() -> Axes:
+    return Axes("embed_fsdp", "vocab")
 
 
 def vocab_mask(vocab_pad: int, vocab: int, device="cuda") -> torch.Tensor:

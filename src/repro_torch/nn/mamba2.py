@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.api import Axes, gather_fsdp, replicated, shard
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.nn import layers as L
 from repro_torch.nn.layers import ACT_DTYPE, normal_init, silu
@@ -61,6 +62,19 @@ def init_mamba(generator, cfg: ModelConfig, *, device="cuda",
         "dt_bias": dt_bias,
         "ssm_norm": full((di,), 1.0),
         "out_proj": init((di, d), out_scale),
+    }
+
+
+def mamba_axes() -> dict:
+    return {
+        "in_proj": Axes("embed_fsdp", "ssm_inner"),
+        "conv_w": Axes(None, "conv_dim"),
+        "conv_b": Axes("conv_dim",),
+        "A_log": Axes("ssm_heads",),
+        "D": Axes("ssm_heads",),
+        "dt_bias": Axes("ssm_heads",),
+        "ssm_norm": Axes("ssm_inner",),
+        "out_proj": Axes("ssm_inner", "embed_fsdp"),
     }
 
 
@@ -154,11 +168,12 @@ def ssd_chunked(xh, dt, A, Bm, Cm, chunk: int):
         s = xh.shape[1]
     nc = s // chunk
     rep = h // g
-    mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
-                                 device=xh.device))
+    mask = replicated(torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                            device=xh.device)), xh)
     # chunk-major: one chunk's O(q^2) buffers at a time; ``carry`` is the
     # state entering chunk c (the JAX package's scan over chunks)
-    carry = torch.zeros((b, h, p, n), dtype=torch.float32, device=xh.device)
+    carry = replicated(torch.zeros((b, h, p, n), dtype=torch.float32,
+                                   device=xh.device), xh)
     ys = []
     for c in range(nc):
         cut = slice(c * chunk, (c + 1) * chunk)
@@ -189,7 +204,9 @@ def mamba_block(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
     pre-activation taps."""
     di, gn, n, h = cfg.d_inner, cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_nheads
     pp = cfg.ssm_head_dim
-    proj = torch.einsum("bsd,de->bse", x, p["in_proj"].to(ACT_DTYPE))
+    proj = torch.einsum("bsd,de->bse", x, gather_fsdp(
+        p["in_proj"].to(ACT_DTYPE), "embed_fsdp", "ssm_inner"))
+    proj = shard(proj, "batch", None, "ssm_inner")
     z, xbc, dt = _split_proj(cfg, proj)
     A = -torch.exp(p["A_log"])  # (H,)
     if state is None:
@@ -235,7 +252,8 @@ def mamba_block(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
     yh = y.reshape(*y.shape[:2], h, pp)
     yn = _gated_norm(yh, z, p["ssm_norm"].reshape(h, pp), cfg.norm_eps)
     y = yn.reshape(*yn.shape[:2], di).to(ACT_DTYPE)
-    out = torch.einsum("bse,ed->bsd", y, p["out_proj"].to(ACT_DTYPE))
+    out = torch.einsum("bse,ed->bsd", y, gather_fsdp(
+        p["out_proj"].to(ACT_DTYPE), "ssm_inner", "embed_fsdp"))
     return out, new_state
 
 

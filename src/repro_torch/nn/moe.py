@@ -24,6 +24,10 @@ loses its expert's contribution. ``"auto"`` takes ``ep`` only over a
 model axis wider than 1, as the JAX package does; ``"ep"`` without a mesh
 raises :class:`MeshRequiredError`.
 
+Under a mesh the dense path runs on DTensors like the rest of the LM:
+its experts sharded over 'model' ("experts"), each rank computes its
+experts' share and the combine sums over them.
+
 Parameters keep the JAX layout, padded experts included
 (``cfg.padded_experts(tp)``): the router masks the padding with -1e9
 before the softmax, so a padded expert is never picked.
@@ -37,14 +41,18 @@ import torch
 import torch.nn.functional as F
 
 import torch.distributed as dist
-from torch.distributed.tensor import DTensor
+import torch.distributed.nn.functional as dist_nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.api import (current_mesh, local_block,
-                                         mesh_axis_sizes, placements)
+from repro_torch.distributed.api import (Axes, current_mesh, gather_fsdp,
+                                         local_block,
+                                         mesh_axis_sizes, placements,
+                                         replicated, shard)
 from repro_torch.nn import layers as L
 from repro_torch.nn.layers import ACT_DTYPE, normal_init, silu
-from repro_torch.nn.mlp import init_mlp, mlp_block
+from repro_torch.nn.mlp import init_mlp, mlp_axes, mlp_block
 
 
 
@@ -71,6 +79,18 @@ def init_moe(generator, cfg: ModelConfig, tp: int, *, device="cuda",
     return p
 
 
+def moe_axes(cfg: ModelConfig) -> dict:
+    ax = {
+        "router": Axes(None, None),
+        "w_gate": Axes("experts", "embed_fsdp", None),
+        "w_up": Axes("experts", "embed_fsdp", None),
+        "w_down": Axes("experts", None, "embed_fsdp"),
+    }
+    if cfg.n_shared_experts:
+        ax["shared"] = mlp_axes()
+    return ax
+
+
 def _route(router_w: torch.Tensor, x2: torch.Tensor, cfg: ModelConfig):
     """x2 (t, d) -> (gates (t, k) fp32 renormalized, eidx (t, k) int64).
 
@@ -81,29 +101,100 @@ def _route(router_w: torch.Tensor, x2: torch.Tensor, cfg: ModelConfig):
         logits = x2.to(ACT_DTYPE).float() @ router_w.to(ACT_DTYPE).float()
     else:
         logits = x2.float() @ router_w.float()
-    emask = torch.where(torch.arange(logits.shape[-1], device=x2.device)
-                        < cfg.n_experts, 0.0, -1e9)
+    emask = replicated(torch.where(
+        torch.arange(logits.shape[-1], device=x2.device) < cfg.n_experts,
+        0.0, -1e9), logits)
     probs = torch.softmax(logits + emask, dim=-1)
     gates, eidx = torch.topk(probs, cfg.top_k, dim=-1)
     gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
     return gates, eidx
 
 
+def _merge_tokens(x: torch.Tensor) -> torch.Tensor:
+    """(B, S, D) -> (B * S, D). Under a mesh the sequence is gathered
+    first and the merge is made on each rank's block (batch split over
+    ('pod', 'data')), so the gradient comes back in those placements."""
+    b, s, d = x.shape
+    if not isinstance(x, DTensor):
+        return x.reshape(b * s, d)
+    x = shard(x, "batch", None, None)
+    local = x.to_local()
+    return DTensor.from_local(local.reshape(-1, d), x.device_mesh,
+                              x.placements, run_check=False,
+                              shape=torch.Size((b * s, d)),
+                              stride=(d, 1))
+
+
 def _moe_dense(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """Every expert on every token (the three einsums in the activation
-    dtype), combined with the top-k gates in fp32."""
+    dtype), combined with the top-k gates in fp32. On DTensors, each rank
+    runs its experts on its tokens (``_experts_on_blocks``)."""
     b, s, d = x.shape
-    x2 = x.reshape(b * s, d)
-    gates, eidx = _route(p["router"], x2, cfg)
-    e_pad = p["w_gate"].shape[0]
+    x2 = _merge_tokens(x)
+    ws = (gather_fsdp(p["w_gate"].to(ACT_DTYPE), "experts", "embed_fsdp",
+                      None),
+          gather_fsdp(p["w_up"].to(ACT_DTYPE), "experts", "embed_fsdp", None),
+          gather_fsdp(p["w_down"].to(ACT_DTYPE), "experts", None,
+                      "embed_fsdp"))
+    if isinstance(x2, DTensor):
+        return _experts_on_blocks(p["router"], cfg, x2, ws, x.dtype,
+                                  (b, s, d))
+    return _dense_experts(p["router"], cfg, 0, x2, *ws).to(
+        x.dtype).reshape(b, s, d)
+
+
+def _dense_experts(router_w, cfg: ModelConfig, lo: int, x2, w_gate, w_up,
+                   w_down):
+    """The routing of tokens x2 (t, d) over all experts, then the experts
+    ``lo`` to ``lo + len(w_gate)``, combined with their gates in fp32."""
+    gates, eidx = _route(router_w, x2, cfg)
     # combine weights (t, E): the top-k gates scattered into their experts
-    comb = (F.one_hot(eidx, e_pad).float() * gates[..., None]).sum(dim=1)
-    g = torch.einsum("td,edf->tef", x2, p["w_gate"].to(ACT_DTYPE))
-    u = torch.einsum("td,edf->tef", x2, p["w_up"].to(ACT_DTYPE))
+    comb = (F.one_hot(eidx, router_w.shape[1]).float()
+            * gates[..., None]).sum(dim=1)
+    comb = comb[:, lo:lo + w_gate.shape[0]]
+    g = torch.einsum("td,edf->tef", x2, w_gate)
+    u = torch.einsum("td,edf->tef", x2, w_up)
     h = silu(g) * u
-    y = torch.einsum("tef,efd->ted", h, p["w_down"].to(ACT_DTYPE))
-    out = torch.einsum("ted,te->td", y.float(), comb)
-    return out.to(x.dtype).reshape(b, s, d)
+    y = torch.einsum("tef,efd->ted", h, w_down)
+    return torch.einsum("ted,te->td", y.float(), comb)
+
+
+def _experts_on_blocks(router, cfg, x2, ws, dtype, shape):
+    """The dense experts under a mesh, each rank on its block: its tokens
+    (x2's placements), routed over all experts with the whole router, and
+    its experts (the weights' "experts" split). The partial sums over the
+    experts' split are reduced in fp32, then cast. A gradient is summed
+    over each mesh axis on which its tensor is whole but the work is
+    split (the tokens' axes for the weights and the router, the experts'
+    axis for the tokens and the router)."""
+    mesh = x2.device_mesh
+    router = replicated(router, x2)
+    split = [isinstance(q, Shard) for q in x2.placements]
+    experts = [isinstance(q, Shard) for q in ws[0].placements]
+    lo = 0
+    for i, e in enumerate(experts):
+        if e:
+            lo = mesh.get_coordinate()[i] * ws[0].to_local().shape[0]
+    summed = lambda pl, over: [Partial() if isinstance(q, Replicate) and o
+                               else q for q, o in zip(pl, over)]
+    x_pl, r_pl = list(x2.placements), list(router.placements)
+    w_pl = [list(w.placements) for w in ws]
+    either = [a or b for a, b in zip(split, experts)]
+    out_pl = [Shard(0) if sp else Partial() if e else Replicate()
+              for sp, e in zip(split, experts)]
+    out = local_map(
+        lambda r, x, *w: _dense_experts(r, cfg, lo, x, *w),
+        out_placements=out_pl, in_placements=(r_pl, x_pl, *w_pl),
+        in_grad_placements=(summed(r_pl, either), summed(x_pl, experts),
+                            *(summed(pl, split) for pl in w_pl)),
+        device_mesh=mesh)(router, x2, *ws)
+    out = out.redistribute(mesh, [Shard(0) if sp else Replicate()
+                                  for sp in split]).to(dtype)
+    b, s, d = shape
+    return DTensor.from_local(out.to_local().reshape(-1, s, d), mesh,
+                              out.placements, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=(s * d, d, 1))
 
 
 # ------------------------------------------------------------------- ep ----
@@ -125,19 +216,36 @@ def _bucket_by(dest: torch.Tensor, n_buckets: int, capacity: int):
 
 
 def _all_gather_dim(t: torch.Tensor, dim: int, group) -> torch.Tensor:
-    """The group's blocks of ``t`` concatenated along ``dim`` (tiled)."""
-    t = t.contiguous()
-    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, t, group=group)
-    return torch.cat(parts, dim=dim)
+    """The group's blocks of ``t`` concatenated along ``dim`` (tiled);
+    differentiable (the backward reduce-scatters the gradient)."""
+    return torch.cat(dist_nn.all_gather(t.contiguous(), group=group), dim=dim)
+
+
+def _exchange(t: torch.Tensor, group) -> torch.Tensor:
+    out = torch.empty_like(t)
+    dist.all_to_all_single(out, t.contiguous(), group=group)
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    """The equal-split exchange; its transpose, the backward, is the same
+    exchange of the gradient."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return _exchange(t, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange(g, ctx.group), None
 
 
 def _all_to_all(t: torch.Tensor, group) -> torch.Tensor:
     """Equal chunks of ``t``'s leading axis to each rank of ``group``, the
-    received chunks in rank order (the JAX ``all_to_all`` over axis 0)."""
-    out = torch.empty_like(t)
-    dist.all_to_all_single(out, t.contiguous(), group=group)
-    return out
+    received chunks in rank order (the JAX ``all_to_all`` over axis 0);
+    differentiable."""
+    return _AllToAll.apply(t, group)
 
 
 def _ep_body(x, router_w, w_gate, w_up, w_down, *, cfg: ModelConfig,
@@ -220,6 +328,19 @@ def _dropped(dest, valid, order2, valid2, tp: int, cap_send: int,
     return (~valid).sum() + (real & ~kept).sum()
 
 
+def _weight_block(w, spec, mesh, split: set):
+    """This rank's block of a weight under ``spec``. Of a DTensor weight
+    the gradient comes back partial over each mesh axis of ``split`` (the
+    axes that split the tokens) on which the block is whole: each rank's
+    tokens give their share, summed where it reaches ``w``."""
+    if not isinstance(w, DTensor):
+        return local_block(w, spec, mesh)
+    pl = placements(spec, mesh)
+    grad = [Partial() if isinstance(q, Replicate) and name in split else q
+            for q, name in zip(pl, mesh.mesh_dim_names)]
+    return w.redistribute(mesh, pl).to_local(grad_placements=grad)
+
+
 def _moe_ep(p: dict, cfg: ModelConfig, x: torch.Tensor, mesh, *,
             fsdp: bool, cf_send: float, cf_local: float, stats):
     """The ep path over ``mesh``: this rank's token block and weight blocks
@@ -246,11 +367,14 @@ def _moe_ep(p: dict, cfg: ModelConfig, x: torch.Tensor, mesh, *,
               "model" if sp > 1 else None, None)
     fs = "data" if fsdp else None
     w_spec = ("model", fs, None)
-    y = _ep_body(local_block(x, x_spec, mesh), local_block(p["router"],
-                                                           (None, None), mesh),
-                 local_block(p["w_gate"], w_spec, mesh),
-                 local_block(p["w_up"], w_spec, mesh),
-                 local_block(p["w_down"], ("model", None, fs), mesh),
+    split = set(batch_axes if dp_eff > 1 else ()) | (
+        {"model"} if sp > 1 else set())
+    y = _ep_body(local_block(x, x_spec, mesh),
+                 _weight_block(p["router"], (None, None), mesh, split),
+                 _weight_block(p["w_gate"], w_spec, mesh, split),
+                 _weight_block(p["w_up"], w_spec, mesh, split),
+                 _weight_block(p["w_down"], ("model", None, fs), mesh,
+                               split),
                  cfg=cfg, tp=tp, e_pad=e_pad, cap_send=cap_send,
                  cap_local=cap_local, fsdp=fsdp, mesh=mesh, stats=stats)
     y = DTensor.from_local(y, mesh, placements(x_spec, mesh),

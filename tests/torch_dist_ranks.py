@@ -192,3 +192,144 @@ def restore_and_tokens(rank, world, inp):
         b = next(synthetic_lm_batches(cfg, 4, 16, seed=5, device="cpu"))
     out.update({f"tok_{k}": v.to_local() for k, v in b.items()})
     return out
+
+
+def _leaf_list(tree) -> list:
+    from repro_torch.optim import tree_leaves
+    return tree_leaves(tree)
+
+
+def _full(t):
+    from torch.distributed.tensor import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _case_cfg(case):
+    import dataclasses
+
+    from repro_torch.configs import ARCHS, reduce_for_smoke
+    return dataclasses.replace(reduce_for_smoke(ARCHS[case["arch"]]),
+                               **case["cfg"])
+
+
+def _lm_case(case, mesh, out, key):
+    """One architecture's prefill, two decode steps and loss + gradients,
+    under ``mesh`` (DTensor parameters and caches by their Axes trees) and,
+    with ``mesh`` None, unsharded; results under ``key``."""
+    from repro_torch.configs import ARCHS, reduce_for_smoke
+    from repro_torch.distributed.api import (distribute, sharding_ctx,
+                                             tree_map2, tree_shardings)
+    from repro_torch.models import lm
+
+    cfg = _case_cfg(case)
+    rt = lm.RuntimeConfig(**case["rt"])
+    # detached: the gradients below must not mark the caller's tensors
+    params = lm._tree_map(lambda t: t.detach(), case["params"])
+    if mesh is None:
+        import contextlib
+        ctx, place = contextlib.nullcontext(), (lambda tree, axes: tree)
+    else:
+        ctx = sharding_ctx(mesh)
+
+        def place(tree, axes):
+            return tree_map2(distribute, tree, tree_shardings(tree, axes, mesh))
+    with ctx:
+        p = place(params, lm.param_axes(cfg, rt))
+        out[f"{key}:prefill"] = _full(lm.prefill_step(
+            p, cfg, rt, case["batch"], device="cpu"))
+        caches = place(lm.init_caches(cfg, rt, case["dec"].shape[0], 8,
+                                      device="cpu"), lm.cache_axes(cfg, rt))
+        for i in range(case["dec"].shape[1]):
+            logits, caches = lm.decode_step(p, cfg, rt, case["dec"][:, i:i + 1],
+                                            caches, device="cpu")
+            out[f"{key}:decode{i}"] = _full(logits)
+        leaves = _leaf_list(p)
+        for t in leaves:
+            t.requires_grad_(True)
+        batch = dict(case["batch"], targets=case["targets"])
+        loss = lm.loss_fn(p, cfg, rt, batch, device="cpu")
+        grads = torch.autograd.grad(loss, leaves)
+        out[f"{key}:loss"] = _full(loss).detach()
+        for i, g in enumerate(grads):
+            out[f"{key}:grad{i}"] = _full(g)
+
+
+def lm_mesh_ranks(rank, world, inp):
+    """The LM under a (data, model) mesh of ``world`` ranks: each case of
+    ``inp["cases"]`` sharded (and, on one rank, also unsharded in this
+    process, for the bitwise check); the collectives of one prefill; the
+    flash path on local blocks against the unsharded flash; and one
+    apply_updates step, fp32 and int8, on given gradients."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import ARCHS, reduce_for_smoke
+    from repro_torch.distributed.api import (distribute, named_sharding,
+                                             sharding_ctx, tree_map2,
+                                             tree_shardings)
+    from repro_torch.models import lm
+    from repro_torch.nn import attention as ATT
+    from repro_torch.optim import (AdamWConfig, apply_updates, init_opt_state,
+                                   opt_state_axes)
+    from repro_torch.roofline import CostCounter
+
+    torch.set_num_threads(1)
+    mesh = init_device_mesh("cpu", inp["mesh"], mesh_dim_names=("data", "model"))
+    out = {}
+    for case in inp["cases"]:
+        _lm_case(case, mesh, out, case["name"])
+        if world == 1 and case["rt"].get("moe_impl") != "ep":
+            _lm_case(case, None, out, case["name"] + ":plain")
+    # the collectives of one prefill (counted on this rank)
+    col = inp.get("collectives")
+    if col is not None:
+        case = next(c for c in inp["cases"] if c["name"] == col)
+        cfg = _case_cfg(case)
+        rt = lm.RuntimeConfig(**case["rt"])
+        with sharding_ctx(mesh):
+            p = tree_map2(distribute, case["params"], tree_shardings(
+                case["params"], lm.param_axes(cfg, rt), mesh))
+            counter = CostCounter()
+            with counter:
+                logits = lm.prefill_step(p, cfg, rt, case["batch"], device="cpu")
+        out["coll_bytes"] = dict(counter.collectives.bytes_by_op)
+        out["coll_count"] = dict(counter.collectives.count_by_op)
+        out["logits_placements"] = str(logits.placements)
+    # flash on each rank's (batch, heads) block
+    q, k, v = (inp["flash"][n] for n in ("q", "k", "v"))
+    want = ATT.flash_attention(q, k, v, causal=True, bq=16, bk=16)
+    with sharding_ctx(mesh):
+        on_mesh = lambda t, *names: distribute(t, named_sharding(
+            t.shape, names, mesh))
+        got = ATT.flash_attention(on_mesh(q, "batch", None, "heads", None),
+                                  on_mesh(k, "batch", None, "kv_heads", None),
+                                  on_mesh(v, "batch", None, "kv_heads", None),
+                                  causal=True, bq=16, bk=16)
+        out["flash"] = got.full_tensor()
+        out["flash_placements"] = str(got.placements)
+    out["flash_plain"] = want
+    # one AdamW step on the given gradients, fp32 and int8 moments
+    upd = inp.get("update")
+    if upd is not None:
+        cfg = reduce_for_smoke(ARCHS[upd["arch"]])
+        rt = lm.RuntimeConfig()
+        axes = lm.param_axes(cfg, rt)
+        for sd in ("fp32", "int8"):
+            opt = AdamWConfig(state_dtype=sd)
+            with sharding_ctx(mesh):
+                sh = tree_shardings(upd["params"], axes, mesh)
+                p = tree_map2(lambda t, s: distribute(t.clone(), s),
+                              upd["params"], sh)
+                g = tree_map2(distribute, upd["grads"], sh)
+                state = init_opt_state(p, opt)
+                p, state, metrics = apply_updates(p, g, state, opt)
+                p, state, _ = apply_updates(p, g, state, opt)
+            out[f"upd_{sd}:params"] = [_full(t) for t in _leaf_list(p)]
+            out[f"upd_{sd}:m"] = [
+                {k: _full(v) for k, v in m.items()} if isinstance(m, dict)
+                else _full(m) for m in state["m"]]
+            out[f"upd_{sd}:v"] = [_full(t) for t in state["v"]]
+            out[f"upd_{sd}:gnorm"] = metrics["grad_norm"]
+            if sd == "int8":
+                out["upd_axes_opt"] = [str(x) for x in _leaf_list(
+                    opt_state_axes(axes, opt)["m"])][:4]
+    return out

@@ -27,7 +27,16 @@ world-1 group). Prints the card's name and power limit first, then:
    dense path and the argmax of that prefill the dense one's; then at the
    default cf 1.25 / 1.25 the ep prefill's ms (median of 3), peak memory
    over the weights and dropped copies a layer (summed over the ranks)
-   beside the dense prefill on one card.
+   beside the dense prefill on one card;
+3. tensor parallelism, one process a card on NCCL for each width n in
+   (2, 4) the host has: Qwen2.5-14B at full width and depth (bf16
+   weights from the seed, the same on every card) with its parameters
+   distributed by ``param_axes`` over a (data 1, model n) mesh: the flash
+   prefill's (B 2 x S 2048) logits within ``chip_smoke.TOL_DRIFT`` of one
+   card's unsharded prefill (rank 0) and the argmax equal; its ms (median
+   of 3 after a warm call); the collectives of one prefill on rank 0
+   (``roofline.CostCounter``) beside the port's dry run's count for the
+   same mesh (``launch.dryrun --mesh 1xn``, a process on the CPU).
 
 Every check that fails ends the run with a non-zero exit. ``--device
 cpu`` runs part 2 on ``gloo`` ranks of this CPU (with ``--reduced``, the
@@ -59,13 +68,16 @@ from repro_torch.core.dataflow import (build_model,  # noqa: E402
                                        init_states_batched)
 from repro_torch.graph.padding import stack_ragged  # noqa: E402
 from repro_torch.distributed import compression  # noqa: E402
-from repro_torch.distributed.api import sharding_ctx  # noqa: E402
+from repro_torch.distributed.api import (distribute,  # noqa: E402
+                                         sharding_ctx, tree_map2,
+                                         tree_shardings)
 from repro_torch.distributed.pipeline import (pipeline,  # noqa: E402
                                               reference_stack)
 from repro_torch.kernels import engine, ops  # noqa: E402
 from repro_torch.launch.mesh import DeviceSpec  # noqa: E402
 from repro_torch.models import (RuntimeConfig, init_params,  # noqa: E402
-                                prefill_step)
+                                param_axes, prefill_step)
+from repro_torch.roofline import CostCounter  # noqa: E402
 from repro_torch.nn import moe as moe_mod  # noqa: E402
 from torch.distributed.device_mesh import init_device_mesh  # noqa: E402
 
@@ -425,6 +437,115 @@ def ranks_part(world, device, reduced, card) -> None:
     log(f"part 2 ({world} ranks): {time.time() - t0:.1f} s")
 
 
+def tp_rank_main(rank, world, port, out_dir):
+    """Qwen2.5-14B's prefill over (data 1, model ``world``) on NCCL."""
+    dev = torch.device("cuda", rank)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction \
+            = False
+        cfg = ARCHS[cs.LM_ARCH]
+        rt = dataclasses.replace(cs.LM_RT, attn_impl="flash")
+        params = init_params(cfg, rt, torch.Generator(
+            device="cuda").manual_seed(cs.SEED), device="cuda")
+        tokens = cs.lm_tokens(cs.LM_BATCH, cs.LM_SEQ, cs.SEED + 1,
+                              cfg.vocab_size)
+        want = prefill_step(params, cfg, rt, {"tokens": tokens}) \
+            if rank == 0 else None
+        mesh = init_device_mesh("cuda", (1, world),
+                                mesh_dim_names=("data", "model"))
+        with sharding_ctx(mesh):
+            dp = tree_map2(distribute, params, tree_shardings(
+                params, param_axes(cfg, rt), mesh))
+            del params
+            torch.cuda.empty_cache()
+            counter = CostCounter(device="cuda")
+            with counter:
+                got = prefill_step(dp, cfg, rt, {"tokens": tokens})
+            full = got.full_tensor()
+            ms, times, _ = _timed_prefill(dp, cfg, rt, tokens, dev)
+        out = {"ms": ms, "all": times,
+               "coll_bytes": counter.collectives.bytes_by_op,
+               "coll_count": counter.collectives.count_by_op,
+               "placements": str(got.placements)}
+        if rank == 0:
+            V = cfg.vocab_size
+            out["err"] = cs.logits_err(full, want, V)
+            out["argmax_equal"] = bool(torch.equal(
+                full[..., :V].argmax(-1), want[..., :V].argmax(-1)))
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"tp{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def tp_dryrun(world: int) -> dict:
+    """The port's dry run of the same prefill on a fake (1, world) mesh."""
+    import subprocess
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "rec.json")
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                   CUDA_VISIBLE_DEVICES="")
+        run = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             cs.LM_ARCH, "--shape", "prefill_32k", "--mesh", f"1x{world}",
+             "--batch", str(cs.LM_BATCH), "--seq", str(cs.LM_SEQ),
+             "--overrides", json.dumps({"rt": {
+                 "attn_impl": "flash", "param_dtype": "bf16", "tp": 1}}),
+             "--out", path], env=env, capture_output=True, text=True,
+            timeout=600)
+        _check(run.returncode == 0, f"dry run 1x{world}: {run.stdout[-2000:]}"
+               f"{run.stderr[-2000:]}")
+        return json.load(open(path))
+
+
+def tp_part(card: str, n_cards: int) -> None:
+    for world in (2, 4):
+        if world > n_cards:
+            continue
+        t0 = time.time()
+        with tempfile.TemporaryDirectory() as out_dir:
+            ctx = mp.get_context("spawn")
+            port = _free_port()
+            procs = [ctx.Process(target=tp_rank_main,
+                                 args=(r, world, port, out_dir))
+                     for r in range(world)]
+            for p in procs:
+                p.start()
+            for p in procs:
+                p.join(TIMEOUT_S)
+            alive = [p for p in procs if p.is_alive()]
+            for p in alive:
+                p.kill()
+                p.join(10)
+            codes = [p.exitcode for p in procs]
+            _check(not alive and codes == [0] * world,
+                   f"tp ranks exited with {codes} ({len(alive)} killed)")
+            res = [json.load(open(os.path.join(out_dir, f"tp{r}.json")))
+                   for r in range(world)]
+        rec = tp_dryrun(world)
+        r0 = res[0]
+        log(f"tp: {cs.LM_ARCH} prefill B={cs.LM_BATCH} S={cs.LM_SEQ} flash "
+            f"over (data 1, model {world}) on NCCL: logits vs one card "
+            f"{r0['err']:.3e} (tol {cs.TOL_DRIFT}), argmax equal "
+            f"{r0['argmax_equal']}, placements {r0['placements']}; "
+            f"{r0['ms']:.2f} ms median of 3 (rank 0; all "
+            f"{', '.join(f'{m:.2f}' for m in r0['all'])}; every rank "
+            f"{[round(r['ms'], 2) for r in res]}); rank 0's collectives "
+            f"{r0['coll_count']} {r0['coll_bytes']} bytes; the dry run's "
+            f"for 1x{world} {rec['collectives']['count_by_op']} "
+            f"{rec['collectives']['bytes_by_op']} bytes (t_bound "
+            f"{max(rec['roofline']['t_compute'], rec['roofline']['t_memory'], rec['roofline']['t_collective']) * 1e3:.3f}"
+            f" ms, {rec['roofline']['bottleneck']}); {time.time() - t0:.1f}"
+            f" s; on {card}")
+        _check(r0["err"] <= cs.TOL_DRIFT and r0["argmax_equal"],
+               f"tp prefill over {world} cards")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
@@ -449,6 +570,7 @@ def main(argv=None) -> int:
         dgnn_part(card, n)
         torch.cuda.empty_cache()
         ranks_part(args.world or n, "cuda", args.reduced, card)
+        tp_part(card, n)
     else:
         ranks_part(args.world or 4, "cpu", args.reduced, "the CPU")
     return 0
