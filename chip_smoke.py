@@ -192,8 +192,8 @@ Phases (any failure exits non-zero):
      checkpoint restored onto the mesh with its logical axes bit for bit,
      and the tokens under the mesh.
   5. the device's busy share of one run at baseline, v2 and v3, resident
-     and paged (kernel time over wall time, torch.profiler), with the CTAs
-     a v3 launch of each stateful family uses.
+     and paged (kernel time over wall time, torch.profiler recording the
+     device only), with the CTAs a v3 launch of each stateful family uses.
   6. a probe of where a live node tile's time goes: gcrn_step and
      stacked_step on synthetic full-width inputs that vary live rows,
      lanes, the rows with a nonzero h and widths, timed the three ways of
@@ -206,7 +206,8 @@ d_model 5120, 40 / 8 heads, head_dim 128, d_ff 13824, vocab 152064, QKV
 bias) with random bf16 weights drawn on the card from the seed:
   3d. both flash kernels (flash_attention, flash_fwd) against their plain
      versions: narrow cases (head_dim 16 / 80 / 96 / 128, S 64 / 128 /
-     200 / 384: partial 128-row tiles, causal and not, group 1 / 4 / 5;
+     200 / 384: partial 128-row tiles, causal and not, group 1 / 3 / 4 /
+     5;
      every head_dim 8..128; Skv unlike S; fp32 <= 1e-4 and bf16 <= 2e-2,
      lse <= 1e-4), the refusals (a tail, head_dim 136), then the q / k /
      v of layer 0 and the last layer of one prefill (B 2, S 2048), timed
@@ -214,9 +215,11 @@ bias) with random bf16 weights drawn on the card from the seed:
      F.scaled_dot_product_attention (enable_gqa), which the port never
      calls: the kernel and SDPA in turns on CUDA events and from CUDA
      graphs, each with its TFLOP/s and share of the bound; flash_fwd also
-     on phi3-mini-3.8b's training shape (q (64, 2048, 96), group 1); the
-     bf16 launch the library builds (tiles, ring, shared memory, grid)
-     equal to engine.flash_config at both shapes;
+     on phi3-mini-3.8b's training shape (q (64, 2048, 96), group 1) and
+     granite-moe-3b-a800m's (q (48, 2048, 64), k / v (16, 2048, 64), group
+     3), each against its plain version and timed as above; the bf16
+     launch the library builds (tiles, ring, shared memory, grid) equal to
+     engine.flash_config at all three shapes;
   4. (a) prefill_step with attn_impl="flash" on 2 prompts of 2048 random
      tokens: flash_fwd launched exactly once a layer and nothing else;
      each layer's attention sublayer, teacher-forced, within 3e-2 of
@@ -236,16 +239,18 @@ Then, with the serving weights freed, the LM training path:
   3e. both flash backward kernels (flash_bwd_dkv, flash_bwd_dq) against
      their plain versions: narrow cases (head_dim 32 / 96 / 128, S 64 / 128
      / 200 with the default bq = bk = 512: partial 128-row tiles, causal
-     and not, group 1 / 4 / 5; every head_dim 8..128; Skv unlike S; fp32
+     and not, group 1 / 3 / 4 / 5; every head_dim 8..128; Skv unlike S; fp32
      <= 1e-4 and bf16 <= 2e-2 of max |plain|), a tail refused, then
      Qwen2.5-14B's layer shape (q (80, 2048, 128), k / v (16, 2048, 128),
-     bf16, causal, dO from the seed) and phi3-mini-3.8b's training shape
-     (q / k / v (64, 2048, 96), group 1): against the plain versions, two
+     bf16, causal, dO from the seed), phi3-mini-3.8b's training shape
+     (q / k / v (64, 2048, 96), group 1) and granite-moe-3b-a800m's (q
+     (48, 2048, 64), k / v (16, 2048, 64), group 3: the dkv CTA walks 3 q
+     heads a kv head): against the plain versions, two
      calls bit for bit equal (no atomics), the bf16 launches the library
      builds equal to engine.flash_bwd_config, then dkv, dq and SDPA's
      backward alone (enable_gqa, retain_graph; the port never calls it)
      timed in turns on CUDA events and from CUDA graphs, each with its
-     TFLOP/s and share of the bound; the plain versions timed at Qwen's;
+     TFLOP/s and share of the bound; the plain versions timed at each;
   4. (c) phi3-mini-3.8b at full width and depth (32 layers, d_model 3072,
      32 heads of 96, d_ff 8192, vocab 32064), fp32 parameters and AdamW
      moments on the card, attn_impl="flash", remat: ``train`` runs 3 steps
@@ -261,6 +266,32 @@ Then, with the serving weights freed, the LM training path:
      blow-up only); (e) the reduced phi3 trains 4 steps with a checkpoint every 2 into a
      temporary directory, the restored tensors equal the trained ones,
      and a second run resumes from step 4 to 6.
+  4. (c2) SSM / MoE training, after every earlier model is freed:
+     mamba2-2.7b and granite-moe-3b-a800m at full width and depth, fp32
+     parameters and AdamW moments drawn on the card from the seed, remat
+     (the SSD's chunks recomputed inside each layer's), the dense MoE
+     (all 40 experts for every token), flash attention for granite; each:
+     (b) a gate on step 1's gradients: granite's attention sublayers
+     teacher-forced and held to the same pairs and limits as (d) holds
+     phi3's (train_pairs_gate); mamba2's
+     layer-0 mixer, its input and weight grads on the card against the
+     same call on the CPU in this process (3e-2 of max |grad|); (d)
+     granite's gradients with moe_impl="ep" at ample capacity, the
+     parameters distributed over the world-1 NCCL 1x1 mesh, against the
+     dense path (no optimizer state): the loss within 2e-2, each MoE
+     sublayer teacher-forced (dx, router and experts' grads) within 2e-2,
+     and at full depth each leaf as near the fp32 gradient as the dense
+     path's within 2e-2 (gross faults only; beside it each leaf's ep vs
+     dense reading); (a) ``train``
+     runs 3 steps of 2 x 2048 synthetic tokens: finite losses, counts read
+     around each step (granite: flash_fwd 64, flash_bwd_dkv 32,
+     flash_bwd_dq 32, nothing else; mamba2: nothing), ms a step and
+     tokens/s beside the GEMM bound, the peak memory beside
+     memory_allocated at the path's start, the busy share of one more
+     step; then (c) python -m
+     repro_torch.launch.train --arch <arch> --full --batch 2 --seq 2048
+     --steps 3 (granite with --attn-impl flash), each a process of its
+     own, exits 0 with finite losses.
   - The LM under the world-1 NCCL 1x1 mesh (the TP phase): Qwen2.5-14B's
     prefill and a decode step with the parameters (and caches)
     distributed by their Axes trees, bit for bit the unsharded calls,
@@ -337,7 +368,9 @@ from repro_torch.distributed.pipeline import (pipeline,  # noqa: E402
                                               reference_stack)
 from repro_torch.launch.mesh import DeviceSpec, make_host_mesh  # noqa: E402
 from repro_torch.nn import attention as attention_mod  # noqa: E402
+from repro_torch.nn import layers as layers_mod  # noqa: E402
 from repro_torch.nn import mamba2 as mamba2_mod  # noqa: E402
+from repro_torch.nn import mlp as mlp_mod  # noqa: E402
 from repro_torch.nn import moe as moe_mod  # noqa: E402
 from repro_torch.nn.layers import embed_lookup, rms_norm  # noqa: E402
 from repro_torch.optim import (AdamWConfig, global_norm,  # noqa: E402
@@ -441,7 +474,7 @@ TOL_LSE = 1e-4
 # divide it: min(bq, S) must divide S): S 64 and 200 leave the bf16
 # kernel's 128-row q tile and 128-key kv tile partial
 FLASH_HD, FLASH_S, FLASH_GROUPS = (16, 80, 96, 128), (64, 128, 200, 384), \
-    (1, 4, 5)
+    (1, 3, 4, 5)
 # and beside them (head_dim, S, Skv, causal, group): every head_dim the
 # kernels take, and Skv unlike S
 FLASH_EDGE = tuple((d, 200, 200, True, 4) for d in range(8, 129, 8)) + tuple(
@@ -507,6 +540,27 @@ TOL_TRAINER = 1e-5
 # a prefill of LM_BATCH x LM_SEQ tokens and generate as the LM phase's
 SSM_MOE_ARCHS = ("mamba2-2.7b", "granite-moe-3b-a800m")
 SSM_MOE_RT = RuntimeConfig(param_dtype="bf16", moe_impl="dense")
+# path (c2), SSM / MoE training: the same two at full width and depth,
+# fp32 parameters and AdamW moments, per-layer remat (the SSD's chunks
+# recomputed inside it), the dense MoE, flash attention for granite;
+# TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ as phi3's path (c). Its
+# gates on step 1's gradients: granite's attention sublayers teacher-forced
+# (train_layer_check, every TRAIN_PAIRS pair with a limit held to it, as
+# phi3's gate holds them), one full-width Mamba2 mixer's input and weight
+# grads on the card within TOL_SSM_GRAD of max |grad| of the same layer on
+# the CPU (tests/test_torch_ssm_moe.py's TOL_GRAD: cuBLAS and the CPU
+# round the bf16 intra-chunk scores apart), and granite's gradients with
+# moe_impl="ep" at ample capacity on the world-1 NCCL 1x1 mesh against the
+# dense path's (ep_grad_check)
+MOE_TRAIN_ARCH = "granite-moe-3b-a800m"
+SSM_MOE_TRAIN_RT = {
+    "mamba2-2.7b": RuntimeConfig(remat=True, moe_impl="dense"),
+    MOE_TRAIN_ARCH: RuntimeConfig(remat=True, moe_impl="dense",
+                                  attn_impl="flash")}
+TOL_SSM_GRAD = 3e-2
+# the flash kernels' training shapes (3d / 3e): each arch and the key of
+# its fields in the kernels' records
+FLASH_TRAIN = {TRAIN_ARCH: "train_shape", MOE_TRAIN_ARCH: "granite_shape"}
 # the sharding phase: a sharded DGNN launch's batch and shards (where the
 # host has the cards), the world-1 collectives' tensor (64 MiB of fp32),
 # the one-stage pipeline (micro-batches, rows, width; <= TOL_PIPE), and
@@ -2638,26 +2692,12 @@ def tile_probe() -> dict:
 
 def busy_share(cfg, level, params, n_global, stream, plan_kw=None):
     """(wall ms, device ms) of one session ``run`` of the whole stream under
-    torch.profiler: the device time is the kernels' summed self time. The
-    profiler's own host cost lengthens the wall time, so 1 - device / wall
-    overstates the idle share."""
-    from torch.profiler import ProfilerActivity, profile
-
+    torch.profiler (busy_share_fn)."""
     sess = api.BoosterSession(cfg, api.plan(cfg, level=level,
                                             **(plan_kw or {})),
                               n_global=n_global, params=params,
                               device="cuda")
-    sess.run(stream)  # warm-up
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        sess.run(stream)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    device = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
-    return wall, device
+    return busy_share_fn(lambda: sess.run(stream))
 
 
 # ------------------------------------------------- the LM serving path ----
@@ -2835,11 +2875,12 @@ def flash_timings(label, run, q, k, v, causal, group):
     return ms, lib_ms, graph_ms, lib_graph_ms, bound_ms, by
 
 
-def flash_train_shape():
-    """q / k / v at phi3-mini-3.8b's training shape (TRAIN_BATCH x
-    TRAIN_SEQ; 32 heads of 96, group 1: the bf16 kernel holds d 96 as 128
-    columns), from the seed; (q, k, v, group)."""
-    cfg = ARCHS[TRAIN_ARCH]
+def flash_train_shape(arch=TRAIN_ARCH):
+    """q / k / v at ``arch``'s training shape (TRAIN_BATCH x TRAIN_SEQ;
+    phi3-mini-3.8b: 32 heads of 96, group 1, the bf16 kernel holding d 96
+    as 128 columns; granite-moe-3b-a800m: 24 heads of 64, group 3), from
+    the seed; (q, k, v, group)."""
+    cfg = ARCHS[arch]
     group = cfg.n_heads // cfg.n_kv_heads
     q, k, v = flash_case(SEED + 5, TRAIN_BATCH * cfg.n_heads, TRAIN_SEQ,
                          cfg.resolved_head_dim, group, torch.bfloat16)
@@ -2865,9 +2906,10 @@ def check_flash_kernel(name, calls):
     """A flash kernel on the prefill's own q / k / v (layer 0 and the last
     layer) against its plain version (<= TOL_FLASH bf16, lse <= TOL_LSE),
     timed beside its bound, the plain version and SDPA (flash_timings);
-    flash_fwd also at phi3's training shape, and the launch at both shapes
-    held to engine.flash_config; its record (times of the last layer's
-    call)."""
+    flash_fwd also at phi3's and granite's training shapes (FLASH_TRAIN:
+    the records' train_shape_* and granite_shape_* fields), and the launch
+    at every shape held to engine.flash_config; its record (times of the
+    last layer's call)."""
     err, err_lse = 0.0, 0.0
     for layer, (q, k, v, causal, bq, bk, group) in sorted(calls.items()):
         if name == "flash_fwd":
@@ -2899,27 +2941,33 @@ def check_flash_kernel(name, calls):
     plain_ms = cuda_ms(lambda: fa.flash_fwd_plain(q, k, v, causal, bq, bk,
                                                   group), reps=3)
     log(f"{name}: {plain_ms:.4f} ms plain")
-    extra = {}
-    if name == "flash_fwd":
-        tq, tk, tv, tgroup = flash_train_shape()
+    extra, shapes = {}, [q]
+    for arch, key in (FLASH_TRAIN.items() if name == "flash_fwd" else ()):
+        tq, tk, tv, tgroup = flash_train_shape(arch)
         o, lse = fa.flash_fwd(tq, tk, tv, True, bq, bk, tgroup)
         o_p, lse_p = fa.flash_fwd_plain(tq, tk, tv, True, bq, bk, tgroup)
         torch.cuda.synchronize()
         e, e_lse = max_err(o.float(), o_p.float()), max_err(lse, lse_p)
-        log(f"{name}: {TRAIN_ARCH}'s training shape max_abs_err o {e:.3e}, "
-            f"lse {e_lse:.3e}")
+        log(f"{name}: {arch}'s training shape q {tuple(tq.shape)} k "
+            f"{tuple(tk.shape)} group {tgroup} max_abs_err o {e:.3e} (tol "
+            f"{TOL_FLASH[torch.bfloat16]}), lse {e_lse:.3e} (tol {TOL_LSE})")
         check(np.isfinite(e) and e <= TOL_FLASH[torch.bfloat16]
-              and e_lse <= TOL_LSE, f"{name} at the training shape")
-        t = flash_timings(f"{name} {TRAIN_ARCH} training shape",
+              and e_lse <= TOL_LSE, f"{name} at {arch}'s training shape")
+        t = flash_timings(f"{name} {arch} training shape",
                           lambda: fa.flash_fwd(tq, tk, tv, True, bq, bk,
                                                tgroup),
                           tq, tk, tv, True, tgroup)
-        extra = {"train_shape": list(tq.shape), "train_shape_ms": t[0],
-                 "train_shape_library_ms": t[1],
-                 "train_shape_graph_ms": t[2],
-                 "train_shape_library_graph_ms": t[3],
-                 "train_shape_bound_ms": t[4]}
-        check_flash_config(q, tq)
+        t_plain = cuda_ms(lambda: fa.flash_fwd_plain(tq, tk, tv, True, bq,
+                                                     bk, tgroup), reps=3)
+        log(f"{name}: {t_plain:.4f} ms plain at {arch}'s training shape")
+        extra.update({f"{key}": list(tq.shape), f"{key}_ms": t[0],
+                      f"{key}_library_ms": t[1], f"{key}_graph_ms": t[2],
+                      f"{key}_library_graph_ms": t[3],
+                      f"{key}_bound_ms": t[4], f"{key}_plain_ms": t_plain,
+                      f"{key}_max_abs_err": e})
+        shapes.append(tq)
+    if name == "flash_fwd":
+        check_flash_config(*shapes)
     return record(name, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                   bound_ms=bound_ms, bound_by=by, library_ms=lib_ms,
                   graph_ms=graph_ms, library_graph_ms=lib_graph_ms,
@@ -3116,14 +3164,16 @@ def flash_attention_path(call):
 
 
 def busy_share_fn(fn):
-    """(wall ms, device ms) of one ``fn()`` under torch.profiler (see
-    busy_share)."""
+    """(wall ms, device ms) of one ``fn()`` after a warm call, under
+    torch.profiler recording the device's activity only: the device time
+    is the kernels' summed self time; the wall time holds what the
+    profiler costs the host, so 1 - device / wall overstates the idle
+    share."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -3324,10 +3374,12 @@ def flash_bwd_shape_check(label, args):
 def check_flash_bwd_kernels():
     """Both backward kernels at Qwen2.5-14B's layer shape (the serving
     path's flash shape: q (80, 2048, 128), k / v (16, 2048, 128), bf16,
-    causal; dO from the seed) and at phi3-mini-3.8b's training shape (q /
-    k / v (64, 2048, 96), group 1) through flash_bwd_shape_check, the
-    plain versions timed at both; their records (Qwen's times, phi3's as
-    train_shape_*)."""
+    causal; dO from the seed) and at the training shapes of FLASH_TRAIN
+    (phi3-mini-3.8b: q / k / v (64, 2048, 96), group 1;
+    granite-moe-3b-a800m: q (48, 2048, 64), k / v (16, 2048, 64), group 3)
+    through flash_bwd_shape_check, the plain versions timed at each; their
+    records (Qwen's times, phi3's as train_shape_*, granite's as
+    granite_shape_*)."""
     cfg = ARCHS[LM_ARCH]
     hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     group = hq // hkv
@@ -3345,27 +3397,29 @@ def check_flash_bwd_kernels():
     fields = flash_bwd_shape_check("Qwen2.5-14B layer shape", args)
     plain = plain_ms("Qwen2.5-14B's layer shape", args)
     del args
-    tcfg = ARCHS[TRAIN_ARCH]
-    targs = flash_bwd_inputs(SEED + 6, TRAIN_BATCH * tcfg.n_heads, TRAIN_SEQ,
-                             tcfg.resolved_head_dim,
-                             tcfg.n_heads // tcfg.n_kv_heads, torch.bfloat16,
-                             True)
-    tfields = flash_bwd_shape_check(f"{TRAIN_ARCH} training shape", targs)
-    tplain = plain_ms(f"{TRAIN_ARCH}'s training shape", targs)
-    out = []
-    for name, f in fields.items():
-        t = tfields[name]
-        out.append(record(
-            name, plain_ms=plain[name], shape=list(q.shape),
-            kv_shape=list(k.shape), **f,
-            train_shape=list(targs[0].shape), train_shape_ms=t["ms"],
-            train_shape_graph_ms=t["graph_ms"],
-            train_shape_library_ms=t["library_ms"],
-            train_shape_library_graph_ms=t["library_graph_ms"],
-            train_shape_bound_ms=t["bound_ms"],
-            train_shape_plain_ms=tplain[name],
-            train_shape_max_abs_err=t["max_abs_err"]))
-    return out
+    out = {name: record(name, plain_ms=plain[name], shape=list(q.shape),
+                        kv_shape=list(k.shape), **f)
+           for name, f in fields.items()}
+    for i, (arch, key) in enumerate(FLASH_TRAIN.items()):
+        tcfg = ARCHS[arch]
+        targs = flash_bwd_inputs(SEED + 6 + i, TRAIN_BATCH * tcfg.n_heads,
+                                 TRAIN_SEQ, tcfg.resolved_head_dim,
+                                 tcfg.n_heads // tcfg.n_kv_heads,
+                                 torch.bfloat16, True)
+        tfields = flash_bwd_shape_check(f"{arch} training shape", targs)
+        tplain = plain_ms(f"{arch}'s training shape", targs)
+        for name, t in tfields.items():
+            out[name].update({
+                key: list(targs[0].shape),
+                f"{key}_kv": list(targs[1].shape), f"{key}_ms": t["ms"],
+                f"{key}_graph_ms": t["graph_ms"],
+                f"{key}_library_ms": t["library_ms"],
+                f"{key}_library_graph_ms": t["library_graph_ms"],
+                f"{key}_bound_ms": t["bound_ms"],
+                f"{key}_plain_ms": tplain[name],
+                f"{key}_max_abs_err": t["max_abs_err"]})
+        del targs
+    return list(out.values())
 
 
 def train_model():
@@ -3389,10 +3443,14 @@ def train_model():
 def gemm_flops(cfg, params, tokens: int) -> float:
     """The training step's GEMM work: 8 flops a token per weight of a
     matrix product (forward 2, the remat recompute 2, backward 4); the
-    embedding (a gather) and the norms excluded, attention's own products
-    too."""
+    embedding (a gather) excluded unless tied (then it is the head's
+    product, whose chunks are recomputed too), the norms and attention's
+    own products too; a dense MoE's every expert (it runs them all for
+    every token)."""
     n = sum(t.numel() for t in tree_leaves(params) if t.dim() >= 2)
-    return 8.0 * (n - params["embed"].numel()) * tokens
+    if not cfg.tie_embeddings:
+        n -= params["embed"].numel()
+    return 8.0 * n * tokens
 
 
 def counted(batches, steps: int, per_step: list):
@@ -3407,27 +3465,37 @@ def counted(batches, steps: int, per_step: list):
         yield batch
 
 
-def lm_train_path(cfg, params):
-    """Path (c): ``train`` runs TRAIN_STEPS steps (loss_fn with
-    attn_impl="flash" and remat, autograd, apply_updates) with no
+def flash_layers(cfg, params, rt) -> dict:
+    """The flash launches a training step makes with ``rt`` (remat):
+    flash_fwd 2 an attention layer (forward and remat), flash_bwd_dkv and
+    flash_bwd_dq 1 each; none without attention layers or with "xla"."""
+    n = sum("attn" in pl for _, _, pl, _ in lm.iter_layers(params, cfg))
+    if rt.attn_impl != "flash" or not n:
+        return {}
+    return {"flash_fwd": 2 * n, "flash_bwd_dkv": n, "flash_bwd_dq": n}
+
+
+def lm_train_path(cfg, params, rt=TRAIN_RT):
+    """Path (c) (and (c2) with its ``rt``): ``train`` runs TRAIN_STEPS
+    steps (loss_fn with ``rt``, autograd, apply_updates) with no
     checkpoint directory, on synthetic_lm_batches; counts read around each
-    step: flash_fwd 2 a layer (forward and remat), flash_bwd_dkv and
-    flash_bwd_dq 1 a layer, nothing else. Returns (the counts of all
-    steps, the final params, step ms, peak bytes)."""
+    step, exactly flash_layers(): with attn_impl="flash" flash_fwd 2 an
+    attention layer (forward and remat), flash_bwd_dkv and flash_bwd_dq 1
+    each, nothing else. Returns (the counts of all steps, the final
+    params, step ms, peak bytes)."""
     per_step = []
     batches = counted(synthetic_lm_batches(cfg, TRAIN_BATCH, TRAIN_SEQ,
                                            seed=SEED, device="cuda"),
                       TRAIN_STEPS, per_step)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
-    params, res = train(lambda p, b: loss_fn(p, cfg, TRAIN_RT, b), params,
+    params, res = train(lambda p, b: loss_fn(p, cfg, rt, b), params,
                         batches, TRAIN_OPT,
                         TrainLoopConfig(total_steps=TRAIN_STEPS))
     wall = time.time() - t0
     per_step.append({k: v for k, v in engine.LAUNCHES.items() if v})
     peak = torch.cuda.max_memory_allocated()
-    want = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_dkv": cfg.n_layers,
-            "flash_bwd_dq": cfg.n_layers}
+    want = flash_layers(cfg, params, rt)
     log(f"train {cfg.name} B={TRAIN_BATCH} S={TRAIN_SEQ}: {res.final_step} "
         f"steps in {wall:.1f} s, losses {res.losses}, launches a step "
         f"{per_step}")
@@ -3439,24 +3507,27 @@ def lm_train_path(cfg, params):
     tokens = TRAIN_BATCH * TRAIN_SEQ
     flops = gemm_flops(cfg, params, tokens)
     ms = [t * 1e3 for t in res.step_times]
-    log(f"train step: {float(np.median(ms)):.1f} ms median of "
+    dense_moe = (f"; the dense MoE path runs all {cfg.n_experts} experts "
+                 f"for every token (top-{cfg.top_k} routing), and the bound "
+                 "counts them all" if cfg.n_experts
+                 and rt.moe_impl == "dense" else "")
+    log(f"train step {cfg.name}: {float(np.median(ms)):.1f} ms median of "
         f"{len(ms)} (all {', '.join(f'{m:.1f}' for m in ms)}), "
         f"{tokens / np.median(ms) * 1e3:.0f} tokens/s; GEMM bound "
         f"{flops / PEAK_BF16 * 1e3:.1f} ms ({flops:.3e} flop at 989 "
-        f"TFLOP/s bf16); peak memory {peak / 1e9:.2f} GB "
+        f"TFLOP/s bf16{dense_moe}); peak memory {peak / 1e9:.2f} GB "
         f"(torch.cuda.max_memory_allocated)")
     counts = {k: sum(c.get(k, 0) for c in per_step) for k in want}
     return counts, params, float(np.median(ms)), peak
 
 
-def train_step_busy(cfg, params):
-    """The device's busy share of one training step (make_train_step on
-    a fresh optimizer state), under torch.profiler."""
+def train_step_busy(cfg, params, rt=TRAIN_RT):
+    """The device's busy share of one training step (make_train_step with
+    ``rt`` on a fresh optimizer state), under torch.profiler."""
     batch = next(synthetic_lm_batches(cfg, TRAIN_BATCH, TRAIN_SEQ,
                                       seed=SEED + 1, device="cuda"))
     opt_state = init_opt_state(params, TRAIN_OPT)
-    step = make_train_step(lambda p, b: loss_fn(p, cfg, TRAIN_RT, b),
-                           TRAIN_OPT)
+    step = make_train_step(lambda p, b: loss_fn(p, cfg, rt, b), TRAIN_OPT)
     wall, device = busy_share_fn(lambda: step(params, opt_state, batch))
     del opt_state
     return wall, device
@@ -3464,16 +3535,19 @@ def train_step_busy(cfg, params):
 
 @contextlib.contextmanager
 def fp32_activations():
-    """Run the attention sublayer in fp32: its projections cast the
-    weights to nn.attention.ACT_DTYPE (bf16), here fp32, and the x it is
-    given is fp32, so every product and the softmax are fp32 (the
-    reference of the training gate)."""
-    original = attention_mod.ACT_DTYPE
-    attention_mod.ACT_DTYPE = torch.float32
+    """Run the LM in fp32: every module that casts to the activation dtype
+    (nn.layers.ACT_DTYPE, bf16) casts to fp32 instead, so with fp32
+    parameters (and an fp32 x given to a sublayer) every product, norm
+    and softmax is fp32 (the reference of the training gates)."""
+    mods = (layers_mod, lm, attention_mod, moe_mod, mlp_mod)
+    original = [m.ACT_DTYPE for m in mods]
+    for m in mods:
+        m.ACT_DTYPE = torch.float32
     try:
         yield
     finally:
-        attention_mod.ACT_DTYPE = original
+        for m, dtype in zip(mods, original):
+            m.ACT_DTYPE = dtype
 
 
 @contextlib.contextmanager
@@ -3507,7 +3581,7 @@ def sublayer_grads(pl, cfg, rt, x, positions, dy):
     return dict(zip(("dx", *(f"d{k}" for k in att)), grads))
 
 
-def train_layer_check(cfg, params, tokens):
+def train_layer_check(cfg, params, tokens, rt=TRAIN_RT):
     """Every layer of one training forward, teacher-forced: on the xla
     path's hidden state and one cotangent dy (unit-normal bf16 from the
     seed), the attention sublayer's dx and its weights' grads (wq, wk, wv,
@@ -3516,8 +3590,8 @@ def train_layer_check(cfg, params, tokens):
     reference); the layers walked as backbone walks them. Its launches are
     a check, not the main path. Returns {pair: {grad name: (largest |diff|
     / max |other| over the layers, its layer)}} for the pairs of
-    TRAIN_PAIRS."""
-    rts = {impl: dataclasses.replace(TRAIN_RT, attn_impl=impl)
+    TRAIN_PAIRS. ``rt``: the path's (attn_impl replaced)."""
+    rts = {impl: dataclasses.replace(rt, attn_impl=impl)
            for impl in ("flash", "xla")}
     b, s = tokens.shape
     dev = tokens.device
@@ -3618,21 +3692,31 @@ def check_train_calls(calls):
     return worst
 
 
+def train_pairs_gate(cfg, worst) -> None:
+    """train_layer_check's readings (``worst``) printed, then every pair of
+    TRAIN_PAIRS with a limit held to it; the pairs at None are logged."""
+    for pair, errs in worst.items():
+        tol = TRAIN_PAIRS[pair]
+        log(f"train layers {cfg.name}, teacher-forced, {pair}: attention "
+            "sublayer grads max |diff| / max |other| (layer) "
+            + ", ".join(f"{k} {e:.3e} ({at})" for k, (e, at) in errs.items())
+            + (f" (tol {tol})" if tol else " (logged)"))
+    for pair, errs in worst.items():
+        if TRAIN_PAIRS[pair] is not None:
+            check(all(np.isfinite(e) and e <= TRAIN_PAIRS[pair]
+                      for e, _ in errs.values()),
+                  f"{cfg.name} train layers {pair}")
+
+
 def train_gate(cfg, params):
-    """Check (d): the flash kernels on a full-depth flash backward's own
-    inputs against their plain versions; the teacher-forced sublayers'
-    pairs within their TRAIN_PAIRS limits; the full-depth loss and grad
-    norm, flash against xla, within TOL_TRAIN_DRIFT. Every reading is
-    printed before the limits are applied."""
+    """Check (d): the teacher-forced sublayers' pairs within their
+    TRAIN_PAIRS limits (train_pairs_gate); the flash kernels on a
+    full-depth flash backward's own inputs against their plain versions;
+    the full-depth loss and grad norm, flash against xla, within
+    TOL_TRAIN_DRIFT. Each reading is printed before its limit applies."""
     batch = next(synthetic_lm_batches(cfg, TRAIN_BATCH, TRAIN_SEQ,
                                       seed=SEED + 2, device="cuda"))
     worst = train_layer_check(cfg, params, batch["tokens"])
-    for pair, errs in worst.items():
-        tol = TRAIN_PAIRS[pair]
-        log(f"train layers, teacher-forced, {pair}: attention sublayer "
-            "grads max |diff| / max |other| (layer) "
-            + ", ".join(f"{k} {e:.3e} ({at})" for k, (e, at) in errs.items())
-            + (f" (tol {tol})" if tol else " (logged)"))
     full, calls = full_depth_grads(cfg, params, batch)
     (lf, gf), (lx, gx) = full["flash"], full["xla"]
     drift = {"loss": abs(lf - lx) / abs(lx), "grad norm": abs(gf - gx) / gx}
@@ -3640,11 +3724,8 @@ def train_gate(cfg, params):
         f"{gf:.6f} / {gx:.6f}; relative "
         + ", ".join(f"{k} {v:.3e}" for k, v in drift.items())
         + f" (tol {TOL_TRAIN_DRIFT})")
+    train_pairs_gate(cfg, worst)
     check_train_calls(calls)
-    for pair, errs in worst.items():
-        if TRAIN_PAIRS[pair] is not None:
-            check(all(np.isfinite(e) and e <= TRAIN_PAIRS[pair]
-                      for e, _ in errs.values()), f"train layers {pair}")
     check(all(np.isfinite(v) and v <= TOL_TRAIN_DRIFT
               for v in drift.values()), f"full depth drift {drift}")
 
@@ -3688,6 +3769,281 @@ def train_loop_path():
         f"{same}, resumed_from {res2.resumed_from}, losses "
         f"{res.losses + res2.losses}")
     return counts
+
+
+# ------------------------------------------ path (c2): SSM / MoE training ----
+
+def ssm_moe_train_model(arch: str):
+    """``arch`` at full width and depth, random fp32 weights drawn on the
+    card from the seed; (cfg, params)."""
+    cfg = ARCHS[arch]
+    t0 = time.time()
+    params = init_params(cfg, SSM_MOE_TRAIN_RT[arch], torch.Generator(
+        device="cuda").manual_seed(SEED), device="cuda")
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in tree_leaves(params))
+    log(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
+        f"{cfg.vocab_size}; {n / 1e9:.3f} B params, "
+        f"{nbytes(*tree_leaves(params)) / 1e9:.2f} GB fp32 (with grads and "
+        f"AdamW's two fp32 moments {4 * nbytes(*tree_leaves(params)) / 1e9:.2f}"
+        f" GB), init {time.time() - t0:.1f} s")
+    return cfg, params
+
+
+def mixer_grads(p, cfg, h, dy):
+    """{name: grad} of one Mamba2 mixer (mamba_block, no norm or residual)
+    at its input ``h`` with cotangent ``dy``: dh and every weight's."""
+    h = h.detach().requires_grad_(True)
+    w = {k: t.detach().requires_grad_(True) for k, t in p.items()}
+    y, _ = mamba2_mod.mamba_block(w, cfg, h)
+    grads = torch.autograd.grad(y, (h, *w.values()), dy.to(y.dtype))
+    return dict(zip(("dh", *(f"d{k}" for k in w)), grads))
+
+
+def ssm_mixer_grad_gate(cfg, params, tokens) -> dict:
+    """Gate (b) for Mamba2: layer 0's mixer at full width, teacher-forced on
+    its normed input from ``tokens`` with one cotangent (unit-normal bf16
+    from the seed): its input and weight grads on the card against the
+    same call on the CPU in this process (the weights, input and cotangent
+    copied), each of max |CPU grad|; printed, then held within
+    TOL_SSM_GRAD. Returns {grad name: error}."""
+    _, _, pl, _ = next(lm.iter_layers(params, cfg))
+    with torch.no_grad():
+        h = rms_norm(embed_lookup(params["embed"], tokens), pl["norm1"],
+                     cfg.norm_eps)
+    gen = torch.Generator(device=h.device.type).manual_seed(SEED + 11)
+    dy = torch.randn(h.shape, generator=gen, device=h.device,
+                     dtype=torch.float32).to(torch.bfloat16)
+    t0 = time.time()
+    card = mixer_grads(pl["ssm"], cfg, h, dy)
+    torch.cuda.synchronize()
+    t_card = time.time() - t0
+    t0 = time.time()
+    cpu = mixer_grads({k: t.cpu() for k, t in pl["ssm"].items()}, cfg,
+                      h.cpu(), dy.cpu())
+    t_cpu = time.time() - t0
+    errs = {k: rel_err(card[k].cpu(), cpu[k]) for k in cpu}
+    log(f"train gate {cfg.name}: layer 0's mixer (h {tuple(h.shape)}, "
+        f"{cfg.ssm_nheads} SSD heads, chunk {cfg.ssm_chunk}) teacher-forced, "
+        f"card vs CPU, max |diff| / max |CPU|: "
+        + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+        + f" (tol {TOL_SSM_GRAD}); {t_card:.2f} s on the card, {t_cpu:.1f} s "
+        f"on the CPU ({torch.get_num_threads()} threads)")
+    check(all(np.isfinite(e) and e <= TOL_SSM_GRAD for e in errs.values()),
+          f"{cfg.name} mixer grads card vs CPU")
+    return errs
+
+
+def loss_and_grads(cfg, params, rt, batch):
+    """One loss_fn and its gradients (autograd) with ``rt``: (the loss as a
+    float, the grads in tree_leaves order)."""
+    leaves = tree_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    try:
+        loss = loss_fn(params, cfg, rt, batch)
+        grads = torch.autograd.grad(loss, leaves)
+    finally:
+        for t in leaves:
+            t.requires_grad_(False)
+    loss = loss.detach()
+    return float(loss.full_tensor() if hasattr(loss, "full_tensor")
+                 else loss), grads
+
+
+def leaf_names(tree, prefix="") -> list:
+    """The leaves' paths in tree_leaves order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in leaf_names(
+            tree[k], f"{prefix}{k}/")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree) for n in leaf_names(
+            v, f"{prefix}{i}/")]
+    return [prefix.rstrip("/")]
+
+
+def moe_sublayer_grads(cfg, params, rt, batch, mesh, cf_local) -> dict:
+    """Every MoE sublayer teacher-forced on the dense path's own inputs
+    (one no-grad forward of loss_fn) with one cotangent (unit-normal bf16
+    from the seed): dx and the router's and experts' grads with "ep" at
+    ample capacity on ``mesh`` against "dense". Returns {grad name: (the
+    largest error of max |dense| over the layers, its layer)}."""
+    inputs = []
+    with torch.no_grad(), recording_moe({}, inputs):
+        loss_fn(params, cfg, rt, batch)
+    gen = torch.Generator(device=batch["tokens"].device.type).manual_seed(
+        SEED + 12)
+    worst = {}
+    for layer, (p, h) in enumerate(inputs):
+        dy = torch.randn(h.shape, generator=gen, device=h.device,
+                         dtype=torch.float32).to(h.dtype)
+        got = {}
+        for impl in ("dense", "ep"):
+            x = h.detach().requires_grad_(True)
+            w = {k: t.detach().requires_grad_(True) for k, t in p.items()}
+            with (sharding_ctx(mesh) if impl == "ep"
+                  else contextlib.nullcontext()):
+                y = moe_mod.moe_block(w, cfg, x, impl=impl, cf_send=1.0,
+                                      cf_local=cf_local)
+                got[impl] = dict(zip(("dx", *(f"d{k}" for k in w)),
+                                     torch.autograd.grad(y, (x, *w.values()),
+                                                         dy)))
+        for k, want in got["dense"].items():
+            e = rel_err(got["ep"][k], want)
+            if e >= worst.get(k, (-1.0, -1))[0]:
+                worst[k] = (e, layer)
+    return worst
+
+
+def ep_grad_check(cfg, params, rt, batch, card) -> None:
+    """Check (d): granite's gradients with moe_impl="ep" at ample capacity
+    (cf_send 1, cf_local E / top_k: no copy dropped), the parameters
+    distributed by param_axes over the world-1 NCCL 1x1 host mesh, against
+    the dense path unsharded (both with ``rt``'s attention and remat), on
+    one batch, no optimizer state: (1) the loss within TOL_EP relative;
+    (2) each MoE sublayer teacher-forced (moe_sublayer_grads), dx and every
+    weight's grad within TOL_EP of max |dense|; (3) at full depth each
+    leaf no farther from the fp32 gradient (the dense path with "xla"
+    attention under fp32_activations) than the dense path is, give or take
+    TOL_EP of max |fp32|: a check of gross faults (a leaf zero or of the
+    wrong sign), not of drift, since dense itself sits up to ~0.19 from
+    fp32 on the MoE leaves. Beside them it prints each leaf's full-depth
+    ep vs dense reading. The group is torn down at the end."""
+    t0 = time.time()
+    dense_rt = dataclasses.replace(rt, moe_impl="dense")
+    ep_rt = dataclasses.replace(rt, moe_impl="ep", moe_cf_send=1.0,
+                                moe_cf_local=cfg.padded_experts(1)
+                                / cfg.top_k)
+    names = leaf_names(params)
+    # on the card: the fp32 grads wait on the host, a leaf at a time back
+    errs = lambda got, want: [rel_err(g, w.to(g.device))
+                              for g, w in zip(got, want)]
+    xla_rt = dataclasses.replace(dense_rt, attn_impl="xla")
+    # the NCCL communicator first, while the card has room for its buffers
+    # (the allocator's cache of the fp32 pass leaves NCCL none)
+    mesh = make_host_mesh()
+    try:
+        torch.distributed.all_reduce(torch.zeros(1, device=params[
+            "embed"].device), group=mesh.get_group("model"))
+        with fp32_activations():
+            # inside: remat recomputes each layer in the backward
+            loss_32, grads = loss_and_grads(cfg, params, xla_rt, batch)
+        grads_32 = [g.cpu() for g in grads]
+        del grads
+        loss_d, grads_d = loss_and_grads(cfg, params, dense_rt, batch)
+        dense_32 = errs(grads_d, grads_32)
+        torch.cuda.empty_cache()
+        with sharding_ctx(mesh):
+            dp = tp_place(params, lm.param_axes(cfg, ep_rt), mesh)
+            loss_e, grads = loss_and_grads(cfg, dp, ep_rt, batch)
+            del dp
+            grads = [g.full_tensor() for g in grads]  # views at world 1
+        ep_dense, ep_32 = errs(grads, grads_d), errs(grads, grads_32)
+        del grads, grads_d, grads_32
+        torch.cuda.empty_cache()
+        sub = moe_sublayer_grads(cfg, params, dense_rt, batch, mesh,
+                                 ep_rt.moe_cf_local)
+    finally:
+        torch.distributed.destroy_process_group()
+    torch.cuda.empty_cache()
+    loss_err = abs(loss_e - loss_d) / abs(loss_d)
+    log(f"train {cfg.name} ep gradients on the world-1 NCCL 1x1 mesh "
+        f"(cf_send {ep_rt.moe_cf_send}, cf_local {ep_rt.moe_cf_local}, "
+        f"{rt.attn_impl} attention, remat) vs dense unsharded: loss "
+        f"{loss_e:.6f} / {loss_d:.6f} (fp32 {loss_32:.6f}), relative "
+        f"{loss_err:.3e} (tol {TOL_EP}); {time.time() - t0:.1f} s; on {card}")
+    log(f"train {cfg.name} ep gradients, MoE sublayers teacher-forced, ep "
+        f"vs dense, max |diff| / max |dense| (layer): "
+        + ", ".join(f"{k} {e:.3e} ({at})" for k, (e, at) in sub.items())
+        + f" (tol {TOL_EP})")
+    log(f"train {cfg.name} full-depth gradients by leaf, max |diff| / max "
+        f"|other|: ep vs dense; ep vs fp32 / dense vs fp32 (held: ep vs "
+        f"fp32 <= dense vs fp32 + {TOL_EP}): "
+        + "; ".join(f"{n} {a:.3e}; {c:.3e} / {d:.3e}"
+                    for n, a, c, d in zip(names, ep_dense, ep_32, dense_32)))
+    check(np.isfinite(loss_err) and loss_err <= TOL_EP,
+          f"{cfg.name} ep loss within {TOL_EP} of dense")
+    check(all(np.isfinite(e) and e <= TOL_EP for e, _ in sub.values()),
+          f"{cfg.name} ep MoE sublayer grads within {TOL_EP} of dense")
+    check(all(np.isfinite(a) and a <= b + TOL_EP
+              for a, b in zip(ep_32, dense_32)),
+          f"{cfg.name} ep gradients as near the fp32 ones as dense's")
+
+
+def train_launcher(arch: str) -> None:
+    """Check (c): python -m repro_torch.launch.train --arch ``arch`` --full
+    --batch TRAIN_BATCH --seq TRAIN_SEQ --steps TRAIN_STEPS (granite with
+    --attn-impl flash), a process of its own on the card, exits 0 with
+    finite losses."""
+    cmd = ["--arch", arch, "--full", "--batch", str(TRAIN_BATCH), "--seq",
+           str(TRAIN_SEQ), "--steps", str(TRAIN_STEPS)]
+    if SSM_MOE_TRAIN_RT[arch].attn_impl == "flash":
+        cmd += ["--attn-impl", "flash"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.time()
+    run = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                          *cmd], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=900)
+    losses = re.search(r"loss first\d+=(\S+) last\d+=(\S+)", run.stdout)
+    finite = bool(losses) and all(np.isfinite(float(v))
+                                  for v in losses.groups())
+    log(f"launch.train {' '.join(cmd)}: rc {run.returncode} in "
+        f"{time.time() - t0:.1f} s: {run.stdout.strip()} "
+        f"{run.stderr.strip()[-2000:]}")
+    check(run.returncode == 0 and finite,
+          f"launch.train --arch {arch} --full exits 0 with finite losses")
+
+
+def ssm_moe_train_phase(card) -> dict:
+    """Path (c2): for each of SSM_MOE_ARCHS at full width and depth (fp32
+    weights from the seed, after the earlier phases' models are freed):
+    (b) the gate on step 1's gradients (granite: train_layer_check and
+    train_pairs_gate, as phi3's; mamba2: ssm_mixer_grad_gate); (d)
+    granite's ep gradients (ep_grad_check); (a) lm_train_path with the
+    arch's SSM_MOE_TRAIN_RT, counts read around each
+    step (granite: flash_fwd 64, flash_bwd_dkv 32, flash_bwd_dq 32;
+    mamba2: none), ms a step, tokens/s, the GEMM bound and the peak memory
+    beside memory_allocated at the path's start, and the busy share of one
+    more step (train_step_busy); then (c) both launchers. Returns the flash
+    launches of the (a) runs."""
+    total = {}
+    for arch in SSM_MOE_ARCHS:
+        t0 = time.time()
+        torch.cuda.empty_cache()
+        start = torch.cuda.memory_allocated()
+        cfg, params = ssm_moe_train_model(arch)
+        rt = SSM_MOE_TRAIN_RT[arch]
+        batch = next(synthetic_lm_batches(cfg, TRAIN_BATCH, TRAIN_SEQ,
+                                          seed=SEED, device="cuda"))
+        if rt.attn_impl == "flash":
+            train_pairs_gate(cfg, train_layer_check(cfg, params,
+                                                    batch["tokens"], rt))
+        else:
+            ssm_mixer_grad_gate(cfg, params, batch["tokens"])
+        if cfg.n_experts:
+            ep_grad_check(cfg, params, rt, batch, card)
+        del batch
+        counts, params, step_ms, peak = lm_train_path(cfg, params, rt)
+        for name, v in counts.items():
+            total[name] = total.get(name, 0) + v
+        wall, device = train_step_busy(cfg, params, rt)
+        share = (f"{device / wall:.3f}" if device > 0
+                 else "not measured (the profiler saw no device time)")
+        log(f"busy {cfg.name} train step B={TRAIN_BATCH} S={TRAIN_SEQ}: "
+            f"{wall:.2f} ms wall under the profiler, {device:.2f} ms of "
+            f"kernels, busy share {share}")
+        log(f"path (c2) {cfg.name}: memory_allocated at the path's start "
+            f"{start / 1e9:.2f} GB (the earlier phases' tensors), peak "
+            f"{peak / 1e9:.2f} GB in the train loop (weights, grads, AdamW "
+            f"moments, activations), {step_ms:.1f} ms a step; on {card}; "
+            f"{time.time() - t0:.1f} s")
+        del params
+        torch.cuda.empty_cache()
+    t0 = time.time()
+    for arch in SSM_MOE_ARCHS:
+        train_launcher(arch)
+    log(f"path (c2) launchers: {time.time() - t0:.1f} s")
+    return total
 
 
 # ------------------------------------------------------ the serve phase ----
@@ -5608,6 +5964,14 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     train_loop_path()
     log(f"phase 4 (LM training): {time.time() - t0:.1f} s")
+
+    # phase 4, SSM / MoE training: (c2) mamba2-2.7b and granite-moe-3b-a800m
+    # at full width and depth, their gates, granite's ep gradients and the
+    # two launchers; the flash counts read around each granite step
+    t0 = time.time()
+    for name, v in ssm_moe_train_phase(card).items():
+        launches[name] += v
+    log(f"phase 4 (SSM / MoE training): {time.time() - t0:.1f} s")
 
     # the roofline against the card: the port's dry runs of the two
     # measured workloads at one chip, and two production cells

@@ -12,17 +12,21 @@ ssm_head_dim). With chunk length Q:
                chunks; Y_inter = C @ S_carried.
 
 The chunks run one after another (the JAX package's ``lax.map``), so the
-O(Q^2) intra-chunk buffers exist for one chunk at a time. The JAX
-package recomputes them in the backward (``jax.checkpoint``); that saves
-memory in training only, and the port's LM training path keeps its
-per-layer recomputation (``RuntimeConfig.remat``).
+O(Q^2) intra-chunk buffers exist for one chunk at a time. Under autograd
+each chunk's intra-chunk work is recomputed in the backward (the JAX
+package's ``jax.checkpoint``): only a chunk's inputs and the carried
+state are kept, so a layer's backward holds one chunk's O(Q^2) buffers,
+not all of them. It nests inside the LM's per-layer recomputation
+(``RuntimeConfig.remat``).
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.api import Axes, gather_fsdp, replicated, shard
@@ -174,11 +178,20 @@ def ssd_chunked(xh, dt, A, Bm, Cm, chunk: int):
     # state entering chunk c (the JAX package's scan over chunks)
     carry = replicated(torch.zeros((b, h, p, n), dtype=torch.float32,
                                    device=xh.device), xh)
+    # under autograd a chunk's O(q^2) buffers are rebuilt in the backward:
+    # only its inputs are saved (the mask is closed over, as the JAX body
+    # closes over it). The body reads no mesh context: its constants join
+    # the mesh through ``replicated`` above, keyed to the operand
+    per_chunk = functools.partial(_per_chunk, mask=mask, rep=rep)
     ys = []
     for c in range(nc):
         cut = slice(c * chunk, (c + 1) * chunk)
-        y_intra, state, cums = _per_chunk(xh[:, cut], dt[:, cut], Bm[:, cut],
-                                          Cm[:, cut], A, mask, rep)
+        args = (xh[:, cut], dt[:, cut], Bm[:, cut], Cm[:, cut], A)
+        if torch.is_grad_enabled():
+            y_intra, state, cums = checkpoint(per_chunk, *args,
+                                              use_reentrant=False)
+        else:
+            y_intra, state, cums = per_chunk(*args)
         # inter-chunk output (no q^2 term): C . entering state . decay
         Ch = torch.repeat_interleave(Cm[:, cut], rep, dim=2)   # (b,q,h,n)
         decay_from_start = torch.exp(cums)                     # (b,q,h)
