@@ -34,10 +34,11 @@ from typing import Iterable, Optional
 import numpy as np
 import torch
 
+from repro_torch import obs as _obs
 from repro_torch.configs.dgnn import DGNNConfig
 from repro_torch.core.dataflow import (build_model, init_states_batched,
                                        run_plan, run_plan_batched)
-from repro_torch.graph.padding import stack_ragged
+from repro_torch.graph.padding import host_copy, stack_ragged
 from repro_torch.kernels import engine as _engine
 from repro_torch.kernels import ops as _ops
 from repro_torch.launch.mesh import DeviceSpec
@@ -391,9 +392,13 @@ class BoosterSession:
         through the plan's engine, advancing the session state. Returns
         (T, n_pad, out) outputs."""
         self._need_params()
-        self.state, outs = run_plan(self.model, self.params, self.state,
-                                    snaps_T.to(self.device), self.plan,
-                                    force_ref=self.force_ref)
+        with _obs.span("session.run"):
+            with _obs.sync(self.device if host_copy(snaps_T, self.device)
+                           else None, "upload"):
+                snaps_T = snaps_T.to(self.device)
+            self.state, outs = run_plan(self.model, self.params, self.state,
+                                        snaps_T, self.plan,
+                                        force_ref=self.force_ref)
         return outs
 
     def run_batched(self, streams: list, states=None):
@@ -402,23 +407,26 @@ class BoosterSession:
         repeats the last snapshot and is masked out in the launch).
         Returns ``(final_states, [outs_b (T_b, n, out)])``."""
         self._need_params()
-        B = len(streams)
-        snaps_BT, lens = stack_ragged(streams, self.device)
-        if self.plan.lengths is not None and list(self.plan.lengths) != lens:
-            raise ValueError(f"plan.lengths={self.plan.lengths} does not "
-                             f"match stream lengths {lens}")
-        p = self.plan
-        if p.batch != B:
-            p = dataclasses.replace(p, batch=B, lengths=None)
-        if len(set(lens)) > 1 and p.lengths is None:
-            p = dataclasses.replace(p, lengths=tuple(lens))
-        if states is None:
-            states = init_states_batched(self.model, self.params, B,
-                                         mode=p.level)
-        states, outs_BT = run_plan_batched(self.model, self.params, states,
-                                           snaps_BT, p,
-                                           force_ref=self.force_ref)
-        return states, [outs_BT[b, :lens[b]] for b in range(B)]
+        with _obs.span("session.run_batched"):
+            B = len(streams)
+            snaps_BT, lens = stack_ragged(streams, self.device)
+            if (self.plan.lengths is not None
+                    and list(self.plan.lengths) != lens):
+                raise ValueError(f"plan.lengths={self.plan.lengths} does "
+                                 f"not match stream lengths {lens}")
+            p = self.plan
+            if p.batch != B:
+                p = dataclasses.replace(p, batch=B, lengths=None)
+            if len(set(lens)) > 1 and p.lengths is None:
+                p = dataclasses.replace(p, lengths=tuple(lens))
+            if states is None:
+                states = init_states_batched(self.model, self.params, B,
+                                             mode=p.level)
+            states, outs_BT = run_plan_batched(self.model, self.params,
+                                               states, snaps_BT, p,
+                                               force_ref=self.force_ref)
+            with _obs.span("split"):
+                return states, [outs_BT[b, :lens[b]] for b in range(B)]
 
     # ------------------------------------------------------ serving ----
 

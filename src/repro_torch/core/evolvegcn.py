@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import obs
 from repro_torch.configs.dgnn import DGNNConfig
 from repro_torch.core import gcn as G
 from repro_torch.core import rnn as R
@@ -108,19 +109,20 @@ class EvolveGCN:
         continuous scheduler, must not change what a tenant is served."""
         if not self.cfg.edge_dim:
             return None
-        msgs = _ref.ell_gather_msgs(snaps.neigh_eidx, snaps.neigh_coef,
-                                    snaps.neigh_eidx, snaps.edge_feat)
-        agg = msgs[..., 0, :]
-        for k in range(1, msgs.shape[-2]):
-            agg = agg + msgs[..., k, :]
-        terms = []
-        for p in params["gcn"]:
-            w = p["w_edge"]
-            term = agg[..., :1] * w[0]
-            for d in range(1, w.shape[0]):
-                term = term + agg[..., d:d + 1] * w[d]
-            terms.append(term)
-        return terms
+        with obs.span("edge_terms"):
+            msgs = _ref.ell_gather_msgs(snaps.neigh_eidx, snaps.neigh_coef,
+                                        snaps.neigh_eidx, snaps.edge_feat)
+            agg = msgs[..., 0, :]
+            for k in range(1, msgs.shape[-2]):
+                agg = agg + msgs[..., k, :]
+            terms = []
+            for p in params["gcn"]:
+                w = p["w_edge"]
+                term = agg[..., :1] * w[0]
+                for d in range(1, w.shape[0]):
+                    term = term + agg[..., d:d + 1] * w[d]
+                terms.append(term)
+            return terms
 
     def stream_args(self, params: dict, state: dict,
                     snaps: PaddedSnapshot) -> tuple:

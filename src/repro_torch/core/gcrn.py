@@ -27,6 +27,7 @@ import math
 
 import torch
 
+from repro_torch import obs
 from repro_torch.configs.dgnn import DGNNConfig
 from repro_torch.core import gcn as G
 from repro_torch.core import rnn as R
@@ -121,7 +122,10 @@ class GCRN:
         """The stream engine's argument list for ``snaps`` (the order of
         kernels/ops.stream_steps), edge messages projected here."""
         w_edge = params.get("w_edge")
-        edge_msg = snaps.edge_feat @ w_edge if w_edge is not None else None
+        edge_msg = None
+        if w_edge is not None:
+            with obs.span("edge_terms"):
+                edge_msg = snaps.edge_feat @ w_edge
         return (snaps.neigh_idx, snaps.neigh_coef, snaps.neigh_eidx,
                 snaps.node_feat, snaps.renumber, snaps.node_mask,
                 state["h"], state["c"],
@@ -145,15 +149,19 @@ class GCRN:
                 self.stream_family, *args, tn=tn, td=td,
                 state_residency=state_residency, buffer_depth=buffer_depth,
                 force_ref=force_ref, device=dev)
-        out = outs_h @ params["head"]["w"] + params["head"]["b"]
-        mask = snaps.node_mask
-        if lengths is not None:
-            # ragged T: the launch masks the dead tail; mirror it on the
-            # output mask so the head bias reads as zero there
-            live = (torch.arange(mask.shape[1], device=dev)[None, :]
-                    < torch.as_tensor(lengths, device=dev)[:, None])
-            mask = mask * live[:, :, None]
-        return {"h": h_T, "c": c_T}, out * mask[..., None]
+        with obs.span("head"):
+            out = outs_h @ params["head"]["w"] + params["head"]["b"]
+            mask = snaps.node_mask
+            if lengths is not None:
+                # ragged T: the launch masks the dead tail; mirror it on
+                # the output mask so the head bias reads as zero there.
+                # The lengths' copy waits for the launch queued ahead.
+                with obs.sync(dev, "lengths"):
+                    lens = torch.as_tensor(lengths, device=dev)
+                live = (torch.arange(mask.shape[1], device=dev)[None, :]
+                        < lens[:, None])
+                mask = mask * live[:, :, None]
+            return {"h": h_T, "c": c_T}, out * mask[..., None]
 
     def step_stream(self, params: dict, state: dict, snaps_T: PaddedSnapshot,
                     *, tn=128, td="cfg", state_residency="vmem",

@@ -16,6 +16,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.graph.csr import LocalSnapshot, to_ell
 
 
@@ -173,11 +174,24 @@ def stack_ragged(streams: list, device):
             [a, a[-1:].expand(t_max - t, *a.shape[1:])])
 
     kind = type(streams[0])
-    on_dev = [s.to(device) for s in streams]
-    return (kind(**{
-        f.name: torch.stack([fill(getattr(s, f.name), t)
-                             for s, t in zip(on_dev, lens)])
-        for f in dataclasses.fields(kind)}), lens)
+    with obs.span("stack_ragged"):
+        device = torch.device(device)
+        with obs.sync(device if any(host_copy(s, device) for s in streams)
+                      else None, "upload"):
+            on_dev = [s.to(device) for s in streams]
+        return (kind(**{
+            f.name: torch.stack([fill(getattr(s, f.name), t)
+                                 for s, t in zip(on_dev, lens)])
+            for f in dataclasses.fields(kind)}), lens)
+
+
+def host_copy(stream, device) -> bool:
+    """Does moving a padded stream (or event-block stream) to ``device``
+    copy it from host memory: host arrays, or CPU tensors bound for a
+    card?"""
+    m = stream.node_mask
+    return not torch.is_tensor(m) or (m.device.type == "cpu"
+                                      and torch.device(device).type != "cpu")
 
 
 def unpad_snapshot(ps: PaddedSnapshot) -> dict:

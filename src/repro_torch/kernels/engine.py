@@ -80,6 +80,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from repro_torch import obs as _obs
 from repro_torch.kernels import ref as _ref
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -317,9 +318,12 @@ def _check(name: str, device, **tensors) -> None:
 def _check_index(name: str, key: str, t, bound: int) -> None:
     """Index tensors come from the host's ingest; an out-of-range id would
     read outside a buffer in the kernel, so check before the launch."""
-    lo, hi = torch.aminmax(t)
-    if int(lo) < 0 or int(hi) >= bound:
-        raise ValueError(f"{name}: {key} ids span [{int(lo)}, {int(hi)}], "
+    with _obs.span("check", site=key):
+        lo, hi = torch.aminmax(t)
+        with _obs.sync(lo.device, key):
+            lo, hi = int(lo), int(hi)
+    if lo < 0 or hi >= bound:
+        raise ValueError(f"{name}: {key} ids span [{lo}, {hi}], "
                          f"outside [0, {bound})")
 
 
@@ -1231,23 +1235,24 @@ def _dispatch(name: str, dims: dict, smem: int, args: dict, ints: dict,
     the launcher leaves None), sized from its plain version (twice its rows
     and 256 more), returned after the results."""
     recorded = _recorder()
-    if recorded is not None:
-        recorded.append(RecordedLaunch(
-            name, dict(dims), smem,
-            engine_cluster_config(name, ints["B"], **dims), dict(args),
-            dict(ints), result, call))
-        return result
-    lib = _library(name)
-    device = args["mask"].device
-    if proto:
-        plain = _protocol_of(name, args, ints)
-        cap = 2 * len(plain.rows) + 256
-        args["proto"] = torch.zeros(PROTO_HEADER + cap * PROTO_ROW,
-                                    dtype=torch.int32, device=device)
-        args["proto"][2] = cap
-    with torch.cuda.device(device):
-        _launch(name, lib, *map(_ptr, args.values()), *ints.values(),
-                _stream_ptr())
+    with _obs.span("launch", kernel=name):
+        if recorded is not None:
+            recorded.append(RecordedLaunch(
+                name, dict(dims), smem,
+                engine_cluster_config(name, ints["B"], **dims), dict(args),
+                dict(ints), result, call))
+            return result
+        lib = _library(name)
+        device = args["mask"].device
+        if proto:
+            plain = _protocol_of(name, args, ints)
+            cap = 2 * len(plain.rows) + 256
+            args["proto"] = torch.zeros(PROTO_HEADER + cap * PROTO_ROW,
+                                        dtype=torch.int32, device=device)
+            args["proto"][2] = cap
+        with torch.cuda.device(device):
+            _launch(name, lib, *map(_ptr, args.values()), *ints.values(),
+                    _stream_ptr())
     return (*result, _read_log(plain, args["proto"])) if proto else result
 
 

@@ -28,6 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import obs as _obs
 from repro_torch.graph.padding import round_up
 from repro_torch.kernels import engine as _engine
 from repro_torch.kernels import ref as _ref
@@ -118,9 +119,15 @@ def check_renumber(renumber, n_global: int) -> None:
     the row would be lost without a word."""
     if n_global >= 2 ** 31:
         raise ValueError(f"n_global={n_global} does not fit int32 row ids")
-    if renumber.numel() and int(renumber.max()) >= n_global:
-        raise ValueError(f"renumber holds row {int(renumber.max())}, past "
-                         f"the store's n_global={n_global} rows")
+    if not renumber.numel():
+        return
+    with _obs.span("check", site="renumber"):
+        top = renumber.max()
+        with _obs.sync(top.device, "renumber"):
+            top = int(top)
+    if top >= n_global:
+        raise ValueError(f"renumber holds row {top}, past the store's "
+                         f"n_global={n_global} rows")
 
 
 def _row_index_table(renumber, n_global: int):
@@ -288,14 +295,16 @@ def _evolve_pack(neigh_idx, neigh_coef, node_feat, node_mask, live, weights,
             torch.stack(gwh).contiguous(), torch.stack(gb).contiguous(), eagg)
 
 
-def _engine_call(family: str, packed: tuple, ring):
+def _engine_call(family: str, packed: tuple, ring, **kw):
     """The family's kernel wrapper on packed inputs: the resident engine
-    (``ring`` None) or the paged one (``ring`` = (td, depth))."""
-    if ring is None:
-        return getattr(_engine, f"{family}_engine")(*packed)
-    td, depth = ring
-    return getattr(_engine, f"{family}_engine_paged")(*packed, td=td,
-                                                      depth=depth)
+    (``ring`` None) or the paged one (``ring`` = (td, depth)); ``kw`` goes
+    to the wrapper."""
+    with _obs.span("engine", family=family):
+        if ring is None:
+            return getattr(_engine, f"{family}_engine")(*packed, **kw)
+        td, depth = ring
+        return getattr(_engine, f"{family}_engine_paged")(
+            *packed, td=td, depth=depth, **kw)
 
 
 def _gcrn_launch(batched, neigh_idx, neigh_coef, neigh_eidx, node_feat,
@@ -309,9 +318,10 @@ def _gcrn_launch(batched, neigh_idx, neigh_coef, neigh_eidx, node_feat,
             node_feat[None], renumber[None], node_mask[None], h0[None],
             c0[None], wx, wh, b, em, ring=ring)
         return outs[0], hT[0], cT[0]
-    return _engine_call("gcrn", _gcrn_pack(
-        neigh_idx, neigh_coef, neigh_eidx, node_feat, renumber, node_mask,
-        h0, c0, wx, wh, b, edge_msg), ring)
+    with _obs.span("pack"):
+        packed = _gcrn_pack(neigh_idx, neigh_coef, neigh_eidx, node_feat,
+                            renumber, node_mask, h0, c0, wx, wh, b, edge_msg)
+    return _engine_call("gcrn", packed, ring)
 
 
 def _stacked_launch(batched, neigh_idx, neigh_coef, neigh_eidx, node_feat,
@@ -325,9 +335,11 @@ def _stacked_launch(batched, neigh_idx, neigh_coef, neigh_eidx, node_feat,
             node_feat[None], renumber[None], node_mask[None], h0[None],
             w_gcn, b_gcn, wx, wh, b, em, ring=ring)
         return outs[0], hT[0]
-    return _engine_call("stacked", _stacked_pack(
-        neigh_idx, neigh_coef, neigh_eidx, node_feat, renumber, node_mask,
-        h0, w_gcn, b_gcn, wx, wh, b, edge_msg), ring)
+    with _obs.span("pack"):
+        packed = _stacked_pack(neigh_idx, neigh_coef, neigh_eidx, node_feat,
+                               renumber, node_mask, h0, w_gcn, b_gcn, wx,
+                               wh, b, edge_msg)
+    return _engine_call("stacked", packed, ring)
 
 
 def _evolve_launch(batched, neigh_idx, neigh_coef, node_feat, node_mask,
@@ -342,9 +354,11 @@ def _evolve_launch(batched, neigh_idx, neigh_coef, node_feat, node_mask,
             node_mask[None], live[None], [w[None] for w in weights], b_gcn,
             gru_wx, gru_wh, gru_b, ea, ring=ring)
         return outs[0], tuple(w[0] for w in wT)
-    outs, wT = _engine_call("evolve", _evolve_pack(
-        neigh_idx, neigh_coef, node_feat, node_mask, live, weights, b_gcn,
-        gru_wx, gru_wh, gru_b, edge_aggs), ring)
+    with _obs.span("pack"):
+        packed = _evolve_pack(neigh_idx, neigh_coef, node_feat, node_mask,
+                              live, weights, b_gcn, gru_wx, gru_wh, gru_b,
+                              edge_aggs)
+    outs, wT = _engine_call("evolve", packed, ring)
     dims = [w.shape[-2:] for w in weights]
     weights_T = tuple(wT[:, i, :di, :do] for i, (di, do) in enumerate(dims))
     return outs[..., :dims[-1][1]], weights_T
@@ -353,11 +367,15 @@ def _evolve_launch(batched, neigh_idx, neigh_coef, node_feat, node_mask,
 def _check_local_ids(neigh_idx, n: int) -> None:
     """Local ELL ids index the batch's own rows; the tgn pack looks each
     up in the renumber table, so an id outside [0, n) is refused first."""
-    if neigh_idx.numel():
+    if not neigh_idx.numel():
+        return
+    with _obs.span("check", site="local_ids"):
         lo, hi = torch.aminmax(neigh_idx)
-        if int(lo) < 0 or int(hi) >= n:
-            raise ValueError(f"neigh_idx ids span [{int(lo)}, {int(hi)}], "
-                             f"outside [0, {n})")
+        with _obs.sync(lo.device, "local_ids"):
+            lo, hi = int(lo), int(hi)
+    if lo < 0 or hi >= n:
+        raise ValueError(f"neigh_idx ids span [{lo}, {hi}], outside "
+                         f"[0, {n})")
 
 
 def _partner_rows(renumber, neigh_idx):
@@ -413,13 +431,14 @@ def _tgn_launch(batched, neigh_idx, neigh_coef, neigh_ts, node_feat,
             node_feat[None], renumber[None], node_mask[None], mem0[None],
             freq, w_in, wx, wh, b, ring=ring)
         return outs[0], memT[0]
-    packed = _tgn_pack(neigh_idx, neigh_coef, neigh_ts, node_feat, renumber,
-                       node_mask, mem0, freq, w_in, wx, wh, b,
-                       paged=ring is not None)
+    with _obs.span("pack"):
+        packed = _tgn_pack(neigh_idx, neigh_coef, neigh_ts, node_feat,
+                           renumber, node_mask, mem0, freq, w_in, wx, wh, b,
+                           paged=ring is not None)
     if ring is None:
         # the partners' local ids too: the resident kernel sums them in the
         # paged kernel's row windows
-        return _engine.tgn_engine(*packed, idx=_i32(neigh_idx))
+        return _engine_call("tgn", packed, None, idx=_i32(neigh_idx))
     return _engine_call("tgn", packed, ring)
 
 
@@ -447,9 +466,10 @@ def _static_launch(batched, neigh_idx, neigh_coef, node_feat, node_mask,
         return (outs[0],)
     # the layers' true widths, which the kernel computes alone
     widths = [weights[0].shape[-2]] + [w.shape[-1] for w in weights]
-    outs = _engine.static_engine(*_static_pack(
-        neigh_idx, neigh_coef, node_feat, node_mask, weights, b_gcn,
-        edge_aggs), widths=widths)
+    with _obs.span("pack"):
+        packed = _static_pack(neigh_idx, neigh_coef, node_feat, node_mask,
+                              weights, b_gcn, edge_aggs)
+    outs = _engine_call("static", packed, None, widths=widths)
     return (outs[..., :weights[-1].shape[-1]],)
 
 
@@ -545,23 +565,29 @@ def _apply_lengths(family: str, args: tuple, lengths) -> tuple:
     snapshots: steps t >= lengths[b] get coef 0 / mask 0 / renumber -1
     (and live 0 for the weights-evolved family), so the tail content is
     irrelevant and a length-0 row is a pure padding stream."""
-    axes = _STREAM_DISPATCH[family][3]
-    coef = args[axes["coef"]]
-    if not torch.is_tensor(lengths):
-        lengths = torch.as_tensor(np.asarray(lengths))
-    lengths = lengths.to(coef.device)
-    t_axis = torch.arange(coef.shape[1], device=coef.device)
-    live = t_axis[None, :] < lengths[:, None]                  # (B, T)
-    out = list(args)
-    out[axes["coef"]] = coef * live[:, :, None, None]
-    out[axes["mask"]] = args[axes["mask"]] * live[:, :, None]
-    if axes["ren"] is not None:
-        ren = args[axes["ren"]]
-        out[axes["ren"]] = torch.where(live[:, :, None], ren,
-                                       torch.full_like(ren, -1))
-    if axes["live"] is not None:
-        out[axes["live"]] = args[axes["live"]] * live.to(args[axes["live"]].dtype)
-    return tuple(out)
+    with _obs.span("lengths"):
+        axes = _STREAM_DISPATCH[family][3]
+        coef = args[axes["coef"]]
+        # a copy from host memory waits for the work queued ahead of it
+        copied = (not torch.is_tensor(lengths)
+                  or lengths.device.type != coef.device.type)
+        if not torch.is_tensor(lengths):
+            lengths = torch.as_tensor(np.asarray(lengths))
+        with _obs.sync(coef.device if copied else None, "lengths"):
+            lengths = lengths.to(coef.device)
+        t_axis = torch.arange(coef.shape[1], device=coef.device)
+        live = t_axis[None, :] < lengths[:, None]                  # (B, T)
+        out = list(args)
+        out[axes["coef"]] = coef * live[:, :, None, None]
+        out[axes["mask"]] = args[axes["mask"]] * live[:, :, None]
+        if axes["ren"] is not None:
+            ren = args[axes["ren"]]
+            out[axes["ren"]] = torch.where(live[:, :, None], ren,
+                                           torch.full_like(ren, -1))
+        if axes["live"] is not None:
+            out[axes["live"]] = (args[axes["live"]]
+                                 * live.to(args[axes["live"]].dtype))
+        return tuple(out)
 
 
 def pack(family: str, *args, lengths=None, residency: str = "vmem") -> tuple:
