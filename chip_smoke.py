@@ -6,7 +6,7 @@
 Phases (any failure exits non-zero):
   1. environment: card name and power limit, torch / CUDA versions, TF32
      off, bf16 reduced-precision reductions in matmuls off;
-  2. build all eighteen kernels from src/repro_torch/kernels/csrc (eleven
+  2. build all nineteen kernels from src/repro_torch/kernels/csrc (twelve
      sources, one nvcc per source, all at once), and hold the port's
      shared-memory estimate (engine.smem_bytes) equal to each library's own;
      0 spill bytes in ptxas's report for gcrn_step, stacked_step,
@@ -305,7 +305,7 @@ Then, with the serving weights freed, the LM training path:
     results/dryrun_torch/chip_smoke/).
 Prints ms/snapshot per path, an {"analysis": {...}} line (sweep points,
 findings, log rows; with --parent, the turns), a {"kernels": [...]} line
-with all eighteen kernels and, last, the device line.
+with all nineteen kernels and, last, the device line.
 
     python3 chip_smoke.py [--parent DIR]
 
@@ -600,6 +600,8 @@ REPLACES = {
     "flash_fwd": "src/repro/kernels/flash_attention.py:240",
     "flash_bwd_dkv": "src/repro/kernels/flash_attention.py:155",
     "flash_bwd_dq": "src/repro/kernels/flash_attention.py:196",
+    # no Pallas kernel: XLA ops in EvolveGCN._edge_aggs
+    "edge_terms": "src/repro/core/evolvegcn.py:112",
 }
 
 
@@ -2176,6 +2178,62 @@ def kernel_durations() -> None:
     PENDING_DURATIONS.clear()
 
 
+def edge_terms_narrow(seed):
+    """The edge-term kernel's arguments at narrow odd shapes: B 2, T 3,
+    n 37 (a partial 32-row block), k 1 and 27, De 3, layer widths 13 and
+    24 (a float4 across din 13), one empty snapshot, coef 0 on a tenth of
+    the lanes."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rand = lambda *s: torch.rand(s, generator=g, device="cuda")
+    for k in (1, 27):
+        n_nodes = (rand(2, 3) * 38).to(torch.int32)
+        n_nodes[0, 1] = 0
+        live = (torch.arange(37, device="cuda")[:, None]
+                < n_nodes[..., None, None].long()).expand(2, 3, 37, k)
+        eidx = torch.where(live, (rand(2, 3, 37, k) * 50).long(), 0)
+        coef = torch.where(live & (rand(2, 3, 37, k) > 0.1),
+                           rand(2, 3, 37, k) * 2 - 1, 0.0)
+        yield (eidx.to(torch.int32), coef, rand(2, 3, 50, 3) * 4 - 2,
+               n_nodes, [rand(3, 13) * 2 - 1, rand(3, 24) * 2 - 1], 24)
+
+
+def check_edge_terms(params, batches) -> dict:
+    """The edge-term kernel against its plain version (the torch path's
+    terms in the square layout) bit for bit: at narrow odd shapes, then on
+    the main path's snapshots (``batches``: the T = 8 B = 2 check batch and
+    the whole stream); timed on the whole stream beside its bound (the
+    output's bytes, zeros included, and 8 bytes a live row's lane) and the
+    plain version; its record."""
+    name = "edge_terms"
+    for i, args in enumerate(edge_terms_narrow(SEED)):
+        check(torch.equal(engine.edge_terms(*args),
+                          engine.edge_terms_plain(*args)),
+              f"{name} narrow case {i} bit for bit")
+    w_edge = [p["w_edge"] for p in params["gcn"]]
+    D = ops.square_width(layer_dims(EVOLVEGCN))
+    for snaps in batches:
+        args = (snaps.neigh_eidx, snaps.neigh_coef, snaps.edge_feat,
+                snaps.n_nodes, w_edge, D)
+        check(torch.equal(engine.edge_terms(*args),
+                          engine.edge_terms_plain(*args)),
+              f"{name} main-path snapshots {tuple(snaps.n_nodes.shape)} "
+              "bit for bit")
+    ms = cuda_ms(lambda: engine.edge_terms(*args), reps=20)
+    plain_ms = cuda_ms(lambda: engine.edge_terms_plain(*args), reps=3)
+    n, k = snaps.neigh_eidx.shape[-2:]
+    rows = float(snaps.n_nodes.clamp(0, n).sum())
+    S = int(np.prod(snaps.neigh_eidx.shape[:-2]))
+    flops = rows * (2 * k * w_edge[0].shape[0]
+                    + sum(2 * w.numel() for w in w_edge))
+    byts = 4 * S * len(w_edge) * n * D + 8 * rows * k
+    bound_ms, bound_by = bound(flops, byts)
+    log(f"{name}: main-path snapshots bit for bit; {ms:.4f} ms kernel, "
+        f"{plain_ms:.4f} ms plain, bound {bound_ms:.4f} ms ({flops:.3e} "
+        f"flop, {byts:.3e} B, {bound_by})")
+    return record(name, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                  bound_ms=bound_ms, bound_by=bound_by)
+
+
 def check_step_kernel(name, plain, calls, groups, cost, library=None):
     """A per-step kernel vs its plain version on every recorded main-path
     call (<= 1e-4), then timed per call on each of ``groups`` ({label:
@@ -2279,8 +2337,12 @@ def small_shapes_check():
                    [f32(d[0], 3 * d[0]) for d in dims],
                    [f32(3 * d[0]) for d in dims]),
     }
-    edge_args = {"gcrn": em, "stacked": em,
-                 "evolve": [f32(B, T, n, d[0]) for d in dims]}
+    # the evolve edge terms in the square layout (B, T, L, n, D) the pack
+    # reads: layer l's in its first din_l columns, zeros past them
+    eagg = np.zeros((B, T, len(dims), n, ops.square_width(dims)), np.float32)
+    for l, d in enumerate(dims):
+        eagg[:, :, l, :, :d[0]] = f32(B, T, n, d[0])
+    edge_args = {"gcrn": em, "stacked": em, "evolve": eagg}
     for family, args in cases.items():
         for edges in (False, True):
             full = args + (edge_args[family],) if edges else args
@@ -2387,7 +2449,9 @@ def expected_kernels(cfg, level, impl) -> set:
     none at baseline through the session: plain PyTorch steps)."""
     family = api.family_for(cfg)
     if level == "v3":
-        return {ENGINE[family]}
+        # EvolveGCN-O's edge terms: one edge-term launch a call
+        return {ENGINE[family]} | ({"edge_terms"} if family == "evolve"
+                                   and cfg.edge_dim else set())
     names = set()
     if level == "v2":
         names.add(f"{family}_step")
@@ -2554,9 +2618,10 @@ def launched(label: str) -> dict:
 def capacity_path(n_global, np_stream, gen) -> dict:
     """EvolveGCN-O at hidden 256 (square D = 256) on the stream's first
     CAPACITY_T snapshots: the resident engine's W copy is over the card's
-    shared memory, so the resident session refuses with the hint to page,
-    launching nothing; the paged session (td 16, depth 2) runs and matches
-    its force-ref run. Returns the paged run's launch counts."""
+    shared memory, so the resident session refuses with the hint to page
+    before the engine's launch (its one launch is the edge terms, which
+    come first); the paged session (td 16, depth 2) runs and matches its
+    force-ref run. Returns the paged run's launch counts."""
     cfg = dataclasses.replace(EVOLVEGCN, hidden=CAPACITY_HIDDEN)
     model = build_model(cfg, n_global=n_global)
     params = ops.to_device(model.init(gen), "cuda")
@@ -2570,7 +2635,9 @@ def capacity_path(n_global, np_stream, gen) -> dict:
     msg = expect_raises(lambda: session({}).run(snaps), ValueError,
                         "page the state store with plan(state_residency="
                         "'hbm_paged', td=...)")
-    check(not any(engine.LAUNCHES.values()), f"{label}: refused, launched")
+    refused = {k: v for k, v in engine.LAUNCHES.items() if v}
+    check(refused == {"edge_terms": 1},
+          f"{label}: refused, launched {refused}")
     log(f"{label} resident: refused: {msg}")
     engine.reset_launches()
     sess = session(paged_plan(2))
@@ -4124,6 +4191,16 @@ def serve_counts(label, stats, want: dict) -> dict:
     return counts
 
 
+def serve_want(cfg, name, launches) -> dict:
+    """The launch counts a serve path of ``cfg`` must show: its engine
+    ``name`` at ``launches``, one a served chunk, and as many of every
+    other kernel its v3 level launches a call (EvolveGCN-O's edge
+    terms)."""
+    family = api.family_for(cfg)
+    return {k: launches for k in expected_kernels(cfg, "v3", None)
+            - {ENGINE[family]} | {name}}
+
+
 def serve_timing(label, stats, card) -> None:
     served = len(stats.per_snapshot_ms)
     log(f"serve {label}: {stats.mean_latency_ms:.4f} ms/snapshot staging + "
@@ -4163,7 +4240,8 @@ def serve_streams(params, n_global, snaps, feat, buckets, card) -> dict:
             engine.reset_launches()
             outs, stats = sess.serve(snaps)
             torch.cuda.synchronize()
-            counts = serve_counts(label, stats, {name: stats.launches})
+            counts = serve_counts(label, stats,
+                                  serve_want(cfg, name, stats.launches))
             serve_timing(label, stats, card)
             serve_check(label, serve_errs(outs, sess.state, snaps, ref),
                         TOL_STREAM)
@@ -4480,10 +4558,11 @@ def continuous_stats(label, stats, probe=None) -> None:
 def serve_multi_run(label, cfg, params, n_global, feat, streams, card,
                     want=None, probe=False, **plan_kw) -> tuple:
     """One serve_multi on a fresh server and fresh states, deterministic
-    algorithms on; its launch counts held to ``want`` (the family's engine
-    at stats.launches by default). With ``probe`` the pool is instrumented
-    (pool_probe) and the device memory read around the run. Returns
-    (result, counts, probe record, memory record)."""
+    algorithms on; its launch counts held to ``want`` (by default
+    ``serve_want``: the family's engine at stats.launches). With ``probe``
+    the pool is instrumented (pool_probe) and the device memory read
+    around the run. Returns (result, counts, probe record, memory
+    record)."""
     sess = serve_session(cfg, params, n_global, feat, **plan_kw)
     srv = SnapshotServer(session=sess)
     mem = {}
@@ -4506,9 +4585,9 @@ def serve_multi_run(label, cfg, params, n_global, feat, streams, card,
     del states
     stats = res[2]
     if want is None:
-        want = {ENGINE[api.family_for(cfg)] if sess.plan.state_residency
-                != "hbm_paged" else PAGED[api.family_for(cfg)]:
-                stats.launches}
+        family = api.family_for(cfg)
+        want = serve_want(cfg, ENGINE[family] if sess.plan.state_residency
+                          != "hbm_paged" else PAGED[family], stats.launches)
     counts = serve_counts(label, stats, want)
     serve_timing(label, stats, card)
     if sess.plan.scheduler == "continuous":
@@ -5728,6 +5807,7 @@ def main(argv=None) -> int:
     records += [check_rnn_cell(cell, rnn_inputs(cell, RNN_ROWS, RNN_DIN,
                                                 RNN_H, SEED))
                 for cell in ("fused_gru", "fused_lstm")]
+    records.append(check_edge_terms(params[EVOLVEGCN.name], (check_b, solo)))
     log(f"phase 3 (kernel checks and timings): {time.time() - t0:.1f} s")
 
     # phase 4: the main paths, counts read around each

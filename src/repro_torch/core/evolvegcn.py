@@ -30,6 +30,7 @@ from repro_torch.configs.dgnn import DGNNConfig
 from repro_torch.core import gcn as G
 from repro_torch.core import rnn as R
 from repro_torch.graph.padding import PaddedSnapshot
+from repro_torch.kernels import engine as _engine
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as _ref
 
@@ -93,39 +94,33 @@ class EvolveGCN:
                                     force_ref=force_ref)
         return {"weights": w_now}, out
 
-    def _edge_aggs(self, params: dict, snaps: PaddedSnapshot):
+    def _edge_aggs(self, params: dict, snaps: PaddedSnapshot, *,
+                   force_ref: bool = False):
         """Per-layer pre-aggregated edge term sum_k coef[v,k] *
-        (edge_feat @ w_edge_l)[eidx[v,k]], shape (..., n, din_l). It is
-        additive in the ELL aggregation, so it factors out of the kernel;
-        it is linear in the edge features, so they are aggregated once
-        (width De) and each layer's w_edge applies to that aggregate.
+        (edge_feat @ w_edge_l)[eidx[v,k]]. It is additive in the ELL
+        aggregation, so it factors out of the engine. Its sums run in a
+        fixed order, lane by lane, so a snapshot's term has the same bits
+        whatever the launch's B and T: the serve engine's chunking, tick by
+        tick under the continuous scheduler, must not change what a tenant
+        is served.
 
-        Both sums run as elementwise adds in a fixed order (lane by lane,
-        then edge feature by edge feature), so a snapshot's term has the
-        same bits whatever the launch's B and T: a reduction kernel's or a
-        GEMM's summation order follows the tensor's shape (on an H100,
-        ``agg @ w_edge`` of a T 2 chunk and of a T 8 chunk differed in the
-        last bit), and the serve engine's chunking, tick by tick under the
-        continuous scheduler, must not change what a tenant is served."""
+        The terms come as one (..., L, n, dmax) tensor, the square layout
+        the evolve engine reads (``engine.edge_terms``). CUDA tensors take
+        the edge-term kernel; the CPU and ``force_ref`` its plain version,
+        the torch ops of ``ref.evolve_edge_terms`` (the same bits)."""
         if not self.cfg.edge_dim:
             return None
+        terms = _engine.edge_terms_plain if force_ref else _engine.edge_terms
         with obs.span("edge_terms"):
-            msgs = _ref.ell_gather_msgs(snaps.neigh_eidx, snaps.neigh_coef,
-                                        snaps.neigh_eidx, snaps.edge_feat)
-            agg = msgs[..., 0, :]
-            for k in range(1, msgs.shape[-2]):
-                agg = agg + msgs[..., k, :]
-            terms = []
-            for p in params["gcn"]:
-                w = p["w_edge"]
-                term = agg[..., :1] * w[0]
-                for d in range(1, w.shape[0]):
-                    term = term + agg[..., d:d + 1] * w[d]
-                terms.append(term)
-            return terms
+            return terms(snaps.neigh_eidx.to(torch.int32).contiguous(),
+                         snaps.neigh_coef.contiguous(),
+                         snaps.edge_feat.contiguous(),
+                         snaps.n_nodes.to(torch.int32).contiguous(),
+                         [p["w_edge"] for p in params["gcn"]],
+                         kops.square_width(layer_dims(self.cfg)))
 
-    def stream_args(self, params: dict, state: dict,
-                    snaps: PaddedSnapshot) -> tuple:
+    def stream_args(self, params: dict, state: dict, snaps: PaddedSnapshot,
+                    *, force_ref: bool = False) -> tuple:
         """The stream engine's argument list for ``snaps`` (the order of
         kernels/ops.stream_steps), live flags and edge terms built here."""
         # no-op (all-padding) snapshots must not evolve the weights
@@ -136,7 +131,7 @@ class EvolveGCN:
                 [g["wx"] for g in params["gru"]],
                 [g["wh"] for g in params["gru"]],
                 [g["b"] for g in params["gru"]],
-                self._edge_aggs(params, snaps))
+                self._edge_aggs(params, snaps, force_ref=force_ref))
 
     def _run(self, params: dict, state: dict, snaps: PaddedSnapshot,
              batched: bool, tn=128, td="cfg", lengths=None,
@@ -144,7 +139,7 @@ class EvolveGCN:
              device_spec=None):
         td = self.cfg.stream_td if td == "cfg" else td
         dev = params["gru"][0]["wx"].device
-        args = self.stream_args(params, state, snaps)
+        args = self.stream_args(params, state, snaps, force_ref=force_ref)
         if batched:
             outs, wT = kops.stream_steps_batched(
                 self.stream_family, *args, tn=tn, td=td, lengths=lengths,

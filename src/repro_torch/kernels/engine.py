@@ -1,6 +1,6 @@
 """Build, bind and launch the hand-written CUDA kernels.
 
-Eighteen kernels from eleven sources under ``csrc/``: the stream engines of
+Nineteen kernels from twelve sources under ``csrc/``: the stream engines of
 the three dense-snapshot families (``gcrn_engine.cu``, ``evolve_engine.cu``,
 ``stacked_engine.cu``), of the event-driven TGN (``tgn_engine.cu``) and of
 the static GCN (``static_engine.cu``), all level v3; the paged variants of
@@ -9,9 +9,10 @@ the same source compiled with its paging flag, the t-1 state staged
 through a ring of td-wide windows); the V2 fused steps (``gcrn_step.cu``,
 ``stacked_step.cu``); the ELL SpMM of the message-passing stage
 (``ell_spmm.cu``, ``impl="pallas"``); the fused GRU and LSTM cells
-(``fused_rnn.cu``); and the LM scaffold's flash attention: the forward,
-with and without the logsumexp rows (``flash_attention.cu``), and the
-backward's dK / dV and dQ passes (``flash_attention_bwd.cu``); their
+(``fused_rnn.cu``); EvolveGCN-O's edge terms, in the layout its engine
+reads (``edge_terms.cu``); and the LM scaffold's flash attention: the
+forward, with and without the logsumexp rows (``flash_attention.cu``), and
+the backward's dK / dV and dQ passes (``flash_attention_bwd.cu``); their
 wrappers and plain versions are in kernels/flash_attention.py. Each source is
 compiled by ``nvcc`` at first use into a shared library with a plain C
 interface, keyed by a hash of the sources and flags, under
@@ -90,7 +91,7 @@ KERNELS = ("gcrn_engine", "evolve_engine", "stacked_engine", "tgn_engine",
            "static_engine", "gcrn_step", "stacked_step", "ell_spmm",
            "gcrn_engine_paged", "evolve_engine_paged", "stacked_engine_paged",
            "tgn_engine_paged", "fused_gru", "fused_lstm", "flash_attention",
-           "flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+           "flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "edge_terms")
 #: the source (``csrc/<source>.cu``, one library) of each kernel
 SOURCE = {**{name: name for name in KERNELS[:8]},
           **{f"{family}_engine_paged": f"{family}_engine"
@@ -99,7 +100,8 @@ SOURCE = {**{name: name for name in KERNELS[:8]},
           "flash_attention": "flash_attention",
           "flash_fwd": "flash_attention",
           "flash_bwd_dkv": "flash_attention_bwd",
-          "flash_bwd_dq": "flash_attention_bwd"}
+          "flash_bwd_dq": "flash_attention_bwd",
+          "edge_terms": "edge_terms"}
 
 #: the multiple kernels/ops.py rounds the square width D of the evolve and
 #: static packs up to: the evolve kernel needs it (its GRU's gwx / gwh
@@ -169,6 +171,10 @@ STATIC_MAX_LAYERS = 32
 #: the ELL SpMM's launch (``ell_spmm.cu``): threads a CTA; a row takes a
 #: warp, or half of one where it is at most 16 vectors wide
 SPMM_THREADS = 256
+#: the edge-term kernel's launch (``edge_terms.cu``): rows a CTA, and the
+#: layers a launch takes (its parameters hold each layer's w_edge pointer
+#: and width)
+EDGE_ROWS, EDGE_MAX_LAYERS = 32, 32
 
 #: launches per kernel since the last ``reset_launches()``; only a real
 #: kernel launch counts, never the plain path
@@ -274,6 +280,7 @@ _SIGNATURES = {
     "flash_fwd": (5, 7, 0),
     "flash_bwd_dkv": (8, 7, 0),
     "flash_bwd_dq": (7, 7, 0),
+    "edge_terms": (7, 7, 4),
 }
 
 
@@ -609,6 +616,11 @@ _SMEM = {
     # a fixed ring of staged chunks, whatever din and H
     "fused_gru": (("din", "H"), lambda din, H: 29696),
     "fused_lstm": (("din", "H"), lambda din, H: 33792),
+    # every layer's w_edge padded to D, a block's rows' lanes (eidx and
+    # coef, k rounded up to odd a row) and their aggregates
+    "edge_terms": (("k", "De", "L", "D"),
+                   lambda k, De, L, D: 4 * (L * De * D + 2 * EDGE_ROWS
+                                            * (k | 1) + EDGE_ROWS * De)),
 }
 
 
@@ -1406,10 +1418,9 @@ def evolve_plain(idx, coef, x, mask, live, w0, bg, gwx, gwh, gb, eagg=None):
     """The EvolveGCN kernel's function in plain PyTorch, on the same packed
     inputs (every layer one square width D)."""
     L = w0.shape[1]
-    ea = None if eagg is None else [eagg[:, :, l] for l in range(L)]
     outs, wT = _ref.evolve_stream_batched_ref(
         idx, coef, x, mask, live, [w0[:, l] for l in range(L)],
-        list(bg), list(gwx), list(gwh), list(gb), ea)
+        list(bg), list(gwx), list(gwh), list(gb), eagg)
     return outs, torch.stack(wT, dim=1)
 
 
@@ -1543,6 +1554,73 @@ def evolve_engine_paged(idx, coef, x, mask, live, w0, bg, gwx, gwh, gb,
                          dict(mask=mask, live=live, w=w0), ring, proto)
     return _evolve_cuda(name, (td, depth), dims, smem, (inputs, ring), proto,
                         *inputs)
+
+
+# ------------------------------------------------------- edge terms ----
+
+def edge_terms_plain(eidx, coef, feat, n_nodes, w_edge, width: int):
+    """The edge-term kernel's function in plain PyTorch: the torch path's
+    terms (``ref.evolve_edge_terms``) on rows below ``n_nodes``, zeros on
+    the rest, each layer zero-padded to ``width`` and stacked on the
+    layer axis."""
+    n = eidx.shape[-2]
+    live = (torch.arange(n, device=eidx.device)
+            < n_nodes[..., None])[..., None]
+    return torch.stack([
+        torch.nn.functional.pad(torch.where(live, t, 0.0),
+                                (0, width - t.shape[-1]))
+        for t in _ref.evolve_edge_terms(eidx, coef, feat, w_edge)], dim=-3)
+
+
+def edge_terms(eidx, coef, feat, n_nodes, w_edge, width: int):
+    """EvolveGCN-O's per-layer edge terms, written in the square layout the
+    evolve engine reads (``ops._square_layers``), by one launch.
+
+    eidx (..., n, k) int32 ids into each snapshot's edge-feature table
+    feat (..., E, De), coef (..., n, k), n_nodes (...) int32, ``w_edge``
+    the L layers' edge projections (De, din_l), ``width`` the square width
+    D (a multiple of 4, at least every din_l); float tensors float32.
+    Returns (..., L, n, D): layer l's term sum_d (sum_j coef[v, j] *
+    feat[eidx[v, j], d]) * w_edge_l[d, c] in the columns c < din_l of rows
+    v < n_nodes, with ``ref.evolve_edge_terms``' bits; zeros elsewhere.
+    The ids are not range-checked on the host, which would block the call
+    on the card: the kernel traps on an id outside [0, E), as torch's
+    gather asserts."""
+    name = "edge_terms"
+    refuse_grad(name, eidx, coef, feat, *w_edge)
+    if _device_kind(name, feat) == "cpu":
+        return edge_terms_plain(eidx, coef, feat, n_nodes, w_edge, width)
+    lead, (n, k) = eidx.shape[:-2], eidx.shape[-2:]
+    E, De = feat.shape[-2:]
+    L = len(w_edge)
+    f32, i32 = torch.float32, torch.int32
+    _check(name, feat.device, eidx=(eidx, i32), coef=(coef, f32),
+           feat=(feat, f32), n_nodes=(n_nodes, i32),
+           **{f"w_edge[{l}]": (w, f32) for l, w in enumerate(w_edge)})
+    dins = [w.shape[-1] for w in w_edge]
+    if (coef.shape != eidx.shape or feat.shape[:-2] != lead
+            or n_nodes.shape != lead
+            or any(w.shape != (De, c) for w, c in zip(w_edge, dins))):
+        raise ValueError(f"{name}: inconsistent shapes")
+    if not (1 <= L <= EDGE_MAX_LAYERS and k >= 1 and E >= 1 and De >= 1
+            and width % 4 == 0 and 1 <= min(dins)
+            and max(dins) <= width):
+        raise ValueError(
+            f"{name}: L={L} (1 to {EDGE_MAX_LAYERS}), k={k}, E={E}, "
+            f"De={De}, widths {dins} within width={width} (a multiple "
+            "of 4) are not taken")
+    _check_smem(name, smem_bytes(name, k=k, De=De, L=L, D=width),
+                f"k={k}, De={De}, L={L}, D={width}")
+    out = torch.empty((*lead, L, n, width), dtype=f32, device=feat.device)
+    lib = _library(name)
+    w_ptrs = (ctypes.c_void_p * L)(*(w.data_ptr() for w in w_edge))
+    widths = (ctypes.c_int * L)(*dins)
+    with _obs.span("launch", kernel=name), torch.cuda.device(feat.device):
+        _launch(name, lib, _ptr(eidx), _ptr(coef), _ptr(feat),
+                _ptr(n_nodes), ctypes.cast(w_ptrs, ctypes.c_void_p),
+                ctypes.cast(widths, ctypes.c_void_p), _ptr(out),
+                math.prod(lead), n, k, E, De, L, width, _stream_ptr())
+    return out
 
 
 # ---------------------------------------------------------- stacked ----

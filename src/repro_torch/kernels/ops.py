@@ -262,15 +262,23 @@ def _pad_matrix_gru_params(wx, wh, b, dmax: int):
             torch.cat([_pad_to(g, dmax, 0) for g in b.chunk(3)]))
 
 
+def square_width(dims) -> int:
+    """The common square width ``dmax`` of the evolve and static packs: the
+    widest (din, dout) of the layers' ``dims`` (or of the last two axes of
+    their weights' shapes), rounded up to the kernels' ``ROW_ALIGN``."""
+    return round_up(max(max(d[-2:]) for d in dims), _engine.ROW_ALIGN)
+
+
 def _square_layers(weights, b_gcn, node_feat, edge_aggs, stack_dim: int):
     """Every GCN layer width padded into one common square ``dmax``
-    (rounded up to the kernels' ``ROW_ALIGN``), as the JAX packs do: dmax,
-    the weights stacked on ``stack_dim`` (dmax, dmax) each, the biases
-    (L, dmax), the features (..., dmax) and the edge terms
-    (..., L, n, dmax) or None."""
-    dmax = round_up(max(max(w.shape[-2:]) for w in weights), _engine.ROW_ALIGN)
-    eagg = None
-    if edge_aggs is not None:
+    (``square_width``), as the JAX packs do: dmax, the weights stacked on
+    ``stack_dim`` (dmax, dmax) each, the biases (L, dmax), the features
+    (..., dmax) and the edge terms (..., L, n, dmax) or None: the static
+    family's per-layer list padded and stacked, the evolve family's tensor
+    as it is (``engine.edge_terms`` writes that layout)."""
+    dmax = square_width([w.shape for w in weights])
+    eagg = edge_aggs
+    if isinstance(edge_aggs, (list, tuple)):
         eagg = torch.stack([_pad_to(ea, dmax, -1) for ea in edge_aggs],
                            dim=-3).contiguous()
     return (dmax,
@@ -348,7 +356,7 @@ def _evolve_launch(batched, neigh_idx, neigh_coef, node_feat, node_mask,
     """Pack + kernel wrapper for the weights-evolved family; returns
     outputs and per-layer weights sliced back to their true shapes."""
     if not batched:
-        ea = None if edge_aggs is None else [a[None] for a in edge_aggs]
+        ea = None if edge_aggs is None else edge_aggs[None]
         outs, wT = _evolve_launch(
             True, neigh_idx[None], neigh_coef[None], node_feat[None],
             node_mask[None], live[None], [w[None] for w in weights], b_gcn,
@@ -676,7 +684,9 @@ def stream_steps(family: str, *args, tn: int = 128, td=None,
       stacked (idx, coef, eidx, x, renumber, mask, h0, w_gcn, b_gcn, wx,
                wh, b, edge_msg=None) -> (outs, hT)
       evolve  (idx, coef, x, mask, live, weights, b_gcn, gru_wx, gru_wh,
-               gru_b, edge_aggs=None) -> (outs, weights_T)
+               gru_b, edge_aggs=None) -> (outs, weights_T)   [edge_aggs
+               (T, L, n, dmax), the square layout ``engine.edge_terms``
+               writes: layer l's terms in its first din_l columns]
       tgn     (idx, coef, ts, x, renumber, mask, mem0, freq, w_in, wx, wh,
                b) -> (outs, memT)        [T sequences event batches; ts
                carries each lane's event time]

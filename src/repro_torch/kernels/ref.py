@@ -33,6 +33,32 @@ def ell_spmm(neigh_idx, neigh_coef, neigh_eidx, x, edge_msg=None):
                            edge_msg).sum(dim=-2)
 
 
+def evolve_edge_terms(neigh_eidx, neigh_coef, edge_feat, w_edges):
+    """EvolveGCN-O's per-layer edge terms sum_k coef[v,k] * (edge_feat @
+    w_edge_l)[eidx[v,k]], (..., n, din_l) each, for the layers' ``w_edges``
+    (De, din_l). The term is linear in the edge features, so they are
+    aggregated once (width De) and each layer's w_edge applies to that
+    aggregate.
+
+    Both sums run as elementwise adds in a fixed order (lane by lane, then
+    edge feature by edge feature), so a snapshot's term has the same bits
+    whatever the batch's B and T: a reduction kernel's or a GEMM's
+    summation order follows the tensor's shape (on an H100, ``agg @
+    w_edge`` of a T 2 chunk and of a T 8 chunk differed in the last bit).
+    The edge-term kernel (csrc/edge_terms.cu) keeps this order."""
+    msgs = ell_gather_msgs(neigh_eidx, neigh_coef, neigh_eidx, edge_feat)
+    agg = msgs[..., 0, :]
+    for k in range(1, msgs.shape[-2]):
+        agg = agg + msgs[..., k, :]
+    terms = []
+    for w in w_edges:
+        term = agg[..., :1] * w[0]
+        for d in range(1, w.shape[0]):
+            term = term + agg[..., d:d + 1] * w[d]
+        terms.append(term)
+    return terms
+
+
 def fused_gru(x, h, wx, wh, b):
     gx = x @ wx + b
     gh = h @ wh
@@ -168,10 +194,11 @@ def evolve_stream_batched_ref(neigh_idx, neigh_coef, node_feat, node_mask,
     (B, din_l, dout_l) evolving weights; GRU params and GCN biases shared.
 
     Per step t the L-layer GCN consumes the current weights (agg @ W_l +
-    b_l, ReLU between layers, masked every layer; ``edge_aggs[l]`` (B, T,
-    n, din_l) is the pre-aggregated edge term), then on live steps the
-    matrix-GRU evolves every layer's weight for step t+1. Returns (per-step
-    outputs (B, T, n, out_dim), final weights tuple)."""
+    b_l, ReLU between layers, masked every layer; ``edge_aggs`` (B, T, L,
+    n, D), the square layout the edge-term kernel writes, holds layer l's
+    pre-aggregated edge term in its first din_l columns), then on live
+    steps the matrix-GRU evolves every layer's weight for step t+1.
+    Returns (per-step outputs (B, T, n, out_dim), final weights tuple)."""
     ws = list(weights0)
     outs = []
     for t in range(neigh_idx.shape[1]):
@@ -181,7 +208,7 @@ def evolve_stream_batched_ref(neigh_idx, neigh_coef, node_feat, node_mask,
         for i, w in enumerate(ws):
             agg = (_take_rows(x, idx) * coef[..., None]).sum(dim=-2)
             if edge_aggs is not None:
-                agg = agg + edge_aggs[i][:, t]
+                agg = agg + edge_aggs[:, t, i, :, :w.shape[-2]]
             h = agg @ w + b_gcn[i]
             if i < len(ws) - 1:
                 h = torch.relu(h)
@@ -198,11 +225,10 @@ def evolve_stream_ref(neigh_idx, neigh_coef, node_feat, node_mask, live,
                       weights0, b_gcn, gru_wx, gru_wh, gru_b, edge_aggs=None):
     """One EvolveGCN stream: (T, n, ...) arrays, per-layer (din_l, dout_l)
     weights. Returns (per-step outputs (T, n, out_dim), final weights)."""
-    ea = None if edge_aggs is None else [a[None] for a in edge_aggs]
     outs, wT = evolve_stream_batched_ref(
         neigh_idx[None], neigh_coef[None], node_feat[None], node_mask[None],
         live[None], [w[None] for w in weights0], b_gcn, gru_wx, gru_wh,
-        gru_b, ea)
+        gru_b, None if edge_aggs is None else edge_aggs[None])
     return outs[0], tuple(w[0] for w in wT)
 
 

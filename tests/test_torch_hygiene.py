@@ -273,6 +273,12 @@ def _grad_case(name):
                "stacked_step": ops.stacked_fused_step}[name]
         return (getattr(engine, name), args, {},
                 lambda: ref(*args, force_ref=True))
+    if name == "edge_terms":
+        args = (i(2, n, k), torch.ones(2, n, k), z(2, 6, d),
+                torch.full((2,), n, dtype=torch.int32), [z(d, d), z(d, h)],
+                h)
+        return (engine.edge_terms, args, {},
+                lambda: engine.edge_terms_plain(*args))
     if name in ("fused_gru", "fused_lstm"):
         g = 3 if name == "fused_gru" else 4
         c = (z(16, 8),) if name == "fused_lstm" else ()

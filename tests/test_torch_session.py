@@ -107,6 +107,33 @@ def test_session_run_batched_ragged_matches_jax(jax_oracle, name, td):
     _assert_state_close(tstates, jstates, f"{name} batched")
 
 
+@pytest.mark.parametrize("force_ref", [False, True])
+def test_evolve_edge_terms_on_the_cpu_are_the_jax_terms(force_ref):
+    """EvolveGCN-O's edge terms on the CPU, with force_ref or without, take
+    the torch ops (the edge-term kernel is not launched), written in the
+    square layout (..., L, n, dmax), and agree with the JAX package's
+    per-layer terms, which project the edge features before the gather
+    (so within ATOL, not bit for bit)."""
+    from repro_torch.kernels import engine
+
+    case = harness.make_case("evolvegcn", T=5, B=3)
+    assert case.cfg.edge_dim
+    jsess, tsess = _sessions(case)
+    engine.reset_launches()
+    for chunk in case.stacked:
+        want = jsess.model._edge_aggs(jsess.params, chunk)
+        got = tsess.model._edge_aggs(tsess.params,
+                                     _port_snaps(chunk).to("cpu"),
+                                     force_ref=force_ref)
+        assert got.shape[-3] == len(want)
+        for l, w in enumerate(want):
+            din = w.shape[-1]
+            np.testing.assert_allclose(got[..., l, :, :din].numpy(),
+                                       np.asarray(w), atol=ATOL)
+            assert not got[..., l, :, din:].any()
+    assert engine.LAUNCHES["edge_terms"] == 0
+
+
 def test_state_from_jax_continues_a_stream(jax_oracle):
     case = harness.make_case("gcrn-m2", T=5, B=1)
     jsess, tsess = _sessions(case)
