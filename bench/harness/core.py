@@ -1,8 +1,8 @@
 """One run of one cell: set-up, the measured window, the check of what the
 timed path produced, and the metrics.
 
-Everything that belongs to one configuration, traffic mix or metric is
-found by its name from ``BENCHMARK.json``:
+Everything that belongs to one configuration, traffic mix, call shape or
+metric is found by its name from ``BENCHMARK.json``:
 
 * the configuration's file (``configs[].file``), which names the port's
   model and plan, the engine source to build and its kernel's name, and
@@ -10,14 +10,16 @@ found by its name from ``BENCHMARK.json``:
 * ``bench/reference/<config>.py``: the plain reference, and the
   parameters the benchmark makes;
 * ``bench/work/<config>.py``: the operations and bytes of a stream;
-* ``bench/traffic/<traffic>.json``: the stream pool and how calls take
-  streams from it;
+* ``bench/traffic/<traffic>.json``: the stream pool, how calls take
+  streams from it, the ``driver`` that makes the calls (``replay`` where
+  it names none) and a ``plan`` merged over the configuration's;
+* ``bench/drivers/<driver>.py``: everything between the seed and a call's
+  outputs, the system under test's side: the pool (where the driver makes
+  its own), the inputs' ingest, the session, and the timed calls, each
+  with the label of its root span;
 * ``bench/metrics/<metric>.py``: one reader a metric.
 
-The system under test is ``repro_torch``'s session API: each call is
-``BoosterSession.run`` (one stream, after ``reset_state``) or
-``BoosterSession.run_batched`` (a group of streams), and counts once its
-outputs are synchronised.
+A call counts once its outputs are synchronised.
 """
 from __future__ import annotations
 
@@ -75,6 +77,7 @@ class Cell:
     traffic: dict
     reference: object
     work: object
+    driver: object
 
     @classmethod
     def load(cls, root: Path, name: str) -> "Cell":
@@ -85,12 +88,22 @@ class Cell:
             raise KeyError(f"no workload {name!r} in BENCHMARK.json")
         cfg_entry = {c["name"]: c for c in man["configs"]}[wl["config"]]
         bench = root / "bench"
+        traffic = load_json(bench / "traffic" / f"{wl['traffic']}.json")
+        driver = traffic.get("driver", "replay")
         return cls(root, man, wl, load_json(root / cfg_entry["file"]),
-                   load_json(bench / "traffic" / f"{wl['traffic']}.json"),
+                   traffic,
                    load_module(bench / "reference" / f"{wl['config']}.py",
                                "reference", wl["config"]),
                    load_module(bench / "work" / f"{wl['config']}.py",
-                               "work", wl["config"]))
+                               "work", wl["config"]),
+                   load_module(bench / "drivers" / f"{driver}.py",
+                               "driver", driver))
+
+    @property
+    def plan(self) -> dict:
+        """The session's plan fields: the configuration's ``plan``, with the
+        traffic's ``plan`` merged over it."""
+        return {**self.config["plan"], **self.traffic.get("plan", {})}
 
     def metrics(self, trace: bool) -> list:
         """The metrics this cell reports: the end-to-end ones without a
@@ -110,38 +123,6 @@ def _sync(device) -> None:
         torch.cuda.synchronize()
 
 
-def ingest(pool: list, bucket: dict, device) -> list:
-    """Each stream through the port's own ingest (renumber, normalise, pad
-    into the bucket, stack over T) and onto the device, as a user replaying
-    history that is already resident."""
-    from repro_torch.graph.coo import COOSnapshot
-    from repro_torch.graph.csr import renumber_and_normalize
-    from repro_torch.graph.padding import pad_snapshot, stack_streams
-
-    out = []
-    for s in pool:
-        padded = [pad_snapshot(renumber_and_normalize(
-            COOSnapshot(snap.src, snap.dst, snap.ef, t)), s.feat,
-            bucket["n_pad"], bucket["e_pad"], bucket["k_max"])
-            for t, snap in enumerate(s.snaps)]
-        out.append(stack_streams(padded).to(device))
-    return out
-
-
-def make_session(cell: Cell, params: dict, n_global: int, device):
-    """The port's session at the configuration's model and plan."""
-    from repro_torch import api
-    from repro_torch.configs.dgnn import DGNNConfig
-
-    cfg = cell.config
-    dgnn = DGNNConfig(**cfg["dgnn"], **cfg["widths"])
-    b = cell.traffic["bucket"]
-    plan = api.plan(dgnn, **cfg["plan"], n_pad=b["n_pad"], e_pad=b["e_pad"],
-                    k_max=b["k_max"])
-    return api.BoosterSession(dgnn, plan, n_global=n_global, params=params,
-                              device=device)
-
-
 def call_groups(traffic: dict, P: int) -> list:
     """The pool indices each call takes, in turn: consecutive groups of
     ``streams_per_call`` streams, cycled."""
@@ -150,25 +131,6 @@ def call_groups(traffic: dict, P: int) -> list:
         raise ValueError(f"a pool of {P} streams does not split into calls "
                          f"of {k}")
     return [list(range(i, i + k)) for i in range(0, P, k)]
-
-
-def make_call(session, padded: list, group: list, port_state):
-    """The timed call of one group: its outputs (one a stream) and states
-    are returned unsynchronised."""
-    if len(group) == 1:
-        s = padded[group[0]]
-
-        def run_one():
-            session.reset_state()
-            outs = session.run(s)
-            return [outs], [port_state(session.state)]
-        return run_one, "session.run"
-    streams = [padded[i] for i in group]
-
-    def run_many():
-        states, outs = session.run_batched(streams)
-        return outs, [port_state(states, b) for b in range(len(group))]
-    return run_many, "session.run_batched"
 
 
 def compare(prog_outs: list, prog_states: list, ref_outs: list,
@@ -267,20 +229,21 @@ def run(root, workload: str, seed: int, seconds: float, trace: bool,
         torch.cuda.init()
     stages["build_and_context"] = time.time() - t_process
 
-    # ---- set-up: inputs, the port's ingest, params, session, warm-up ----
-    pool = _streams.generate_pool(traffic, seed, widths["in_dim"],
-                                  widths["edge_dim"])
+    # ---- set-up: inputs, the driver's ingest, params, session, warm-up ----
+    drv = cell.driver
+    make_pool = getattr(drv, "make_pool", _streams.generate_pool)
+    pool = make_pool(traffic, seed, widths["in_dim"], widths["edge_dim"])
     most = _streams.check_fits(pool, bucket)
     work = [cell.work.count(s, widths) for s in pool]
     stages["generate"] = time.time() - t_process
-    padded = ingest(pool, bucket, dev)
+    inputs = drv.ingest(pool, bucket, dev)
     stages["ingest_and_upload"] = time.time() - t_process
     G = max(s.n_global for s in pool)
     gen = torch.Generator(device=dev).manual_seed(seed % _streams.SEED_MOD)
     params = cell.reference.make_params(widths, gen, dev)
-    session = make_session(cell, params, G, dev)
+    session = drv.make_session(cell, params, G, dev, inputs)
     groups = call_groups(traffic, len(pool))
-    calls = [make_call(session, padded, g, cell.reference.port_state)
+    calls = [drv.make_call(session, inputs, g, cell.reference.port_state)
              for g in groups]
     shapes: dict = {}
     for i, g in enumerate(groups):
@@ -345,14 +308,18 @@ def run(root, workload: str, seed: int, seconds: float, trace: bool,
         clusters = engine.library_engine_cluster_config(
             cfg["engine"]["source"], traffic["streams_per_call"],
             **cfg["engine"]["dims"]).get("max_active_clusters")
-    del session, padded, calls
+    del session, inputs, calls
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
 
     # ---- the check, after the window: the plain reference ----
-    got = {j: (outs[b], states[b]) for gi, (outs, states) in
-           kept.kept.items() for b, j in enumerate(groups[gi])}
+    layout = getattr(drv, "layout", None)
+    got = {}
+    for gi, item in kept.kept.items():
+        outs, states = layout(*item, dev) if layout else item
+        got.update((j, (outs[b], states[b]))
+                   for b, j in enumerate(groups[gi]))
     del kept
     order = sorted(got)
     limits = dict(cfg["limits"], streams_unchecked=0.0)
@@ -416,3 +383,13 @@ def run(root, workload: str, seed: int, seconds: float, trace: bool,
     result["checks"] = {k: {"value": v, "limit": limits[k]}
                         for k, v in checks.items()}
     return result
+
+
+def __getattr__(name: str):
+    """``ingest``, ``make_session`` and ``make_call``, which the replay
+    driver (``bench/drivers/replay.py``) now holds, for callers that still
+    take them from here (``tools/session_spans.py cost``)."""
+    if name in ("ingest", "make_session", "make_call"):
+        path = Path(__file__).resolve().parents[1] / "drivers" / "replay.py"
+        return getattr(load_module(path, "driver", "replay"), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -24,7 +24,11 @@ SMALL_BUCKET = {"n_pad": 64, "e_pad": 256, "k_max": 32}
 def small_copy(dest: Path) -> Path:
     """BENCHMARK.json and bench/ copied to ``dest``, with the cells
     ``<config>.small-b4`` (one run_batched call of all 4 streams) and
-    ``<config>.small-b1`` (one stream a call) of a small pool."""
+    ``<config>.small-b1`` (one stream a call) of a small pool,
+    ``gcrn-m2.small-serve`` (the serve driver: one serve_multi call of all 4
+    streams, the continuous scheduler), and ``gcrn-m2.serve-tenants``, the
+    serve traffic at full size, which is not a cell of BENCHMARK.json yet
+    (PERF.md, "Open questions")."""
     shutil.copy(ROOT / "BENCHMARK.json", dest / "BENCHMARK.json")
     shutil.copytree(ROOT / "bench", dest / "bench",
                     ignore=shutil.ignore_patterns("out", "__pycache__"))
@@ -40,6 +44,15 @@ def small_copy(dest: Path) -> Path:
             man["workloads"].append({"name": f"{cfg}.{name}", "config": cfg,
                                      "traffic": name, "chips": 1,
                                      "why": "small, for the CPU tests"})
+    serve = json.loads((ROOT / "bench/traffic/serve-tenants.json").read_text())
+    (dest / "bench/traffic/small-serve.json").write_text(json.dumps(
+        dict(serve, pool=base["pool"], bucket=SMALL_BUCKET,
+             streams_per_call=4)))
+    for name, traffic in (("gcrn-m2.small-serve", "small-serve"),
+                          ("gcrn-m2.serve-tenants", "serve-tenants")):
+        man["workloads"].append({"name": name, "config": "gcrn-m2",
+                                 "traffic": traffic, "chips": 1,
+                                 "why": "the serve driver's tests"})
     (dest / "BENCHMARK.json").write_text(json.dumps(man))
     return dest
 

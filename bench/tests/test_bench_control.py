@@ -64,12 +64,12 @@ def test_tf32_rounding_keeps_ten_mantissa_bits():
 @pytest.mark.cuda
 @pytest.mark.parametrize("workload", [
     "gcrn-m2.replay-b16", "evolvegcn.replay-b16", "gcrn-m2.replay-b1",
-    "evolvegcn.replay-b1"])
-def test_on_the_card_program_correct_control_not(workload, tmp_path):
+    "evolvegcn.replay-b1", "gcrn-m2.serve-tenants"])
+def test_on_the_card_program_correct_control_not(workload, small_root):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the engines have no CPU mode")
-    r = core.run(ROOT, workload, 2 ** 31 + 101, 2.0, False,
-                 out_dir=tmp_path, control=True)
+    r = core.run(small_root, workload, 2 ** 31 + 101, 2.0, False,
+                 out_dir=small_root / "out", control=True)
     limits = {k: c["limit"] for k, c in r["checks"].items()}
     control = {k: c["value"] for k, c in r["control_checks"].items()}
     assert r["correct"], json.dumps(r["checks"])

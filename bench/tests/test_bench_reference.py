@@ -20,8 +20,8 @@ def test_reference_equals_the_port_on_cpu(tmp_path, config):
     G = max(s.n_global for s in pool)
     params = cell.reference.make_params(
         w, torch.Generator().manual_seed(5), "cpu")
-    session = core.make_session(cell, params, G, "cpu")
-    padded = core.ingest(pool, bucket, "cpu")
+    padded = cell.driver.ingest(pool, bucket, "cpu")
+    session = cell.driver.make_session(cell, params, G, "cpu", padded)
     states, outs = session.run_batched(padded)
     got_s = [cell.reference.port_state(states, b) for b in range(len(pool))]
     session.reset_state()

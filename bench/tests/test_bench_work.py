@@ -13,6 +13,10 @@ WIDTHS = {"in_dim": 64, "hidden": 128, "out_dim": 64, "edge_dim": 8,
           "n_gnn_layers": 2}
 
 
+REPLAY = core.load_module(ROOT / "bench/drivers/replay.py", "driver",
+                         "replay")
+
+
 def work(name):
     return core.load_module(ROOT / "bench/work" / f"{name}.py", "work", name)
 
@@ -70,5 +74,5 @@ def test_count_reads_only_the_benchmarks_inputs(name):
     before = work(name).count(s, WIDTHS)
     for bucket in (traffic["bucket"],
                    {"n_pad": 1024, "e_pad": 8192, "k_max": 96}):
-        core.ingest([s], bucket, "cpu")
+        REPLAY.ingest([s], bucket, "cpu")
         assert work(name).count(s, WIDTHS) == before
